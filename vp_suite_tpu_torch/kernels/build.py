@@ -1,0 +1,98 @@
+r"""Builds and loads the port's CUDA C++ kernels.
+
+Each ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with :mod:`ctypes`. The build
+happens at first use, into ``kernels/_build/`` (listed in ``.gitignore``); the
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing is compiled
+while a module is imported. :func:`build_all` starts one ``nvcc`` per source,
+all at once, and waits for them together.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+
+def find_nvcc() -> str:
+    r"""The ``nvcc`` on ``PATH``, else the one under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME and /usr/local/cuda); "
+                       "the port's CUDA kernels are built from source at first use")
+
+
+def library_path(source: str) -> Path:
+    r"""Where the library built from ``csrc/<source>`` goes."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all(sources=None, verbose: bool = False) -> dict:
+    r"""Compiles each of ``sources`` (names under ``csrc/``; default: every
+    ``*.cu`` there) whose library is not built yet, one ``nvcc`` process per
+    source, all started together; returns ``{source: library path}``.
+    ``verbose`` rebuilds with ``-Xptxas -v`` and prints what the compiler says
+    (registers, shared memory, spills)."""
+    if sources is None:
+        sources = sorted(p.name for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs, jobs = {}, []
+    try:
+        for source in sources:
+            out = outs[source] = library_path(source)
+            if out.exists() and not verbose:
+                continue
+            # build into a private file, then rename: a concurrent build never loads half a library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                   "-o", tmp, str(CSRC / source)]
+            jobs.append((source, cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for source, cmd, tmp, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source} ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+            if verbose:
+                print(log, end="")
+            os.replace(tmp, outs[source])
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return outs
+
+
+@functools.cache
+def scan_library() -> ctypes.CDLL:
+    r"""The ConvLSTM scan library (``csrc/convlstm_scan.cu``), built on first
+    call, with its C signatures declared."""
+    lib = ctypes.CDLL(str(build_all(["convlstm_scan.cu"])["convlstm_scan.cu"]))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.vp_convlstm_scan_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                         i, i, i, i, i, vp]
+    lib.vp_convlstm_scan_fwd.restype = i
+    lib.vp_cuda_error_string.argtypes = [i]
+    lib.vp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
