@@ -5,6 +5,9 @@ r"""The port's ConvLSTM gate block against the JAX package's.
 held against on the card) must match the JAX Pallas kernel, run here in
 interpret mode, and the JAX plain reference. f32: atol 1e-5. bf16 inputs:
 both sides compute in f32 and round once, so they agree to 1 bf16 ulp.
+The gate's autograd Function (K1 forward, K2 backward; their plain versions
+here) must give the JAX kernel's custom-VJP gradients, and its plain
+backward must equal autograd of the plain forward: f32, atol 1e-4.
 """
 import importlib
 
@@ -91,3 +94,39 @@ def test_gate_fuse_rejects_bad_shapes(bad):
         c = c[0]
     with pytest.raises(ValueError):
         cells.convlstm_gate_fuse(gates, c, wci, wcf, wco)
+
+
+def _cotangents(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+
+
+def test_gate_function_grads_match_jax(pallas_interpret):
+    pc = pallas_interpret
+    arrs = _data(seed=4)
+    wh, wc = _cotangents(5, arrs[1].shape)
+
+    def jax_loss(*a):
+        h, c = pc.convlstm_gate_fuse(*a)
+        return jnp.sum(h * wh) + jnp.sum(c * wc)
+
+    want = jax.grad(jax_loss, argnums=tuple(range(5)))(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    h, c = cells.convlstm_gate_fuse(*ts)
+    got = torch.autograd.grad((h * torch.from_numpy(wh)).sum() + (c * torch.from_numpy(wc)).sum(),
+                              ts)
+    for name, g, w in zip(("gates", "c", "wci", "wcf", "wco"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4, err_msg=name)
+
+
+def test_gate_backward_reference_matches_autograd():
+    arrs = [torch.from_numpy(a) for a in _data(seed=6)]
+    dh, dc = (torch.from_numpy(x) for x in _cotangents(7, tuple(arrs[1].shape)))
+    leaves = [a.clone().requires_grad_() for a in arrs[:2]]
+    h, c = cells.convlstm_gate_reference(*leaves, *arrs[2:])
+    want = torch.autograd.grad((h * dh).sum() + (c * dc).sum(), leaves)
+    got = cells.convlstm_gate_backward_reference(*arrs, dh, dc)
+    assert got[0].shape == arrs[0].shape and got[1].shape == arrs[1].shape
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4)
+    assert cells.convlstm_gate_backward.launches == 0

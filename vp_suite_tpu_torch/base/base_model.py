@@ -24,6 +24,7 @@ class VPModel(nn.Module):
     TRAINABLE = True
     NEEDS_COMPLETE_INPUT = False
     MIN_CONTEXT_FRAMES = 1
+    TRAIN_REGIME = "default"        #: "default", "teacher_forcing" or "scheduled_sampling"
 
     # --- common hyperparameters ---
     img_shape = None                #: (c, h, w), the reference's ordering.

@@ -1,7 +1,9 @@
 // Whole-recurrence ConvLSTM forward scan (peephole ConvLSTM, Shi et al.) for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernel ops/pallas_convlstm.py:_make_scan_kernel, reached
-// through _fwd_call with save_gates=False (public entry convlstm_scan_fused).
+// through _fwd_call (public entry convlstm_scan_fused): its inference form (save_gates=False,
+// K3) and its training form (save_gates=True, K3s), which also streams out the residuals that
+// the reverse-time backward (convlstm_scan_bwd.cu) consumes.
 //
 // For each step t, batch item, pixel (y, x) and hidden channel j, with gates g in (i, f, c, o):
 //   z_g = sum_{dy,dx,k} h_{t-1}[y+dy-1, x+dx-1, k] * W[dy, dx, k, g*enc + j] + bias[g*enc + j]
@@ -10,11 +12,14 @@
 //   h = o*tanh(c')
 // The 3x3 taps read zeros outside the image. Products are taken in the activation type (bf16
 // or f32) and summed in f32, the gate math is f32, the cell carry c stays f32 and h is rounded
-// to the activation type: the TPU kernel's rules.
+// to the activation type: the TPU kernel's rules. With residuals asked for, step t also writes
+// z [T, b, sh, sw, 4enc] (the conv layout: gate g of channel j at g*enc + j, so the backward's
+// d_i2h is z's gradient as it stands) and the pre-update cell c_{t-1} [T, b, sh, sw, enc], both
+// rounded to the activation type; h_seq is the same bit for bit either way.
 //
 // Bound: the hidden convolution, 2*sh*sw*9enc*4enc operations per step and batch item, makes
 // the scan compute-bound on this card. At b=32 and 64x64x64 one step is 38.7 GFLOP against
-// some 30 MB of h, c and i2h traffic.
+// some 30 MB of h, c and i2h traffic (and 40 MB more of residuals when they are saved).
 //
 // Design: one cooperative launch covers all T steps. A work tile is 16x4 output pixels by 16
 // hidden channels of one batch item, with all four gates of those channels (64 GEMM columns,
@@ -29,26 +34,17 @@
 // with f32 accumulation; f32 contracts with FMAs, so that it can be held tightly against the
 // plain version.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "convlstm_common.cuh"
 
 namespace cg = cooperative_groups;
+using namespace convlstm;
 
 namespace {
 
-constexpr int TILE_W = 16;               // output pixels per tile row (one WMMA row block)
-constexpr int TILE_H = 4;                // output rows per tile
-constexpr int TILE_P = TILE_W * TILE_H;  // 64 output pixels
-constexpr int HALO_W = TILE_W + 2;
-constexpr int HALO_H = TILE_H + 2;
-constexpr int HALO_P = HALO_W * HALO_H;  // 108 haloed input pixels
-constexpr int JC = 16;                   // hidden channels per tile
-constexpr int TN = 4 * JC;               // GEMM columns per tile: gates i, f, c, o of JC channels
-constexpr int LDC = TN + 4;              // row stride of the f32 accumulator tile
-constexpr int THREADS = 256;             // 8 warps; thread (r, cc) owns pixel column r, channel cc
+constexpr int TN = 4 * JC;       // GEMM columns per tile: gates i, f, c, o of JC channels
+constexpr int LDC = TN + 4;      // row stride of the f32 accumulator tile
 
 struct ScanParams {
   const void* i2h;    // [T, b, sh, sw, 4enc] or nullptr (decode mode)
@@ -60,31 +56,11 @@ struct ScanParams {
   const void* wcf;
   const void* wco;
   void* h_seq;        // [T, b, sh, sw, enc]
+  void* z_seq;        // [T, b, sh, sw, 4enc] gate pre-activations, or nullptr (no residuals)
+  void* c_prev_seq;   // [T, b, sh, sw, enc] pre-update cells, or nullptr
   int T, b, sh, sw, enc;
   int tiles_x, tiles_y, tiles_j, n_tiles;
 };
-
-template <typename T> struct Traits;
-template <> struct Traits<float> {
-  static constexpr int PAD = 4;   // shared-memory row padding in elements (rows stay 16-byte aligned)
-  static constexpr int VEC = 4;   // elements per 16-byte load
-};
-template <> struct Traits<__nv_bfloat16> {
-  static constexpr int PAD = 16;  // rows stay 32-byte aligned, as WMMA loads require
-  static constexpr int VEC = 8;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
 template <typename T>
 __host__ __device__ size_t smem_a_bytes(int enc) {
@@ -177,8 +153,14 @@ __device__ __forceinline__ void tile_gemm(const __nv_bfloat16* sA, __nv_bfloat16
     for (int q = 0; q < 4; ++q) z[m][q] = sC[(m * TILE_W + r) * LDC + q * JC + cc];
 }
 
+// Resident blocks per SM that the register budget must allow: three in bf16 (at most 85
+// registers a thread; with more, occupancy falls to two blocks and the scan runs some 12%
+// slower), two in f32, where shared memory allows no more at enc=96.
+template <typename T> struct MinBlocks { static constexpr int value = 2; };
+template <> struct MinBlocks<__nv_bfloat16> { static constexpr int value = 3; };
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS) convlstm_scan_kernel(ScanParams p) {
+__global__ void __launch_bounds__(THREADS, MinBlocks<T>::value) convlstm_scan_kernel(ScanParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int enc = p.enc;
   const int lda = enc + Traits<T>::PAD;
@@ -188,8 +170,6 @@ __global__ void __launch_bounds__(THREADS) convlstm_scan_kernel(ScanParams p) {
   float* sC = reinterpret_cast<float*>(smem + smem_a_bytes<T>(enc) + smem_b_bytes<T>(enc));
   const int r = threadIdx.x / JC;
   const int cc = threadIdx.x % JC;
-  constexpr int V = Traits<T>::VEC;
-  const int vec_per_px = enc / V;
   const size_t plane = size_t(p.sh) * p.sw * enc;
   const T* wci = static_cast<const T*>(p.wci);
   const T* wcf = static_cast<const T*>(p.wcf);
@@ -201,41 +181,27 @@ __global__ void __launch_bounds__(THREADS) convlstm_scan_kernel(ScanParams p) {
                              : static_cast<const T*>(p.h_seq) + size_t(t - 1) * p.b * plane;
     T* h_out = static_cast<T*>(p.h_seq) + size_t(t) * p.b * plane;
     const T* x_t = p.i2h ? static_cast<const T*>(p.i2h) + size_t(t) * p.b * plane * 4 : nullptr;
+    T* z_out = p.z_seq ? static_cast<T*>(p.z_seq) + size_t(t) * p.b * plane * 4 : nullptr;
+    T* cp_out = p.z_seq ? static_cast<T*>(p.c_prev_seq) + size_t(t) * p.b * plane : nullptr;
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-      int rest = tile;
-      const int tj = rest % p.tiles_j;
-      rest /= p.tiles_j;
-      const int tx = rest % p.tiles_x;
-      rest /= p.tiles_x;
-      const int ty = rest % p.tiles_y;
-      const int bi = rest / p.tiles_y;
-      const int y0 = ty * TILE_H, x0 = tx * TILE_W, j0 = tj * JC;
-      const T* hb = h_prev + size_t(bi) * plane;
-
+      const TileIndex ti = tile_index(tile, p.tiles_x, p.tiles_y, p.tiles_j);
       __syncthreads();  // the previous tile is done with shared memory
-      for (int idx = threadIdx.x; idx < HALO_P * vec_per_px; idx += THREADS) {
-        const int hp = idx / vec_per_px, v = idx % vec_per_px;
-        const int gy = y0 + hp / HALO_W - 1, gx = x0 + hp % HALO_W - 1;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gy >= 0 && gy < p.sh && gx >= 0 && gx < p.sw)
-          val = *reinterpret_cast<const uint4*>(hb + (size_t(gy) * p.sw + gx) * enc + v * V);
-        *reinterpret_cast<uint4*>(sA + hp * lda + v * V) = val;
-      }
+      load_patch(sA, lda, h_prev + size_t(ti.bi) * plane, enc, 0, enc, ti.y0, ti.x0, p.sh, p.sw);
 
       float z[TILE_H][4];
 #pragma unroll
       for (int m = 0; m < TILE_H; ++m)
 #pragma unroll
         for (int q = 0; q < 4; ++q) z[m][q] = 0.0f;
-      tile_gemm(sA, sB, static_cast<const T*>(p.w), j0, enc, lda, ldb, r, cc, z, sC);
+      tile_gemm(sA, sB, static_cast<const T*>(p.w), ti.j0, enc, lda, ldb, r, cc, z, sC);
 
-      const int j = j0 + cc;
+      const int j = ti.j0 + cc;
 #pragma unroll
       for (int m = 0; m < TILE_H; ++m) {
-        const int gy = y0 + m, gx = x0 + r;
+        const int gy = ti.y0 + m, gx = ti.x0 + r;
         if (gy >= p.sh || gx >= p.sw) continue;
         const size_t pk = size_t(gy) * p.sw + gx;                 // pixel within the image
-        const size_t pix = size_t(bi) * p.sh * p.sw + pk;          // pixel within the batch
+        const size_t pix = size_t(ti.bi) * p.sh * p.sw + pk;       // pixel within the batch
         float zg[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -245,6 +211,11 @@ __global__ void __launch_bounds__(THREADS) convlstm_scan_kernel(ScanParams p) {
         const size_t ci = pix * enc + j;
         const size_t pi = pk * enc + j;
         const float c_prev = p.c[ci];
+        if (z_out) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) z_out[pix * 4 * enc + q * enc + j] = from_f<T>(zg[q]);
+          cp_out[ci] = from_f<T>(c_prev);
+        }
         const float ig = sigmoid_f(zg[0] + to_f(wci[pi]) * c_prev);
         const float fg = sigmoid_f(zg[1] + to_f(wcf[pi]) * c_prev);
         const float c_new = fg * c_prev + ig * tanhf(zg[2]);
@@ -292,12 +263,16 @@ cudaError_t launch(ScanParams p, cudaStream_t stream) {
 extern "C" {
 
 // Runs the whole scan on `stream`. Returns a cudaError_t (0 on success). All tensors are
-// contiguous; i2h, h0, w, wci, wcf, wco and h_seq are bf16 when is_bf16 is set, else f32.
+// contiguous; i2h, h0, w, wci, wcf, wco, h_seq, z_seq and c_prev_seq are bf16 when is_bf16 is
+// set, else f32. z_seq and c_prev_seq are both given (training residuals) or both null.
 int vp_convlstm_scan_fwd(int is_bf16, const void* i2h, const void* h0, float* c, const void* w,
                          const float* bias, const void* wci, const void* wcf, const void* wco,
-                         void* h_seq, int T, int b, int sh, int sw, int enc, void* stream) {
+                         void* h_seq, void* z_seq, void* c_prev_seq, int T, int b, int sh, int sw,
+                         int enc, void* stream) {
   if (T < 1 || b < 1 || sh < 1 || sw < 1 || enc < JC || enc % JC != 0) return cudaErrorInvalidValue;
-  ScanParams p{i2h, h0, c, w, bias, wci, wcf, wco, h_seq, T, b, sh, sw, enc, 0, 0, 0, 0};
+  if ((z_seq == nullptr) != (c_prev_seq == nullptr)) return cudaErrorInvalidValue;
+  ScanParams p{i2h, h0, c, w, bias, wci, wcf, wco, h_seq, z_seq, c_prev_seq,
+               T, b, sh, sw, enc, 0, 0, 0, 0};
   p.tiles_x = (sw + TILE_W - 1) / TILE_W;
   p.tiles_y = (sh + TILE_H - 1) / TILE_H;
   p.tiles_j = enc / JC;

@@ -38,9 +38,12 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    r"""Where the library built from ``csrc/<source>`` goes."""
+    r"""Where the library built from ``csrc/<source>`` goes (the name hashes
+    the source, the shared headers ``csrc/*.cuh`` and the flags)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
@@ -84,15 +87,28 @@ def build_all(sources=None, verbose: bool = False) -> dict:
     return outs
 
 
-@functools.cache
-def scan_library() -> ctypes.CDLL:
-    r"""The ConvLSTM scan library (``csrc/convlstm_scan.cu``), built on first
-    call, with its C signatures declared."""
-    lib = ctypes.CDLL(str(build_all(["convlstm_scan.cu"])["convlstm_scan.cu"]))
+def _load(source: str, fn: str, n_pointers: int) -> ctypes.CDLL:
+    r"""Builds ``csrc/<source>`` if needed and loads it, declaring ``fn`` as
+    ``int fn(int is_bf16, <n_pointers pointers>, int T, int b, int sh, int sw,
+    int enc, void* stream)`` and ``vp_cuda_error_string``."""
+    lib = ctypes.CDLL(str(build_all([source])[source]))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.vp_convlstm_scan_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                         i, i, i, i, i, vp]
-    lib.vp_convlstm_scan_fwd.restype = i
+    getattr(lib, fn).argtypes = [i] + [vp] * n_pointers + [i, i, i, i, i, vp]
+    getattr(lib, fn).restype = i
     lib.vp_cuda_error_string.argtypes = [i]
     lib.vp_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def scan_library() -> ctypes.CDLL:
+    r"""The ConvLSTM forward scan library (``csrc/convlstm_scan.cu``: K3 and
+    K3s), built on first call."""
+    return _load("convlstm_scan.cu", "vp_convlstm_scan_fwd", 11)
+
+
+@functools.cache
+def scan_bwd_library() -> ctypes.CDLL:
+    r"""The ConvLSTM scan backward library (``csrc/convlstm_scan_bwd.cu``:
+    K4), built on first call."""
+    return _load("convlstm_scan_bwd.cu", "vp_convlstm_scan_bwd", 10)

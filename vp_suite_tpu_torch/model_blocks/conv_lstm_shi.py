@@ -11,13 +11,18 @@ forms, as in the JAX package's block:
 - decode (no inputs): each step convolves ``h`` alone, with the bias.
 
 Each step's gate chain is :func:`vp_suite_tpu_torch.ops.cells.convlstm_gate_fuse`
-(the Triton kernel on CUDA tensors), so the JAX block's ``use_pallas`` has no
-counterpart here. ``use_fused_scan`` runs the whole recurrence as one launch
-of :func:`vp_suite_tpu_torch.ops.convlstm.convlstm_scan_fused` (for 3x3,
-stride-1, padding-1 cells whose input half is hoisted or absent). The JAX
+(the Triton kernels K1 forward and K2 backward on CUDA tensors), so the JAX
+block's ``use_pallas`` has no counterpart here. ``use_fused_scan`` runs the
+whole recurrence as one launch of
+:func:`vp_suite_tpu_torch.ops.convlstm.convlstm_scan_fused` (for 3x3,
+stride-1, padding-1 cells whose input half is hoisted or absent; K3 forward,
+K3s and K4 under training). Both paths train through the kernels' autograd
+Functions; the per-step path's backward (autograd over the cuDNN convs and
+the K2 Function) is the counterpart of the JAX package's hand-written
+recurrence VJP (``ops/scan_vjp.py``, ``remat_policy="scan_vjp"``). The JAX
 block's ``remat``, ``remat_policy`` and ``scan_unroll`` steer XLA's
-rematerialisation and loop unrolling; eager PyTorch inference has nothing
-they would steer, so they have no counterpart. The block is time-major
+rematerialisation and loop unrolling; eager PyTorch has nothing they would
+steer, so they have no counterpart. The block is time-major
 (``[t, b, ...]``), the JAX block's ``time_major=True``: the Encoder-Forecaster
 stack, its only user, runs time-major end to end.
 
@@ -90,9 +95,13 @@ class ConvLSTMShi(VPModelBlock):
         else:
             h0, c0 = states
             b = h0.shape[0]
-        # the whole recurrence runs in the activation dtype (mixed precision)
-        wci, wcf, wco = (p[0].permute(1, 2, 0).to(h0.dtype).contiguous()
+        # the whole recurrence runs in the activation dtype (mixed precision); the
+        # casts happen here, outside the kernels' autograd Functions, so that
+        # autograd hands f32 gradients back to the f32 parameters
+        dt = h0.dtype
+        wci, wcf, wco = (p[0].permute(1, 2, 0).to(dt).contiguous()
                          for p in (self.Wci, self.Wcf, self.Wco))
+        c0 = c0.to(dt)
 
         # the un-hoisted (concat) form needs x and h on the same spatial grid
         concat_ok = (inputs is not None and self.stride == 1
@@ -115,7 +124,7 @@ class ConvLSTMShi(VPModelBlock):
             else:
                 i2h_in, k_bias = i2h_t, torch.zeros_like(bias)
             outputs, (h_last, c_last) = convlstm_scan_fused(
-                i2h_in, h0, c0, h_weight.permute(2, 3, 1, 0), k_bias, wci, wcf, wco,
+                i2h_in, h0, c0, h_weight.permute(2, 3, 1, 0).to(dt), k_bias, wci, wcf, wco,
                 seq_len=seq_len)
         else:
             h, c = h0, c0

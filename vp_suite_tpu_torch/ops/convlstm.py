@@ -1,16 +1,29 @@
-r"""Whole-recurrence ConvLSTM forward scan: a CUDA kernel (K3) and its plain version.
+r"""Whole-recurrence ConvLSTM scan: CUDA kernels for its forward (K3, and
+K3s, which also saves the training residuals) and its reverse-time backward
+(K4), their plain versions, and the autograd Function that joins them.
 
-One call runs all ``seq_len`` steps of a peephole ConvLSTM whose input half is
-precomputed (``i2h_t``) or absent (decode mode, where the bias rides the
-hidden convolution): per step the 3x3 hidden convolution, the bias, the input
-half and the gate chain of :mod:`vp_suite_tpu_torch.ops.cells`. The carry is
-``h`` in the activation dtype and ``c`` in f32.
+One forward call runs all ``seq_len`` steps of a peephole ConvLSTM whose input
+half is precomputed (``i2h_t``) or absent (decode mode, where the bias rides
+the hidden convolution): per step the 3x3 hidden convolution, the bias, the
+input half and the gate chain of :mod:`vp_suite_tpu_torch.ops.cells`. The
+carry is ``h`` in the activation dtype and ``c`` in f32. Under training the
+forward also saves, per step, the gate pre-activations ``z`` ``[T, b, sh, sw,
+4enc]`` (the conv layout, so ``d_i2h`` is ``dz`` as it stands) and the
+pre-update cell ``c_prev`` ``[T, b, sh, sw, enc]``, both in the activation
+dtype. The backward walks time in reverse with the ``(dh, dc)`` carry in f32:
+the gate backward of each step, ``dz`` rounded to the activation dtype, and
+``dh`` of the previous step as the transposed 3x3 conv of ``dz``; it emits
+``dz`` per step and the f32 gradients of ``h0`` and ``c0``. The weight, bias
+and peephole gradients are bulk contractions outside the kernel, as the JAX
+package leaves them to XLA: the hidden kernel's by cuDNN's weight gradient
+over ``[h0, h_seq[:-1]]`` and ``dz``.
 
-The kernel (``csrc/convlstm_scan.cu``, whose header note gives its bound and
-design) replaces the JAX package's TPU kernel
-``ops/pallas_convlstm.py:_make_scan_kernel`` in its forward form
-(``save_gates=False``); it is built with ``nvcc`` at first use
-(:mod:`vp_suite_tpu_torch.kernels.build`) and called through ``ctypes``.
+The kernels (``csrc/convlstm_scan.cu`` and ``csrc/convlstm_scan_bwd.cu``,
+whose header notes give their bounds and designs) replace the JAX package's
+TPU kernels ``ops/pallas_convlstm.py:_make_scan_kernel`` (both forms of
+``save_gates``) and ``_make_bwd_kernel``; they are built with ``nvcc`` at
+first use (:mod:`vp_suite_tpu_torch.kernels.build`) and called through
+``ctypes``.
 """
 import torch
 import torch.nn.functional as F
@@ -43,23 +56,43 @@ def _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
         raise ValueError("the scan's tensors must lie on one device")
 
 
-def convlstm_scan_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
-    r"""Plain PyTorch version of the scan: a loop over time with ``F.conv2d``
-    and the gate chain, under the kernel's dtype rules (conv products of
-    activation-dtype values summed in f32, f32 gate math and cell carry, ``h``
-    rounded to the activation dtype). Same signature and return as
-    :func:`convlstm_scan_fused`."""
+def _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+    if z_seq.dim() != 5 or z_seq.shape[-1] % 4:
+        raise ValueError(f"z_seq must be [T, b, sh, sw, 4enc], got shape {tuple(z_seq.shape)}")
+    T, b, sh, sw, enc4 = z_seq.shape
+    enc = enc4 // 4
+    want = {"c_prev_seq": (c_prev_seq, (T, b, sh, sw, enc)), "dh_seq": (dh_seq, (T, b, sh, sw, enc)),
+            "dc_last": (dc_last, (b, sh, sw, enc)), "h_kernel": (h_kernel, (3, 3, enc, 4 * enc)),
+            "wci": (wci, (sh, sw, enc)), "wcf": (wcf, (sh, sw, enc)), "wco": (wco, (sh, sw, enc))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    tensors = (z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("the scan backward's tensors must lie on one device")
+
+
+def convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
+                                    save_gates=False):
+    r"""Plain PyTorch version of the forward scan: a loop over time with
+    ``F.conv2d`` and the gate chain, under the kernel's dtype rules (conv
+    products of activation-dtype values summed in f32, f32 gate math and cell
+    carry, ``h`` rounded to the activation dtype). Same signature and return
+    as :func:`convlstm_scan_forward`."""
     _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
     dt = h0.dtype
     w = h_kernel.to(dt).float().permute(3, 2, 0, 1)   # [4enc, enc, 3, 3]
     bias = bias.float()
     peep = [p.to(dt).float() for p in (wci, wcf, wco)]
     h, c = h0, c0.to(dt).float()
-    outs = []
+    outs, zs, c_prevs = [], [], []
     for t in range(seq_len):
         z = F.conv2d(h.float().permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1) + bias
         if i2h_t is not None:
             z = z + i2h_t[t].to(dt).float()
+        if save_gates:
+            zs.append(z.to(dt))
+            c_prevs.append(c.to(dt))
         zi, zf, zc, zo = z.chunk(4, dim=-1)
         i = torch.sigmoid(zi + peep[0] * c)
         f = torch.sigmoid(zf + peep[1] * c)
@@ -67,32 +100,23 @@ def convlstm_scan_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_le
         o = torch.sigmoid(zo + peep[2] * c)
         h = (o * torch.tanh(c)).to(dt)
         outs.append(h)
-    return torch.stack(outs), (h, c.to(dt))
+    result = (torch.stack(outs), c.to(dt))
+    return result + (torch.stack(zs), torch.stack(c_prevs)) if save_gates else result
 
 
-def convlstm_scan_fused(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len: int):
-    r"""Whole-scan fused ConvLSTM forward.
-
-    Args:
-        i2h_t: ``[T, b, sh, sw, 4*enc]`` precomputed input half (time-major),
-            or None (decode mode: bias-only input).
-        h0, c0: ``[b, sh, sw, enc]`` initial states; ``h0``'s dtype (bf16 or
-            f32) is the activation dtype.
-        h_kernel: ``[3, 3, enc, 4*enc]`` hidden-half conv kernel (gate order
-            i, f, c, o on the last axis).
-        bias: ``[4*enc]``, added in f32.
-        wci, wcf, wco: ``[sh, sw, enc]`` peepholes.
-        seq_len: T.
-
-    Returns ``(h_seq [T, b, sh, sw, enc], (h_last, c_last))``, all in the
-    activation dtype. On CPU tensors it computes
-    :func:`convlstm_scan_reference`; on CUDA tensors it launches the CUDA
-    kernel, which needs ``enc`` a multiple of 16, and raises on anything it
-    does not take.
-    """
+def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
+                          save_gates=False):
+    r"""The forward scan with no autograd: ``(h_seq [T, b, sh, sw, enc],
+    c_last)`` in the activation dtype (``h0``'s), and with ``save_gates``
+    also the residuals ``(z_seq [T, b, sh, sw, 4enc], c_prev_seq [T, b, sh,
+    sw, enc])`` in the activation dtype. On CPU tensors it computes
+    :func:`convlstm_scan_forward_reference`; on CUDA tensors it launches K3
+    (K3s with ``save_gates``), which needs ``enc`` a multiple of 16, and
+    raises on anything it does not take."""
     _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
     if h0.device.type == "cpu":
-        return convlstm_scan_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
+        return convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco,
+                                               seq_len, save_gates)
     if h0.device.type != "cuda":
         raise ValueError(f"convlstm_scan_fused runs on CPU or CUDA tensors, not {h0.device}")
     dt = h0.dtype
@@ -112,19 +136,202 @@ def convlstm_scan_fused(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len: i
     # a private f32 copy that the kernel updates in place: c0 in, c_last out
     c = c0.to(dt).to(torch.float32, memory_format=torch.contiguous_format, copy=True)
     h_seq = torch.empty((seq_len, b, sh, sw, enc), dtype=dt, device=h0.device)
+    z_seq = c_prev_seq = None
+    if save_gates:
+        z_seq = torch.empty((seq_len, b, sh, sw, 4 * enc), dtype=dt, device=h0.device)
+        c_prev_seq = torch.empty_like(h_seq)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.scan_library()
     with torch.cuda.device(h0.device):
         err = lib.vp_convlstm_scan_fwd(
-            int(dt == torch.bfloat16), None if i2h_t is None else i2h_t.data_ptr(),
-            h0.data_ptr(), c.data_ptr(), h_kernel.data_ptr(), bias.data_ptr(),
-            wci.data_ptr(), wcf.data_ptr(), wco.data_ptr(), h_seq.data_ptr(),
-            seq_len, b, sh, sw, enc, torch.cuda.current_stream().cuda_stream)
+            int(dt == torch.bfloat16), ptr(i2h_t), h0.data_ptr(), c.data_ptr(),
+            h_kernel.data_ptr(), bias.data_ptr(), wci.data_ptr(), wcf.data_ptr(), wco.data_ptr(),
+            h_seq.data_ptr(), ptr(z_seq), ptr(c_prev_seq), seq_len, b, sh, sw, enc,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"convlstm_scan_fused: kernel launch failed: "
                            f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+    if save_gates:
+        convlstm_scan_fused.save_gates_launches += 1
+        return h_seq, c.to(dt), z_seq, c_prev_seq
     convlstm_scan_fused.launches += 1
-    return h_seq, (h_seq[-1], c.to(dt))
+    return h_seq, c.to(dt)
 
 
-#: Launches of the CUDA kernel since the count was last set to 0.
+def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+    r"""Plain PyTorch version of the reverse-time scan backward, under the
+    kernel's dtype rules: activations recomputed in f32 from the residuals,
+    ``(dh, dc)`` carried in f32, ``dz`` rounded to the activation dtype
+    (``z_seq``'s) before it is stored and before the transposed conv (a
+    ``F.conv_transpose2d`` with the forward's weight). Same signature and
+    return as :func:`convlstm_scan_backward`."""
+    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    dt = z_seq.dtype
+    w = h_kernel.to(dt).float().permute(3, 2, 0, 1)   # conv_transpose2d's [in=4enc, out=enc, 3, 3]
+    wci, wcf, wco = (p.to(dt).float() for p in (wci, wcf, wco))
+    dh = torch.zeros(dc_last.shape, dtype=torch.float32, device=dc_last.device)
+    dc = dc_last.to(dt).float()
+    dzs = []
+    for t in reversed(range(z_seq.shape[0])):
+        zi, zf, zc, zo = z_seq[t].float().chunk(4, dim=-1)
+        c = c_prev_seq[t].float()
+        i = torch.sigmoid(zi + wci * c)
+        f = torch.sigmoid(zf + wcf * c)
+        g = torch.tanh(zc)
+        c_new = f * c + i * g
+        o = torch.sigmoid(zo + wco * c_new)
+        t2 = torch.tanh(c_new)
+        dh = dh + dh_seq[t].to(dt).float()
+        dzo = dh * t2 * o * (1.0 - o)
+        dc2 = dc + dh * o * (1.0 - t2 * t2) + dzo * wco
+        dzi = dc2 * g * i * (1.0 - i)
+        dzf = dc2 * c * f * (1.0 - f)
+        dgc = dc2 * i * (1.0 - g * g)
+        dz = torch.cat([dzi, dzf, dgc, dzo], dim=-1).to(dt)
+        dzs.append(dz)
+        dc = dc2 * f + dzi * wci + dzf * wcf
+        dh = F.conv_transpose2d(dz.float().permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    return torch.stack(dzs[::-1]), dh.contiguous(), dc
+
+
+def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+    r"""The scan's reverse-time backward from its residuals.
+
+    Args:
+        z_seq, c_prev_seq: the forward's residuals (``convlstm_scan_forward``
+            with ``save_gates``); their dtype is the activation dtype.
+        dh_seq: ``[T, b, sh, sw, enc]`` gradient of ``h_seq`` (the gradient of
+            ``h_last`` included in its last step).
+        dc_last: ``[b, sh, sw, enc]`` gradient of ``c_last``.
+        h_kernel, wci, wcf, wco: the forward's weights and peepholes.
+
+    Returns ``(dz_seq [T, b, sh, sw, 4enc]`` in the activation dtype, ``dh0``,
+    ``dc0)``, the last two f32. On CPU tensors it computes
+    :func:`convlstm_scan_backward_reference`; on CUDA tensors it launches K4,
+    which needs ``enc`` a multiple of 16, and raises on anything it does not
+    take.
+    """
+    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    if z_seq.device.type == "cpu":
+        return convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
+                                                wci, wcf, wco)
+    if z_seq.device.type != "cuda":
+        raise ValueError(f"convlstm_scan_backward runs on CPU or CUDA tensors, not {z_seq.device}")
+    dt = z_seq.dtype
+    if dt not in (torch.float32, torch.bfloat16) or c_prev_seq.dtype != dt:
+        raise TypeError(f"convlstm_scan_backward takes bfloat16 or float32 residuals of one "
+                        f"dtype, not {dt} and {c_prev_seq.dtype}")
+    T, b, sh, sw, enc = c_prev_seq.shape
+    if enc % 16:
+        raise ValueError(f"the scan kernel tiles 16 hidden channels at a time: enc={enc} "
+                         f"is not a multiple of 16")
+    z_seq, c_prev_seq = z_seq.contiguous(), c_prev_seq.contiguous()
+    dh_seq = dh_seq.to(dt).contiguous()
+    h_kernel = h_kernel.to(dt).contiguous()
+    wci, wcf, wco = (p.to(dt).contiguous() for p in (wci, wcf, wco))
+    # a private f32 copy that the kernel updates in place: dc_last in, dc0 out
+    dc = dc_last.to(dt).to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    dz_seq = torch.empty_like(z_seq)
+    dh0 = torch.empty((b, sh, sw, enc), dtype=torch.float32, device=z_seq.device)
+    lib = build.scan_bwd_library()
+    with torch.cuda.device(z_seq.device):
+        err = lib.vp_convlstm_scan_bwd(
+            int(dt == torch.bfloat16), z_seq.data_ptr(), c_prev_seq.data_ptr(), dh_seq.data_ptr(),
+            dc.data_ptr(), h_kernel.data_ptr(), wci.data_ptr(), wcf.data_ptr(), wco.data_ptr(),
+            dz_seq.data_ptr(), dh0.data_ptr(), T, b, sh, sw, enc,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"convlstm_scan_backward: kernel launch failed: "
+                           f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+    convlstm_scan_backward.launches += 1
+    return dz_seq, dh0, dc
+
+
+class ScanFunction(torch.autograd.Function):
+    r"""The scan under autograd. Forward K3, or K3s when ``save`` asks for
+    the training residuals; backward K4 plus the bulk weight, bias and
+    peephole contractions (plain versions on the CPU). Gradients come back in
+    each input's dtype; inputs that need none get None, and the hidden
+    kernel's cuDNN weight gradient is skipped when the kernel is frozen."""
+
+    @staticmethod
+    def forward(ctx, i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save):
+        if not save:
+            return convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
+        h_seq, c_last, z_seq, c_prev_seq = convlstm_scan_forward(
+            i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates=True)
+        ctx.save_for_backward(z_seq, c_prev_seq, h_seq, h0, c_last, h_kernel, bias, wci, wcf, wco)
+        ctx.dtypes = (None if i2h_t is None else i2h_t.dtype, c0.dtype)
+        return h_seq, c_last
+
+    @staticmethod
+    def backward(ctx, dh_seq, dc_last):
+        z_seq, c_prev_seq, h_seq, h0, c_last, h_kernel, bias, wci, wcf, wco = ctx.saved_tensors
+        i2h_dtype, c0_dtype = ctx.dtypes
+        need = ctx.needs_input_grad
+        dz_seq, dh0, dc0 = convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
+                                                  wci, wcf, wco)
+        T, b, sh, sw, enc = c_prev_seq.shape
+        d_hk = d_bias = None
+        if need[3]:
+            h_prev = torch.cat([h0[None], h_seq[:-1]]).reshape(T * b, sh, sw, enc)
+            d_hk = torch.nn.grad.conv2d_weight(
+                h_prev.permute(0, 3, 1, 2), (4 * enc, enc, 3, 3),
+                dz_seq.reshape(T * b, sh, sw, 4 * enc).permute(0, 3, 1, 2), padding=1)
+            d_hk = d_hk.permute(2, 3, 1, 0).to(h_kernel.dtype)
+        if need[4]:
+            d_bias = dz_seq.float().sum((0, 1, 2, 3)).to(bias.dtype)
+        dz_f, c_prev_f = dz_seq.float(), c_prev_seq.float()
+        d_peep = [None, None, None]
+        for k, (gate, p) in enumerate(((0, wci), (1, wcf), (3, wco))):
+            if need[5 + k]:
+                cell = c_prev_f if gate < 3 else torch.cat([c_prev_f[1:], c_last.float()[None]])
+                dz_g = dz_f[..., gate * enc:(gate + 1) * enc]
+                d_peep[k] = (dz_g * cell).sum((0, 1)).to(p.dtype)
+        return (dz_seq.to(i2h_dtype) if need[0] else None,
+                dh0.to(h0.dtype) if need[1] else None,
+                dc0.to(c0_dtype) if need[2] else None,
+                d_hk, d_bias, *d_peep, None, None)
+
+
+def convlstm_scan_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
+    r"""Plain PyTorch version of :func:`convlstm_scan_fused`, differentiable
+    by autograd: same signature and return."""
+    h_seq, c_last = convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco,
+                                                    seq_len)
+    return h_seq, (h_seq[-1], c_last)
+
+
+def convlstm_scan_fused(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len: int):
+    r"""Whole-scan fused ConvLSTM, differentiable.
+
+    Args:
+        i2h_t: ``[T, b, sh, sw, 4*enc]`` precomputed input half (time-major),
+            or None (decode mode: bias-only input).
+        h0, c0: ``[b, sh, sw, enc]`` initial states; ``h0``'s dtype (bf16 or
+            f32) is the activation dtype.
+        h_kernel: ``[3, 3, enc, 4*enc]`` hidden-half conv kernel (gate order
+            i, f, c, o on the last axis).
+        bias: ``[4*enc]``, added in f32.
+        wci, wcf, wco: ``[sh, sw, enc]`` peepholes.
+        seq_len: T.
+
+    Returns ``(h_seq [T, b, sh, sw, enc], (h_last, c_last))``, all in the
+    activation dtype; ``h_last`` is ``h_seq[-1]``. Runs :class:`ScanFunction`:
+    on CUDA tensors K3 (K3s and, in the backward, K4 when grad mode is on
+    and some input requires grad; ``enc`` must be a multiple of 16), on CPU
+    tensors their plain versions.
+    """
+    _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
+    tensors = (i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco)
+    save = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+    h_seq, c_last = ScanFunction.apply(*tensors, seq_len, save)
+    return h_seq, (h_seq[-1], c_last)
+
+
+#: Launches of K3 (the forward without residuals) since the count was last set to 0.
 convlstm_scan_fused.launches = 0
+#: Launches of K3s (the forward that saves the training residuals).
+convlstm_scan_fused.save_gates_launches = 0
+#: Launches of K4 since the count was last set to 0.
+convlstm_scan_backward.launches = 0
