@@ -19,20 +19,29 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    ``convlstm_scan_backward_reference`` at the fused training path's six
    launch shapes, and the scan's eight input gradients through its autograd
    Function against autograd of the plain forward;
-5. drives the serving path: ``VPSuite()`` -> ``create_model("convlstm-shi")``
-   at 64x64 RGB in bf16 -> ``predict(32 x 5 frames, pred_frames=10)``, once
-   per-step (K1) and once with ``use_fused_scan`` (K3), with the kernels'
-   launch counts set to 0 just before and read just after; checks the
-   predictions, and at b=2 holds them against the same weights run on the CPU
-   in f32;
-6. drives the training path: ``create_train_state`` and ``make_train_step``
+5. holds the multi-flow bilinear warp's forward and backward kernels (CUDA
+   C++) against ``warp_sample_reference`` and
+   ``warp_sample_backward_reference`` at EF-TrajGRU's three layer shapes
+   (b=32, L=13), in f32 and bf16, on flows of a few pixels, some of which
+   leave the image, and the warp's three gradients through its autograd
+   Function against autograd of the plain forward;
+6. drives the serving path: ``VPSuite()`` -> ``create_model`` at 64x64 RGB
+   in bf16 -> ``predict(32 x 5 frames, pred_frames=10)`` for EF-ConvLSTM
+   per-step (K1) and with ``use_fused_scan`` (K3), and for EF-TrajGRU
+   (``"trajgru"``: the warp forward), with the kernels' launch counts set to 0
+   just before each and read just after; checks the predictions, and at b=2
+   holds them against the same weights run on the CPU in f32;
+7. drives the training path: ``create_train_state`` and ``make_train_step``
    (Adam, lr 1e-4, MSE) on the same models' configurations, b=32, 5 -> 10,
-   bf16, per-step (K1 + K2) and fused (K3s + K4), with the counts set to 0
-   just before the first step and read just after; checks losses, gradients
-   and launch counts, and at b=2 holds one f32 SGD step on the card against
-   the same step on the CPU;
-7. times each kernel at the shapes its path gives it, beside its plain
-   version and its bound, and times ``predict`` and the train step.
+   bf16: EF-ConvLSTM per-step (K1 + K2) and fused (K3s + K4), EF-TrajGRU (the
+   warp forward and backward), with the counts set to 0 just before the first
+   step and read just after; checks losses, gradients and launch counts, and
+   at b=2 holds one f32 SGD step on the card against the same step on the
+   CPU;
+8. times each kernel at the shapes its path gives it, beside its plain
+   version, its bound and, for the warp, ``F.grid_sample`` (the one PyTorch
+   call that computes the same function), and times ``predict`` and the
+   train step.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -61,16 +70,31 @@ CTX, PRED = 5, 10           # context and predicted frames
 IMG = (3, 64, 64)           # (c, h, w)
 SEED = 0
 LR = 1e-4                   # Adam's learning rate (the run default)
-#: (side, channels) of EF-ConvLSTM's recurrent cells at 64x64.
+#: (side, channels) of EF-ConvLSTM's recurrent cells at 64x64, and of EF-TrajGRU's.
 CELLS = ((64, 64), (32, 96), (16, 96))
-CONFIGS = {
-    "per_step": {},
-    "fused_scan": dict(use_fused_scan=True, interleaved_encode=False,
-                       interleaved_forecast=False),
+TRAJ_L = 13                 # EF-TrajGRU's flows per layer
+#: the paths driven: name -> (registry id, model configuration).
+PATHS = {
+    "per_step": ("convlstm-shi", {}),
+    "fused_scan": ("convlstm-shi", dict(use_fused_scan=True, interleaved_encode=False,
+                                        interleaved_forecast=False)),
+    "trajgru": ("trajgru", {}),
 }
-#: launches per train step on each path (EF-ConvLSTM, 3 layers, 5 -> 10).
-WANT_TRAIN_LAUNCHES = {"per_step": {"K1": 45, "K2": 45, "K3": 0, "K3s": 0, "K4": 0},
-                       "fused_scan": {"K1": 0, "K2": 0, "K3": 0, "K3s": 6, "K4": 6}}
+KERNEL_IDS = ("K1", "K2", "K3", "K3s", "K4", "warp_fwd", "warp_bwd")
+
+
+def _launches(**counts):
+    return {k: counts.get(k, 0) for k in KERNEL_IDS}
+
+
+#: launches per predict on each path (3 layers, 5 -> 10: 15 cell steps per
+#: layer); the fused path's K3 count is also held against the model's scans.
+WANT_PREDICT_LAUNCHES = {"per_step": _launches(K1=45), "fused_scan": _launches(K3=6),
+                         "trajgru": _launches(warp_fwd=45)}
+#: launches per train step on each path.
+WANT_TRAIN_LAUNCHES = {"per_step": _launches(K1=45, K2=45),
+                       "fused_scan": _launches(K3s=6, K4=6),
+                       "trajgru": _launches(warp_fwd=45, warp_bwd=45)}
 
 # Tolerances, with their reasons.
 #: K1/K2 f32: the same f32 formula; exp/tanh differ between Triton and PyTorch by ulps.
@@ -107,6 +131,20 @@ GRAD_REL_BF16 = 1e-2
 #: largest: measured up to 7.3e-3 (the faults above give 0.1 or more, and
 #: 5.4e-2 at c0).
 GRAD_REL_BF16_AUTOGRAD = 2e-2
+#: the warp forward, f32: the same f32 formula, products summed in another
+#: order (FMA on the card), on values of order 1.
+WARP_ATOL_F32 = 1e-5
+#: the warp forward, bf16: both sides round an f32 sum of the same four
+#: products, which differ by WARP_ATOL_F32 at most: one bf16 ulp of the value.
+WARP_BF16_ULPS = 1
+#: the warp backward and the warp's gradients through its Function, f32,
+#: relative to the largest of each kind: sums over c (d_iy, d_ix) and the
+#: f32 atomics (d_img) taken in another order.
+WARP_GRAD_REL_F32 = 1e-5
+#: bf16: d_img is an f32 sum rounded to bf16 on both sides, so one rounding
+#: may flip: one bf16 ulp of the largest (2^-7 of it), plus the f32 limit;
+#: d_iy and d_ix stay f32 sums of the same bf16 values.
+WARP_GRAD_REL_BF16 = 2 ** -7 + WARP_GRAD_REL_F32
 #: predict in f32 on the card (TF32 off) against the CPU in f32: 15 steps of
 #: sums taken in another order; the repo's golden tolerance.
 PREDICT_ATOL_F32 = 1e-4
@@ -212,16 +250,33 @@ def scan_bwd_cost(side, enc, steps, itemsize):
     return elems * itemsize + 2 * px * enc * 4, 2 * steps * px * 9 * 4 * enc * enc
 
 
+def warp_cost(side, ch, itemsize, backward=False):
+    r"""(bytes, ops) of one warp launch at b=32, L=13, P=side^2. Forward: the
+    image and the f32 indices read once, the [b, P, L, c] output written
+    once; 4 multiply-adds per output element. Backward: g, the image and the
+    indices read once, d_img (in the image's type) and the f32 index
+    gradients written once; per element of g 4 products for d_img, 4
+    additions into it and 8 operations for d_iy and d_ix."""
+    samples = B * side * side * TRAJ_L
+    img = B * side * side * ch * itemsize
+    if backward:
+        return samples * ch * itemsize + 2 * img + 4 * samples * 4, 16 * samples * ch
+    return img + 2 * samples * 4 + samples * ch * itemsize, 8 * samples * ch
+
+
 def bound_ms(nbytes, ops, peak_ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def summed(rows, peak_ops):
-    r"""Per-step totals of per-launch rows ``(count, ms, plain_ms, bytes, ops)``."""
+    r"""Per-step totals of per-launch rows ``(count, ms, plain_ms, bytes, ops)``
+    or ``(count, ms, plain_ms, bytes, ops, library_ms)``."""
     out = dict(ms=sum(n * r[0] for n, *r in rows), plain_ms=sum(n * r[1] for n, *r in rows))
     out["bound_ms"], out["bound_by"] = bound_ms(sum(n * r[2] for n, *r in rows),
                                                 sum(n * r[3] for n, *r in rows), peak_ops)
+    out["library_ms"] = sum(n * r[4] for n, *r in rows) if all(len(r) == 6 for r in rows) \
+        else None
     return out
 
 
@@ -256,17 +311,19 @@ def main():
 
     errs = {}
     suite = serving_suite()
-    scan_launches = fused_scan_launches(suite.models[1].model)
+    scan_launches = fused_scan_launches(suite.models[list(PATHS).index("fused_scan")].model)
     gate_inputs = check_gate_kernels(rnd, errs)
     check_scan_forward(rnd, errs)
     scan_inputs = check_scan_backward(rnd, errs, scan_launches)
+    warp_inputs = check_warp_kernels(rnd, errs)
     serve = drive_serving(suite, scan_launches)
     train = drive_training()
 
-    kernels = time_kernels(serve, train, gate_inputs, scan_inputs, rnd, errs)
+    kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     time_paths(serve, train)
-    print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3) "
-          f"or per train step (K2, K3s, K4), all of their launches, in bf16, on {card}")
+    print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
+          f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, in bf16, "
+          f"on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -426,39 +483,129 @@ def check_scan_backward(rnd, errs, scan_launches):
     return inputs
 
 
+def warp_args(rnd, side, ch):
+    r"""EF-TrajGRU's warp operands at one layer shape, b=32, L=13, f32:
+    indices a few pixels off each output pixel (N(0, 2)), a tenth of them
+    sent 0.6 of the image out of it; an image and a cotangent of the size a
+    mean-type loss hands down."""
+    import torch
+    P = side * side
+    grid = torch.arange(P, device="cuda")
+    oy = (grid // side).float().view(1, P, 1)
+    ox = (grid % side).float().view(1, P, 1)
+    idx = []
+    for o in (oy, ox):
+        far = (rnd(B, P, TRAJ_L) > 1.2816).float()          # the top tenth of N(0, 1)
+        side_sign = torch.sign(rnd(B, P, TRAJ_L))
+        idx.append(o + rnd(B, P, TRAJ_L, scale=2.0) + far * side_sign * 0.6 * side)
+    return [*idx, rnd(B, side, side, ch), rnd(B, P, TRAJ_L, ch, scale=1e-2)]
+
+
+def check_warp_kernels(rnd, errs):
+    r"""The warp's forward and backward kernels against their plain versions,
+    and its three gradients through ``WarpFunction`` against autograd of the
+    plain forward, at EF-TrajGRU's three layer shapes; returns the bf16
+    operands by shape, for the timings."""
+    import torch
+    from vp_suite_tpu_torch.ops.warp import (warp_sample, warp_sample_backward,
+                                             warp_sample_backward_reference,
+                                             warp_sample_forward, warp_sample_reference)
+    errs["warp_fwd"] = errs["warp_bwd"] = 0.0
+    inputs = {}
+    names = ("d_iy", "d_ix", "d_img")
+    for side, ch in CELLS:
+        base = warp_args(rnd, side, ch)
+        out_of_image = ((base[0] < 0) | (base[0] > side - 1) | (base[1] < 0)
+                        | (base[1] > side - 1)).float().mean().item()
+        for dt in (torch.float32, torch.bfloat16):
+            iy, ix, img, g = base[0], base[1], base[2].to(dt), base[3].to(dt)
+            got = warp_sample_forward(iy, ix, img)
+            torch.cuda.synchronize()
+            want = warp_sample_reference(iy, ix, img)
+            e_fwd = max_err(got, want)
+            if dt == torch.float32:
+                ok_fwd = e_fwd <= WARP_ATOL_F32
+                tol_fwd = f"atol {WARP_ATOL_F32}"
+            else:
+                ok_fwd = bool(((got.float() - want.float()).abs()
+                               <= WARP_BF16_ULPS * bf16_ulp(want) + WARP_ATOL_F32).all())
+                tol_fwd = f"{WARP_BF16_ULPS} bf16 ulp + {WARP_ATOL_F32}"
+            ok_fwd = ok_fwd and got.dtype == dt and got.shape == want.shape
+
+            got_b = warp_sample_backward(iy, ix, img, g)
+            torch.cuda.synchronize()
+            want_b = warp_sample_backward_reference(iy, ix, img, g)
+            rel = WARP_GRAD_REL_F32 if dt == torch.float32 else WARP_GRAD_REL_BF16
+            e_bwd = [rel_err(q, w) for q, w in zip(got_b, want_b)]
+            ok_bwd = max(e_bwd) <= rel and all(q.dtype == w.dtype for q, w in zip(got_b, want_b))
+
+            grads = []
+            for fn in (warp_sample, warp_sample_reference):
+                leaves = [a.detach().clone().requires_grad_() for a in (iy, ix, img)]
+                grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+            e_fn = [rel_err(q, w) for q, w in zip(*grads)]
+            ok_fn = max(e_fn) <= rel
+            del grads
+            if dt == torch.bfloat16:
+                errs["warp_fwd"] = max(errs["warp_fwd"], e_fwd)
+                errs["warp_bwd"] = max(errs["warp_bwd"], *(max_err(q, w)
+                                                           for q, w in zip(got_b, want_b)))
+                inputs[(side, ch)] = (iy, ix, img, g)
+            print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L} {str(dt)[6:]} "
+                  f"({out_of_image:.1%} of the samples out of the image): forward max err "
+                  f"{e_fwd:.3g} ({tol_fwd}); backward "
+                  + ", ".join(f"{n} {x:.3g}" for n, x in zip(names, e_bwd))
+                  + "; through the Function against autograd of the plain forward "
+                  + ", ".join(f"{n} {x:.3g}" for n, x in zip(names, e_fn))
+                  + f" (relative to the largest, tol {rel:.3g}): "
+                  f"{'ok' if ok_fwd and ok_bwd and ok_fn else 'FAIL'}")
+            check(ok_fwd, f"the warp forward disagrees with warp_sample_reference at "
+                          f"{side}x{side}x{ch} {dt}")
+            check(ok_bwd, f"the warp backward disagrees with warp_sample_backward_reference at "
+                          f"{side}x{side}x{ch} {dt}")
+            check(ok_fn, f"the warp's gradients disagree with autograd of the plain forward at "
+                         f"{side}x{side}x{ch} {dt}")
+    return inputs
+
+
+def create_models(suite, **kw):
+    r"""One model per path in ``suite``, at 64x64 RGB from the seed; returns
+    their indices by path."""
+    for model_id, cfg in PATHS.values():
+        suite.create_model(model_id, img_shape=IMG, action_size=0, tensor_value_range=(0.0, 1.0),
+                           seed=SEED, **kw, **cfg)
+    return {name: i for i, name in enumerate(PATHS)}
+
+
 def serving_suite():
-    r"""A ``VPSuite`` on the card with EF-ConvLSTM at 64x64 in bf16, one
-    model per configuration."""
+    r"""A ``VPSuite`` on the card with one model per path, in bf16."""
     import torch
     from vp_suite_tpu_torch import VPSuite
     suite = VPSuite()
-    for cfg in CONFIGS.values():
-        suite.create_model("convlstm-shi", compute_dtype=torch.bfloat16, img_shape=IMG,
-                           action_size=0, tensor_value_range=(0.0, 1.0), seed=SEED, **cfg)
+    create_models(suite, compute_dtype=torch.bfloat16)
     return suite
 
 
 def drive_serving(suite, scan_launches):
-    r"""``predict`` in both configurations, with K1 and K3 counted."""
+    r"""``predict`` on each path, with the kernels counted around each call."""
     import torch
     from vp_suite_tpu_torch import VPSuite
-    model_kw = dict(img_shape=IMG, action_size=0, tensor_value_range=(0.0, 1.0), seed=SEED)
     frames = torch.rand((B, CTX, IMG[1], IMG[2], IMG[0]),
                         generator=torch.Generator().manual_seed(SEED))
 
-    counters = reset_counts()
-    preds = {name: suite.predict(frames, pred_frames=PRED, model_idx=i)
-             for i, name in enumerate(CONFIGS)}
-    torch.cuda.synchronize()
-    launches = read_counts(counters)
-    print(f"[predict] kernel launches in one predict per configuration: "
-          + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    check(launches["K1"] > 0, "the per-step serving path launched K1 no time")
-    check(launches["K3"] == len(scan_launches),
-          f"the fused-scan serving path launched K3 {launches['K3']} times, not once for each "
-          f"of its {len(scan_launches)} scans {scan_launches}")
-    check(launches["K2"] == launches["K3s"] == launches["K4"] == 0,
-          "predict, which needs no gradient, launched a training kernel")
+    preds, launches = {}, {}
+    for i, name in enumerate(PATHS):
+        counters = reset_counts()
+        preds[name] = suite.predict(frames, pred_frames=PRED, model_idx=i)
+        torch.cuda.synchronize()
+        launches[name] = read_counts(counters)
+        print(f"[predict] {name}: kernel launches in one predict: "
+              + ", ".join(f"{k} {v}" for k, v in launches[name].items()))
+        check(launches[name] == WANT_PREDICT_LAUNCHES[name],
+              f"{name}: one predict launched {launches[name]}, not {WANT_PREDICT_LAUNCHES[name]}")
+    check(launches["fused_scan"]["K3"] == len(scan_launches),
+          f"the fused-scan serving path launched K3 {launches['fused_scan']['K3']} times, not "
+          f"once for each of its {len(scan_launches)} scans {scan_launches}")
 
     want_shape = (B, PRED, IMG[1], IMG[2], IMG[0])
     for name, p in preds.items():
@@ -474,17 +621,16 @@ def drive_serving(suite, scan_launches):
     check(d_ab <= PREDICT_ATOL_BF16, "per-step and fused-scan predictions disagree")
 
     cpu_suite, f32_suite = VPSuite(device="cpu"), VPSuite()
-    for cfg in CONFIGS.values():
-        cpu_suite.create_model("convlstm-shi", **model_kw, **cfg)
-        f32_suite.create_model("convlstm-shi", compute_dtype=torch.float32, **model_kw, **cfg)
-    for i, name in enumerate(CONFIGS):
+    create_models(cpu_suite)
+    create_models(f32_suite, compute_dtype=torch.float32)
+    for i, name in enumerate(PATHS):
         ref = cpu_suite.predict(frames[:2], pred_frames=PRED, model_idx=i)
         d32 = (f32_suite.predict(frames[:2], pred_frames=PRED, model_idx=i).cpu() - ref)
         d32 = d32.abs().max().item()
         d16 = (preds[name][:2].cpu() - ref).abs().max().item()
         print(f"[predict] {name} b=2 against the CPU in f32: card f32 max diff {d32:.3g} "
               f"(atol {PREDICT_ATOL_F32}), card bf16 max diff {d16:.3g} "
-              f"(atol {PREDICT_ATOL_BF16})")
+              f"(atol {PREDICT_ATOL_BF16}); |pred| max {ref.abs().max().item():.3g}")
         check(d32 <= PREDICT_ATOL_F32, f"{name}: f32 predict on the card disagrees with the CPU")
         check(d16 <= PREDICT_ATOL_BF16, f"{name}: bf16 predict on the card disagrees with the CPU")
     return dict(suite=suite, frames=frames, launches=launches, scan_launches=scan_launches)
@@ -494,10 +640,13 @@ def reset_counts():
     r"""Sets every kernel's launch count to 0; returns the counters by kernel id."""
     from vp_suite_tpu_torch.ops.cells import convlstm_gate_backward, convlstm_gate_fuse
     from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_backward, convlstm_scan_fused
+    from vp_suite_tpu_torch.ops.warp import warp_sample, warp_sample_backward
     counters = {"K1": (convlstm_gate_fuse, "launches"), "K2": (convlstm_gate_backward, "launches"),
                 "K3": (convlstm_scan_fused, "launches"),
                 "K3s": (convlstm_scan_fused, "save_gates_launches"),
-                "K4": (convlstm_scan_backward, "launches")}
+                "K4": (convlstm_scan_backward, "launches"),
+                "warp_fwd": (warp_sample, "launches"),
+                "warp_bwd": (warp_sample_backward, "launches")}
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     return counters
@@ -507,8 +656,18 @@ def read_counts(counters):
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
+def unused_parameters(model):
+    r"""Names of the parameters that no path through ``model`` uses: the
+    input-side convs of EF-TrajGRU's first forecaster block, which runs in
+    decode mode (zero input), as the JAX package's and the reference's do."""
+    decode = model.dec_rnns_list[0]
+    convs = [getattr(decode, n) for n in ("i2h", "i2f_conv1") if hasattr(decode, n)]
+    ids = {id(p) for conv in convs for p in conv.parameters()}
+    return {name for name, p in model.named_parameters() if id(p) in ids}
+
+
 def drive_training():
-    r"""The training path in both configurations: Adam at lr 1e-4 on one fixed
+    r"""The training path on each path's model: Adam at lr 1e-4 on one fixed
     b=32 batch of 15 frames, 2 warm-up and 5 timed steps, with the kernels'
     launch counts read around the first step; then one f32 SGD step at b=2 on
     the card against the CPU."""
@@ -516,16 +675,15 @@ def drive_training():
     from vp_suite_tpu_torch import VPSuite
     from vp_suite_tpu_torch.training.loop import make_train_step
     from vp_suite_tpu_torch.training.train_state import create_train_state
-    model_kw = dict(img_shape=IMG, action_size=0, tensor_value_range=(0.0, 1.0), seed=SEED)
     run_config = {"context_frames": CTX, "pred_frames": PRED}
     frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]),
                         generator=torch.Generator().manual_seed(SEED + 1)).cuda()
     batch = {"frames": frames}
     out = dict(batch=batch, steps={}, launches={})
     suite = VPSuite()
-    for name, cfg in CONFIGS.items():
-        model = suite.create_model("convlstm-shi", compute_dtype=torch.bfloat16, **model_kw,
-                                   **cfg).model
+    create_models(suite, compute_dtype=torch.bfloat16)
+    for i, name in enumerate(PATHS):
+        model = suite.models[i].model
         state = create_train_state(model, lr=LR, seed=SEED)
         step = make_train_step(model, run_config)
         torch.cuda.synchronize()
@@ -537,7 +695,11 @@ def drive_training():
               + ", ".join(f"{k} {v}" for k, v in launches.items()))
         check(launches == WANT_TRAIN_LAUNCHES[name],
               f"{name}: one train step launched {launches}, not {WANT_TRAIN_LAUNCHES[name]}")
+        unused = unused_parameters(model)
         for pname, p in model.named_parameters():
+            if pname in unused:
+                check(p.grad is None, f"{name}: unused parameter {pname} has a gradient")
+                continue
             check(p.grad is not None and p.grad.dtype == torch.float32
                   and bool(torch.isfinite(p.grad).all()) and bool((p.grad != 0).any()),
                   f"{name}: parameter {pname} has no finite, non-zero f32 gradient after a step")
@@ -571,27 +733,30 @@ def drive_training():
     # one f32 SGD step at b=2 on the card against the CPU, as (p0 - p1) / lr
     lr = 1e-2
     small = {"frames": frames[:2]}
-    for name, cfg in CONFIGS.items():
-        got = {}
-        for device, kw in (("cuda", dict(compute_dtype=torch.float32)), ("cpu", {})):
-            model = VPSuite(device=device).create_model("convlstm-shi", **model_kw, **kw,
-                                                        **cfg).model
+    steps = {}
+    for device, kw in (("cuda", dict(compute_dtype=torch.float32)), ("cpu", {})):
+        models = VPSuite(device=device)
+        create_models(models, **kw)
+        for i, name in enumerate(PATHS):
+            model = models.models[i].model
             p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
             state = create_train_state(model, lr=lr, optimizer="sgd")
             _, metrics = make_train_step(model, run_config)(
                 state, {"frames": small["frames"].to(device)})
-            got[device] = (float(metrics["total"]),
-                           {k: ((p0[k] - v.detach()) / lr).cpu()
-                            for k, v in model.named_parameters()})
+            steps[(name, device)] = (float(metrics["total"]),
+                                     {k: ((p0[k] - v.detach()) / lr).cpu()
+                                      for k, v in model.named_parameters()})
+    for name in PATHS:
+        card, host = steps[(name, "cuda")], steps[(name, "cpu")]
         worst, worst_name = 0.0, ""
-        for k, want in got["cpu"][1].items():
-            excess = ((got["cuda"][1][k] - want).abs() - STEP_TOL * want.abs()).max().item()
+        for k, want in host[1].items():
+            excess = ((card[1][k] - want).abs() - STEP_TOL * want.abs()).max().item()
             if excess > worst or not worst_name:
                 worst, worst_name = excess, k
-        d_loss = abs(got["cuda"][0] - got["cpu"][0])
-        ok = worst <= STEP_TOL and d_loss <= 1e-4 * abs(got["cpu"][0])
-        print(f"[train] {name} f32 b=2 SGD step, card against CPU: loss {got['cuda'][0]:.6f} vs "
-              f"{got['cpu'][0]:.6f}; (p0-p1)/lr: max(|diff| - rtol*|cpu|) {worst:.3g} at "
+        d_loss = abs(card[0] - host[0])
+        ok = worst <= STEP_TOL and d_loss <= 1e-4 * abs(host[0])
+        print(f"[train] {name} f32 b=2 SGD step, card against CPU: loss {card[0]:.6f} vs "
+              f"{host[0]:.6f}; (p0-p1)/lr: max(|diff| - rtol*|cpu|) {worst:.3g} at "
               f"{worst_name} (rtol {STEP_TOL}, must stay <= atol {STEP_TOL}): "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{name}: one f32 SGD step on the card disagrees with the CPU")
@@ -617,9 +782,10 @@ def forward_ms(model, batch):
     return sorted(times[1:])[1] * 1e3
 
 
-def time_kernels(serve, train, gate_inputs, scan_inputs, rnd, errs):
-    r"""Each kernel at the shapes its path gives it, beside its plain version
-    and bound; returns the kernels' JSON entries."""
+def time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs):
+    r"""Each kernel at the shapes its path gives it, beside its plain version,
+    its bound and, where there is one, the one PyTorch call that computes the
+    same function; returns the kernels' JSON entries."""
     import torch
     from vp_suite_tpu_torch.ops.cells import (convlstm_gate_backward,
                                               convlstm_gate_backward_reference,
@@ -631,14 +797,11 @@ def time_kernels(serve, train, gate_inputs, scan_inputs, rnd, errs):
     # K1 and K2: one launch per cell and step, in bf16. Device time from
     # CUDA-graph replay; "eager" is back-to-back launches from Python, which
     # the host's launch rate bounds at the small shapes.
-    model = serve["suite"].models[0].model
-    gate_launches = {}
-    for rnns, steps in ((model.enc_rnns_list, CTX), (model.dec_rnns_list, PRED)):
-        for rnn in rnns:
-            shape = (rnn.state_h, rnn.enc_channels)
-            gate_launches[shape] = gate_launches.get(shape, 0) + steps
-    check(sum(gate_launches.values()) == serve["launches"]["K1"],
-          f"K1 launch shapes {gate_launches} do not add up to {serve['launches']['K1']} launches")
+    gate_launches = cell_launches(serve["suite"].models[list(PATHS).index("per_step")].model,
+                                  lambda rnn: rnn.state_h)
+    check(sum(gate_launches.values()) == serve["launches"]["per_step"]["K1"],
+          f"K1 launch shapes {gate_launches} do not add up to "
+          f"{serve['launches']['per_step']['K1']} launches")
     rows = {"K1": [], "K2": []}
     for (side, ch), steps in gate_launches.items():
         args = gate_inputs[(side, ch, torch.bfloat16)]
@@ -678,24 +841,99 @@ def time_kernels(serve, train, gate_inputs, scan_inputs, rnd, errs):
         rows["K4"].append((1, ms, plain, nbytes, ops))
         report_scan("K4", side, enc, steps, with_x, ms, plain, nbytes, ops)
     k3, k3s, k4 = (summed(rows[k], BF16_TENSOR_FLOPS) for k in ("K3", "K3s", "K4"))
+    warp_fwd, warp_bwd = time_warp(serve, warp_inputs)
 
     pred_l, train_l = serve["launches"], train["launches"]
     entries = [
         ("convlstm_gate_fwd (K1)", "triton", "vp_suite_tpu_torch/ops/cells.py",
-         "vp_suite_tpu/ops/pallas_cells.py:37", pred_l["K1"], "K1", k1),
+         "vp_suite_tpu/ops/pallas_cells.py:37", pred_l["per_step"]["K1"], "K1", k1),
         ("convlstm_gate_bwd (K2)", "triton", "vp_suite_tpu_torch/ops/cells.py",
          "vp_suite_tpu/ops/pallas_cells.py:54", train_l["per_step"]["K2"], "K2", k2),
         ("convlstm_scan_fwd (K3)", "cuda", "vp_suite_tpu_torch/csrc/convlstm_scan.cu",
-         "vp_suite_tpu/ops/pallas_convlstm.py:102", pred_l["K3"], "K3", k3),
+         "vp_suite_tpu/ops/pallas_convlstm.py:102", pred_l["fused_scan"]["K3"], "K3", k3),
         ("convlstm_scan_fwd save_gates (K3s)", "cuda", "vp_suite_tpu_torch/csrc/convlstm_scan.cu",
          "vp_suite_tpu/ops/pallas_convlstm.py:147", train_l["fused_scan"]["K3s"], "K3s", k3s),
         ("convlstm_scan_bwd (K4)", "cuda", "vp_suite_tpu_torch/csrc/convlstm_scan_bwd.cu",
          "vp_suite_tpu/ops/pallas_convlstm.py:166", train_l["fused_scan"]["K4"], "K4", k4),
+        ("warp_sample_fwd (K5; also K7a, pallas_warp.py:116)", "cuda",
+         "vp_suite_tpu_torch/csrc/warp_sample.cu", "vp_suite_tpu/ops/pallas_warp.py:277",
+         pred_l["trajgru"]["warp_fwd"], "warp_fwd", warp_fwd),
+        ("warp_sample_bwd (K6a, K6b; also K7b, K7c, pallas_warp.py:135, :157)", "cuda",
+         "vp_suite_tpu_torch/csrc/warp_sample.cu", "vp_suite_tpu/ops/pallas_warp.py:294",
+         train_l["trajgru"]["warp_bwd"], "warp_bwd", warp_bwd),
     ]
     return [dict(name=name, route=route, source=source, replaces=replaces, launches=launches,
                  max_abs_err=errs[kid], ms=t["ms"], plain_ms=t["plain_ms"],
-                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"])
             for name, route, source, replaces, launches, kid, t in entries]
+
+
+def cell_launches(model, side_of):
+    r"""``{(side, channels): launches}`` of a per-step kernel that runs once
+    per cell step of ``model`` in one predict (5 encoder and 10 forecaster
+    steps per layer)."""
+    launches = {}
+    for rnns, steps in ((model.enc_rnns_list, CTX), (model.dec_rnns_list, PRED)):
+        for rnn in rnns:
+            shape = (side_of(rnn), rnn.enc_channels)
+            launches[shape] = launches.get(shape, 0) + steps
+    return launches
+
+
+def grid_sample_library(iy, ix, img, g):
+    r"""The one PyTorch call that computes the warp, and the one that computes
+    its backward, in the image's dtype: ``F.grid_sample(align_corners=False,
+    padding_mode="zeros")`` of the NCHW image at all b*P*L samples, as a grid
+    ``[b, L*h, w, 2]``, and ``grid_sampler_2d_backward`` of it."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w, c = img.shape
+    x = img.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(2 * ix + 1) / w - 1, (2 * iy + 1) / h - 1], dim=-1) \
+        .reshape(b, -1, w, 2).to(img.dtype)
+    grad = g.reshape(b, -1, w, c).permute(0, 3, 1, 2).contiguous()
+    fwd = lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+    bwd = lambda: torch.ops.aten.grid_sampler_2d_backward(grad, x, grid, 0, 0, False,
+                                                           [True, True])
+    return fwd, bwd
+
+
+def time_warp(serve, warp_inputs):
+    r"""The warp's forward (per predict) and backward (per train step) at
+    EF-TrajGRU's launch shapes, in bf16: device time from CUDA-graph replay
+    (eager: back-to-back launches from Python), beside the plain versions,
+    the bounds and ``F.grid_sample``."""
+    from vp_suite_tpu_torch.ops.warp import (warp_sample_backward, warp_sample_backward_reference,
+                                             warp_sample_forward, warp_sample_reference)
+    launches = cell_launches(serve["suite"].models[list(PATHS).index("trajgru")].model,
+                             lambda rnn: rnn.sh)
+    check(sum(launches.values()) == serve["launches"]["trajgru"]["warp_fwd"],
+          f"warp launch shapes {launches} do not add up to "
+          f"{serve['launches']['trajgru']['warp_fwd']} launches")
+    rows = {"fwd": [], "bwd": []}
+    for (side, ch), steps in launches.items():
+        iy, ix, img, g = warp_inputs[(side, ch)]
+        lib_fwd, lib_bwd = grid_sample_library(iy, ix, img, g)
+        for kid, fn, ref, lib, bwd in (
+                ("fwd", lambda: warp_sample_forward(iy, ix, img),
+                 lambda: warp_sample_reference(iy, ix, img), lib_fwd, False),
+                ("bwd", lambda: warp_sample_backward(iy, ix, img, g),
+                 lambda: warp_sample_backward_reference(iy, ix, img, g), lib_bwd, True)):
+            ms = graph_ms(fn, iters=20)
+            eager = cuda_ms(fn, warmup=3, iters=20)
+            plain = cuda_ms(ref, warmup=1, iters=3)
+            library = graph_ms(lib, iters=20)
+            nbytes, ops = warp_cost(side, ch, 2, backward=bwd)
+            bound, by = bound_ms(nbytes, ops, F32_FLOPS)
+            print(f"[time] warp_{kid} {side}x{side}x{ch} b={B} L={TRAJ_L} bf16: "
+                  f"{ms * 1e3:.1f} us/launch (eager {eager * 1e3:.1f} us, plain "
+                  f"{plain * 1e3:.1f} us, F.grid_sample{'' if kid == 'fwd' else ' backward'} "
+                  f"{library * 1e3:.1f} us, bound {bound * 1e3:.1f} us by {by}, "
+                  f"{nbytes / 1e6:.1f} MB, {nbytes / ms / 1e9:.2f} TB/s), {steps} launches/"
+                  f"{'predict' if kid == 'fwd' else 'train step'}")
+            rows[kid].append((steps, ms, plain, nbytes, ops, library))
+    return summed(rows["fwd"], F32_FLOPS), summed(rows["bwd"], F32_FLOPS)
 
 
 def report_scan(kid, side, enc, steps, with_x, ms, plain, nbytes, ops):
@@ -709,7 +947,7 @@ def time_paths(serve, train):
     r"""``predict`` and the train step, each under the profiler once more."""
     import torch
     suite, frames = serve["suite"], serve["frames"]
-    for i, name in enumerate(CONFIGS):
+    for i, name in enumerate(PATHS):
         suite.predict(frames, pred_frames=PRED, model_idx=i)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -11,7 +11,12 @@ formula) and 1e-4 for the scan and its backward (sums in another order); bf16
 scan 3e-2, since ``h`` is rounded every step and a one-ulp flip feeds the next
 steps; bf16 scan backward 1% of the largest gradient of each kind, since
 ``dz`` is rounded to bf16 every step (a flipped rounding is 0.4% of the value)
-and flips feed the earlier steps through the transposed conv.
+and flips feed the earlier steps through the transposed conv. The warp:
+f32 1e-5 (the same f32 formula, sums in another order); bf16 outputs within
+one bf16 ulp plus 1e-5 (both round one f32 result); its gradients 1e-5 of the
+largest of each kind, and in bf16 ``d_img`` within 2^-7 + 1e-5 of its largest
+(one bf16 ulp of the largest: both round an f32 sum, which the kernel's
+atomics take in an order that varies by run).
 """
 import numpy as np
 import pytest
@@ -24,6 +29,8 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
+from vp_suite_tpu_torch.ops.warp import (warp_sample, warp_sample_backward,
+                                         warp_sample_backward_reference, warp_sample_reference)
 from vp_suite_tpu_torch.training.loop import make_train_step
 from vp_suite_tpu_torch.training.train_state import create_train_state
 
@@ -233,3 +240,36 @@ def test_sgd_step_on_the_card_matches_the_cpu(cuda, cfg):
     assert abs(steps["cuda"][0] - steps["cpu"][0]) <= 1e-4 * abs(steps["cpu"][0])
     for k, want in steps["cpu"][1].items():
         torch.testing.assert_close(steps["cuda"][1][k], want, rtol=5e-4, atol=5e-4, msg=k)
+
+
+def _warp_args(rng, cuda, dtype, b=2, h=12, w=20, c=24, L=3):
+    r"""Indices a few pixels off each output pixel, some out of the image;
+    c=24 takes the kernel's vector path in both dtypes, c=20 (below) its
+    scalar path in bf16."""
+    oy = np.repeat(np.arange(h, dtype=np.float32), w)[None, :, None]
+    ox = np.tile(np.arange(w, dtype=np.float32), h)[None, :, None]
+    iy = oy + rng.normal(0.0, 2.0, (b, h * w, L)) + (rng.random((b, h * w, L)) < 0.1) * h
+    ix = ox + rng.normal(0.0, 2.0, (b, h * w, L)) - (rng.random((b, h * w, L)) < 0.1) * w
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (iy, ix)] \
+        + [_randn(rng, b, h, w, c).to(cuda, dtype), _randn(rng, b, h * w, L, c).to(cuda, dtype)]
+
+
+@pytest.mark.parametrize("c", [24, 20], ids=["vector", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_kernels_match_the_plain_versions(cuda, dtype, c):
+    iy, ix, img, g = _warp_args(np.random.default_rng(9), cuda, dtype, c=c)
+    before = (warp_sample.launches, warp_sample_backward.launches)
+    leaves = [a.clone().requires_grad_() for a in (iy, ix, img)]
+    out = warp_sample(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (warp_sample.launches, warp_sample_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = warp_sample_reference(iy, ix, img)
+    assert out.dtype == dtype and out.shape == want.shape
+    ulp = 0 if dtype == torch.float32 else 1
+    bound = ulp * torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7) + 1e-5
+    assert bool(((out.float() - want.float()).abs() <= bound).all())
+    want_grads = warp_sample_backward_reference(iy, ix, img, g)
+    for a, w in zip(leaves, want_grads):
+        assert a.grad.dtype == w.dtype and a.grad.shape == w.shape
+        _close_to_largest(a.grad, w, 1e-5 if w.dtype == torch.float32 else 2 ** -7 + 1e-5)

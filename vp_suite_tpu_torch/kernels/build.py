@@ -87,15 +87,30 @@ def build_all(sources=None, verbose: bool = False) -> dict:
     return outs
 
 
-def _load(source: str, fn: str, n_pointers: int) -> ctypes.CDLL:
-    r"""Builds ``csrc/<source>`` if needed and loads it, declaring ``fn`` as
-    ``int fn(int is_bf16, <n_pointers pointers>, int T, int b, int sh, int sw,
-    int enc, void* stream)`` and ``vp_cuda_error_string``."""
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _scan_signature(n_pointers: int) -> list:
+    r"""``int fn(int is_bf16, <n_pointers pointers>, int T, int b, int sh, int sw,
+    int enc, void* stream)``: the scan kernels' entry points."""
+    return [_INT] + [_VP] * n_pointers + [_INT] * 5 + [_VP]
+
+
+def _warp_signature(n_pointers: int) -> list:
+    r"""``int fn(int is_bf16, <n_pointers pointers>, int b, int P, int L, int h,
+    int w, int c, void* stream)``: the warp kernels' entry points."""
+    return [_INT] + [_VP] * n_pointers + [_INT] * 6 + [_VP]
+
+
+def _load(source: str, functions: dict) -> ctypes.CDLL:
+    r"""Builds ``csrc/<source>`` if needed and loads it, declaring each entry
+    point of ``functions`` (``{name: argtypes}``, each returning an ``int``
+    cudaError_t) and ``vp_cuda_error_string``."""
     lib = ctypes.CDLL(str(build_all([source])[source]))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    getattr(lib, fn).argtypes = [i] + [vp] * n_pointers + [i, i, i, i, i, vp]
-    getattr(lib, fn).restype = i
-    lib.vp_cuda_error_string.argtypes = [i]
+    for fn, argtypes in functions.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _INT
+    lib.vp_cuda_error_string.argtypes = [_INT]
     lib.vp_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -104,11 +119,19 @@ def _load(source: str, fn: str, n_pointers: int) -> ctypes.CDLL:
 def scan_library() -> ctypes.CDLL:
     r"""The ConvLSTM forward scan library (``csrc/convlstm_scan.cu``: K3 and
     K3s), built on first call."""
-    return _load("convlstm_scan.cu", "vp_convlstm_scan_fwd", 11)
+    return _load("convlstm_scan.cu", {"vp_convlstm_scan_fwd": _scan_signature(11)})
 
 
 @functools.cache
 def scan_bwd_library() -> ctypes.CDLL:
     r"""The ConvLSTM scan backward library (``csrc/convlstm_scan_bwd.cu``:
     K4), built on first call."""
-    return _load("convlstm_scan_bwd.cu", "vp_convlstm_scan_bwd", 10)
+    return _load("convlstm_scan_bwd.cu", {"vp_convlstm_scan_bwd": _scan_signature(10)})
+
+
+@functools.cache
+def warp_library() -> ctypes.CDLL:
+    r"""The multi-flow bilinear warp library (``csrc/warp_sample.cu``: its
+    forward and backward), built on first call."""
+    return _load("warp_sample.cu", {"vp_warp_sample_fwd": _warp_signature(4),
+                                    "vp_warp_sample_bwd": _warp_signature(7)})
