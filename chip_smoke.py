@@ -25,23 +25,45 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    (b=32, L=13), in f32 and bf16, on flows of a few pixels, some of which
    leave the image, and the warp's three gradients through its autograd
    Function against autograd of the plain forward;
-6. drives the serving path: ``VPSuite()`` -> ``create_model`` at 64x64 RGB
+6. holds K8, the warp fused with TrajGRU's 1x1 ``ret`` conv (``warp_ret``;
+   CUDA C++ forward and backward), against ``warp_ret_reference`` and
+   ``warp_ret_backward_reference`` at the same three shapes (O = 3f) in f32
+   and bf16, its five gradients through ``WarpRetFunction`` against autograd
+   of the plain forward, and ``warp_ret`` against ``warp_flow_ret`` (the warp
+   kernel and a cuBLAS GEMM, the unfused path TrajGRU runs) for the output
+   and the five gradients, on the same image, flows, weights and bias;
+7. holds K9, the warp by prebuilt factor matrices (``warp_contract``; CUDA
+   C++ forward and backward), against ``warp_contract_reference`` and
+   ``warp_contract_backward_reference`` on dense random factors at the same
+   three shapes in f32 and bf16, its three gradients through
+   ``WarpContractFunction`` against autograd of the plain forward, and
+   ``warp_contract`` on one-hot factors (``_onehot_factor``) against
+   ``warp_sample`` in f32;
+8. drives K8's and K9's path, ``warp_ret`` and ``warp_contract`` with their
+   gradients once at each shape in bf16, with the launch counts set to 0 just
+   before and held exactly just after (three calls of each: 3 launches of
+   each forward, 9 of K8's backward and 6 of K9's; nothing else);
+9. drives the serving path: ``VPSuite()`` -> ``create_model`` at 64x64 RGB
    in bf16 -> ``predict(32 x 5 frames, pred_frames=10)`` for EF-ConvLSTM
    per-step (K1) and with ``use_fused_scan`` (K3), and for EF-TrajGRU
    (``"trajgru"``: the warp forward), with the kernels' launch counts set to 0
-   just before each and read just after; checks the predictions, and at b=2
-   holds them against the same weights run on the CPU in f32;
-7. drives the training path: ``create_train_state`` and ``make_train_step``
-   (Adam, lr 1e-4, MSE) on the same models' configurations, b=32, 5 -> 10,
-   bf16: EF-ConvLSTM per-step (K1 + K2) and fused (K3s + K4), EF-TrajGRU (the
-   warp forward and backward), with the counts set to 0 just before the first
-   step and read just after; checks losses, gradients and launch counts, and
-   at b=2 holds one f32 SGD step on the card against the same step on the
-   CPU;
-8. times each kernel at the shapes its path gives it, beside its plain
-   version, its bound and, for the warp, ``F.grid_sample`` (the one PyTorch
-   call that computes the same function), and times ``predict`` and the
-   train step.
+   just before each and read just after (K8 and K9 at 0: no model reaches
+   them, as in the JAX package); checks the predictions, and at b=2 holds
+   them against the same weights run on the CPU in f32;
+10. drives the training path: ``create_train_state`` and ``make_train_step``
+    (Adam, lr 1e-4, MSE) on the same models' configurations, b=32, 5 -> 10,
+    bf16: EF-ConvLSTM per-step (K1 + K2) and fused (K3s + K4), EF-TrajGRU (the
+    warp forward and backward), with the counts set to 0 just before the first
+    step and read just after; checks losses, gradients and launch counts, and
+    at b=2 holds one f32 SGD step on the card against the same step on the
+    CPU;
+11. times each kernel at the shapes its path gives it, beside its plain
+    version, its bound and the one PyTorch call that computes the same
+    function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
+    forward; for K8, whose fused function no one call computes,
+    ``warp_flow_ret`` itself, forward and backward through autograd, on the
+    same inputs), and times
+    ``predict`` and the train step.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -80,7 +102,8 @@ PATHS = {
                                         interleaved_forecast=False)),
     "trajgru": ("trajgru", {}),
 }
-KERNEL_IDS = ("K1", "K2", "K3", "K3s", "K4", "warp_fwd", "warp_bwd")
+KERNEL_IDS = ("K1", "K2", "K3", "K3s", "K4", "warp_fwd", "warp_bwd", "warp_ret_fwd", "warp_ret_bwd",
+              "warp_contract_fwd", "warp_contract_bwd")
 
 
 def _launches(**counts):
@@ -95,6 +118,12 @@ WANT_PREDICT_LAUNCHES = {"per_step": _launches(K1=45), "fused_scan": _launches(K
 WANT_TRAIN_LAUNCHES = {"per_step": _launches(K1=45, K2=45),
                        "fused_scan": _launches(K3s=6, K4=6),
                        "trajgru": _launches(warp_fwd=45, warp_bwd=45)}
+#: no model reaches K8 or K9 (the JAX package's TrajGRU runs warp_flow_ret); their
+#: path is their entry points, ``warp_ret`` and ``warp_contract`` with their
+#: gradients, run once at each of EF-TrajGRU's three layer shapes in bf16. Each
+#: backward call is several launches: K8's three, K9's two.
+WANT_ENTRY_LAUNCHES = _launches(warp_ret_fwd=len(CELLS), warp_ret_bwd=3 * len(CELLS),
+                                warp_contract_fwd=len(CELLS), warp_contract_bwd=2 * len(CELLS))
 
 # Tolerances, with their reasons.
 #: K1/K2 f32: the same f32 formula; exp/tanh differ between Triton and PyTorch by ulps.
@@ -145,6 +174,28 @@ WARP_GRAD_REL_F32 = 1e-5
 #: may flip: one bf16 ulp of the largest (2^-7 of it), plus the f32 limit;
 #: d_iy and d_ix stay f32 sums of the same bf16 values.
 WARP_GRAD_REL_BF16 = 2 ** -7 + WARP_GRAD_REL_F32
+#: K8 (warp_ret) in f32 against its plain versions and through its Function,
+#: relative to the largest of each kind: sums of L*f products (the forward,
+#: g_l) or of b*P products (d_W) taken in another order, d_img by f32 atomics.
+RET_REL_F32 = 1e-5
+#: K9 (warp_contract) in f32, relative to the largest: sums of h*w products (the
+#: forward, d_A, d_Bm) or of L*P*h*w (d_img) taken in another order.
+CONTRACT_REL_F32 = 5e-5
+#: K8 and K9 in bf16, relative to the largest of each kind: both sides round
+#: each result once (one bf16 ulp of the largest is at most 2^-7 of it), and a
+#: sum taken in another order flips some of those roundings, and those of K8's
+#: samples and g_l, which both sides round; K9's kernel rounds M = A*Bm to
+#: bf16 (as the TPU kernel forms it), where the plain version keeps f32.
+FACTOR_REL_BF16 = 2 ** -6
+#: warp_ret against warp_flow_ret (the warp kernel and a cuBLAS GEMM), relative
+#: to the largest of each kind, in f32: sums taken in another order.
+FLOW_RET_REL_F32 = 1e-5
+#: in bf16: warp_flow_ret also rounds the bias to bf16 and computes d_w and
+#: d_bias in bf16 (each rounded once), where warp_ret keeps them in f32.
+FLOW_RET_REL_BF16 = 2 ** -5
+#: the one-hot warp_contract against warp_sample in f32: at most four non-zero
+#: products per output, summed in another order, on values of order 1.
+ONEHOT_ATOL_F32 = 1e-5
 #: predict in f32 on the card (TF32 off) against the CPU in f32: 15 steps of
 #: sums taken in another order; the repo's golden tolerance.
 PREDICT_ATOL_F32 = 1e-4
@@ -264,6 +315,41 @@ def warp_cost(side, ch, itemsize, backward=False):
     return img + 2 * samples * 4 + samples * ch * itemsize, 8 * samples * ch
 
 
+def warp_ret_cost(side, ch, itemsize, backward=False):
+    r"""(bytes, ops) of one K8 call at b=32, L=13, f=ch, O=3ch, P=side^2, with
+    the work as the JAX kernels define it. Forward: the image, the f32
+    indices, w and the f32 bias read once, the [b, P, O] output written once;
+    the contraction's 2*b*P*L*f*O operations and the gather's 8 per sample and
+    channel. Backward: g, the image, the indices and w read once, d_img (in
+    the image's type), the f32 index gradients and the f32 d_w written once;
+    the two contractions the function needs (g_l = g W_l^T and d_W = warp_l^T
+    g) and 24 operations per sample and channel for the gathers (the warp
+    that d_W needs among them) and the scatter."""
+    P, O = side * side, 3 * ch
+    samples = B * P * TRAJ_L
+    img, w = B * P * ch * itemsize, TRAJ_L * ch * O * itemsize
+    mac = 2 * samples * ch * O
+    if backward:
+        return (B * P * O * itemsize + 2 * img + 4 * samples * 4 + w + TRAJ_L * ch * O * 4,
+                2 * mac + 24 * samples * ch)
+    return img + 2 * samples * 4 + w + O * 4 + B * P * O * itemsize, mac + 8 * samples * ch
+
+
+def contract_cost(side, ch, itemsize, backward=False):
+    r"""(bytes, ops) of one K9 call at b=32, L=13, an image side x side x ch
+    and P = side^2 output pixels. Forward: A [b, L, P, h], Bm [b, L, P, w] and
+    the image read once, out [b, L, P, c] written once; 2*b*L*P*h*w*c
+    operations. Backward: A, Bm, the image and g read once, d_A, d_Bm and
+    d_img written once; twice the forward's operations."""
+    P = side * side
+    fac, img, out = B * TRAJ_L * P * side * itemsize, B * P * ch * itemsize, \
+        B * TRAJ_L * P * ch * itemsize
+    ops = 2 * B * TRAJ_L * P * P * ch
+    if backward:
+        return 4 * fac + 2 * img + out, 2 * ops
+    return 2 * fac + img + out, ops
+
+
 def bound_ms(nbytes, ops, peak_ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -316,14 +402,18 @@ def main():
     check_scan_forward(rnd, errs)
     scan_inputs = check_scan_backward(rnd, errs, scan_launches)
     warp_inputs = check_warp_kernels(rnd, errs)
+    ret_inputs = check_warp_ret(rnd, errs)
+    contract_inputs = check_warp_contract(rnd, errs)
+    entry_launches = drive_entry_points(ret_inputs, contract_inputs)
     serve = drive_serving(suite, scan_launches)
     train = drive_training()
 
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
+    kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
     time_paths(serve, train)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
-          f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, in bf16, "
-          f"on {card}")
+          f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
+          f"K9) one call at each of the three layer shapes, in bf16, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -568,6 +658,191 @@ def check_warp_kernels(rnd, errs):
     return inputs
 
 
+def ret_args(rnd, side, ch):
+    r"""K8's operands at one layer shape, b=32, L=13, f32: flows [b, side,
+    side, 2L] of a few pixels (N(0, 2)), a tenth of their components sent 0.6
+    of the image out of it; an image; ret weights [L, f, 3f] at the scale of
+    the conv's init; a bias; a cotangent [b, P, 3f] of the size a mean-type
+    loss hands down."""
+    import torch
+    shape = (B, side, side, 2 * TRAJ_L)
+    far = (rnd(*shape) > 1.2816).float()
+    flows = rnd(*shape, scale=2.0) + far * torch.sign(rnd(*shape)) * 0.6 * side
+    return [flows, rnd(B, side, side, ch), rnd(TRAJ_L, ch, 3 * ch, scale=(TRAJ_L * ch) ** -0.5),
+            rnd(3 * ch, scale=0.1), rnd(B, side * side, 3 * ch, scale=1e-2)]
+
+
+def report(tag, parts, ok):
+    r"""One result line: ``parts`` are ``(label, {name: error}, tolerance)``."""
+    print(f"[{tag}] " + "; ".join(f"{label} " + ", ".join(f"{n} {e:.3g}" for n, e in es.items())
+                                 + f" (tol {tol:.3g})" for label, es, tol in parts)
+          + f": {'ok' if ok else 'FAIL'}")
+
+
+def check_warp_ret(rnd, errs):
+    r"""K8's forward and backward kernels against their plain versions, its
+    five gradients through ``WarpRetFunction`` against autograd of the plain
+    forward, and ``warp_ret`` against ``warp_flow_ret`` (the warp kernel and a
+    cuBLAS GEMM, the unfused path TrajGRU runs) for the output and the five
+    gradients, at EF-TrajGRU's three layer shapes in f32 and bf16; returns the
+    bf16 operands by shape, for the timings."""
+    import torch
+    from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices, warp_flow_ret
+    from vp_suite_tpu_torch.ops.warp import (warp_ret, warp_ret_backward,
+                                             warp_ret_backward_reference, warp_ret_forward,
+                                             warp_ret_reference)
+    errs["warp_ret_fwd"] = errs["warp_ret_bwd"] = 0.0
+    names = ("d_iy", "d_ix", "d_img", "d_w", "d_bias")
+    inputs = {}
+    for side, ch in CELLS:
+        flows, img0, w, bias, g0 = ret_args(rnd, side, ch)
+        iy, ix = _flow_to_indices(img0, flows)
+        for dt in (torch.float32, torch.bfloat16):
+            img, g = img0.to(dt), g0.to(dt)
+            got = warp_ret_forward(iy, ix, img, w, bias)
+            got_b = warp_ret_backward(iy, ix, img, w, bias, g)
+            torch.cuda.synchronize()
+            want = warp_ret_reference(iy, ix, img, w, bias)
+            want_b = warp_ret_backward_reference(iy, ix, img, w, bias, g)
+            e_k = {"out": rel_err(got, want), **{n: rel_err(q, r)
+                                                 for n, q, r in zip(names, got_b, want_b)}}
+            typed = got.dtype == dt and got.shape == want.shape \
+                and all(q.dtype == r.dtype and q.shape == r.shape for q, r in zip(got_b, want_b))
+
+            grads = []
+            for fn in (warp_ret, warp_ret_reference):
+                leaves = [a.detach().clone().requires_grad_() for a in (iy, ix, img, w, bias)]
+                grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+            e_fn = {n: rel_err(q, r) for n, q, r in zip(names, *grads)}
+
+            # the unfused path on the same image, flows, weights and bias; the
+            # flows' gradient holds d_ix (its even channels) and d_iy (odd)
+            outs, grads = [], []
+            for fused in (True, False):
+                im, fl, wl, bl = (a.detach().clone().requires_grad_()
+                                  for a in (img, flows, w, bias))
+                if fused:
+                    out = warp_ret(*_flow_to_indices(im, fl), im, wl, bl)
+                else:
+                    out = warp_flow_ret(im, fl, wl.view(-1, 3 * ch), bl).view(B, -1, 3 * ch)
+                d_img, d_fl, d_w, d_b = torch.autograd.grad(out, (im, fl, wl, bl), g)
+                outs.append(out.detach())
+                grads.append((d_fl[..., 1::2], d_fl[..., 0::2], d_img, d_w, d_b))
+            e_flow = {"out": rel_err(*outs), **{n: rel_err(q, r) for n, q, r in zip(names, *grads)}}
+            del grads, outs
+
+            f32 = dt == torch.float32
+            rel = RET_REL_F32 if f32 else FACTOR_REL_BF16
+            rel_flow = FLOW_RET_REL_F32 if f32 else FLOW_RET_REL_BF16
+            ok = typed and max(*e_k.values(), *e_fn.values()) <= rel \
+                and max(e_flow.values()) <= rel_flow
+            if not f32:
+                errs["warp_ret_fwd"] = max(errs["warp_ret_fwd"], max_err(got, want))
+                errs["warp_ret_bwd"] = max(errs["warp_ret_bwd"], *(max_err(q, r)
+                                                                   for q, r in zip(got_b, want_b)))
+                inputs[(side, ch)] = (iy, ix, img, w, bias, g, flows)
+            report(f"K8 warp_ret {side}x{side}x{ch} b={B} L={TRAJ_L} O={3 * ch} {str(dt)[6:]}",
+                   [("kernels against the plain versions", e_k, rel),
+                    ("through the Function against autograd of the plain forward", e_fn, rel),
+                    ("warp_ret against warp_flow_ret", e_flow, rel_flow)], ok)
+            check(ok, f"warp_ret disagrees at {side}x{side}x{ch} {dt} (errors relative to the "
+                      f"largest of each kind)")
+    return inputs
+
+
+def check_warp_contract(rnd, errs):
+    r"""K9's forward and backward kernels against their plain versions on
+    dense random factors, and its three gradients through
+    ``WarpContractFunction`` against autograd of the plain forward (on the
+    first four batch items: autograd saves a [b, P, w, c] f32 intermediate
+    per flow), at EF-TrajGRU's three layer shapes in f32 and bf16; and the
+    one-hot route, ``warp_contract`` on ``_onehot_factor``s, against
+    ``warp_sample`` (K5) in f32. Returns the bf16 operands by shape."""
+    import torch
+    from vp_suite_tpu_torch.ops.grid_sample import _onehot_factor
+    from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
+                                             warp_contract_backward_reference,
+                                             warp_contract_forward, warp_contract_reference,
+                                             warp_sample)
+    errs["warp_contract_fwd"] = errs["warp_contract_bwd"] = 0.0
+    names = ("d_A", "d_Bm", "d_img")
+    inputs = {}
+    for side, ch in CELLS:
+        P = side * side
+        # dense factors at the one-hot factors' scale: out is of order 1
+        base = [rnd(B, TRAJ_L, P, side, scale=side ** -0.5), rnd(B, TRAJ_L, P, side,
+                                                                scale=side ** -0.5),
+                rnd(B, side, side, ch), rnd(B, TRAJ_L, P, ch, scale=1e-2)]
+        for dt in (torch.float32, torch.bfloat16):
+            A, Bm, img, g = (a.to(dt) for a in base)
+            got = warp_contract_forward(A, Bm, img)
+            got_b = warp_contract_backward(A, Bm, img, g)
+            torch.cuda.synchronize()
+            want = warp_contract_reference(A, Bm, img)
+            want_b = warp_contract_backward_reference(A, Bm, img, g)
+            e_k = {"out": rel_err(got, want), **{n: rel_err(q, r)
+                                                 for n, q, r in zip(names, got_b, want_b)}}
+            typed = got.dtype == dt and got.shape == want.shape \
+                and all(q.dtype == dt and q.shape == r.shape for q, r in zip(got_b, want_b))
+            e_abs = [max_err(got, want)] + [max_err(q, r) for q, r in zip(got_b, want_b)]
+            del want, want_b
+            grads = []
+            for fn in (warp_contract, warp_contract_reference):
+                leaves = [a[:4].detach().clone().requires_grad_() for a in (A, Bm, img)]
+                grads.append(torch.autograd.grad(fn(*leaves), leaves, g[:4]))
+            e_fn = {n: rel_err(q, r) for n, q, r in zip(names, *grads)}
+            del grads
+            rel = CONTRACT_REL_F32 if dt == torch.float32 else FACTOR_REL_BF16
+            ok = typed and max(*e_k.values(), *e_fn.values()) <= rel
+            parts = [("kernels against the plain versions", e_k, rel),
+                     ("through the Function against autograd of the plain forward (b=4)", e_fn,
+                      rel)]
+            if dt == torch.float32:
+                iy, ix, im, _ = warp_args(rnd, side, ch)
+                onehot = warp_contract(_onehot_factor(iy.transpose(1, 2), side, dt),
+                                       _onehot_factor(ix.transpose(1, 2), side, dt), im)
+                e_hot = max_err(onehot.transpose(1, 2), warp_sample(iy, ix, im))
+                ok = ok and e_hot <= ONEHOT_ATOL_F32
+                parts.append(("one-hot warp_contract against warp_sample, absolute",
+                              {"out": e_hot}, ONEHOT_ATOL_F32))
+                del onehot
+            else:
+                errs["warp_contract_fwd"] = max(errs["warp_contract_fwd"], e_abs[0])
+                errs["warp_contract_bwd"] = max(errs["warp_contract_bwd"], *e_abs[1:])
+                inputs[(side, ch)] = (A, Bm, img, g)
+            report(f"K9 warp_contract {side}x{side}x{ch} b={B} L={TRAJ_L} {str(dt)[6:]}", parts,
+                   ok)
+            check(ok, f"warp_contract disagrees at {side}x{side}x{ch} {dt} (errors relative to "
+                      f"the largest of each kind)")
+    return inputs
+
+
+def drive_entry_points(ret_inputs, contract_inputs):
+    r"""K8's and K9's path: ``warp_ret`` and ``warp_contract`` forward and
+    backward through autograd, once at each layer shape in bf16, with the
+    launch counts set to 0 just before and read just after; returns them."""
+    import torch
+    from vp_suite_tpu_torch.ops.warp import warp_contract, warp_ret
+    counters = reset_counts()
+    for key, (iy, ix, img, w, bias, g, _) in ret_inputs.items():
+        leaves = [a.detach().clone().requires_grad_() for a in (iy, ix, img, w, bias)]
+        grads = torch.autograd.grad(warp_ret(*leaves), leaves, g)
+        check(all(bool(torch.isfinite(d).all()) for d in grads),
+              f"warp_ret at {key}: non-finite gradients")
+    for key, (A, Bm, img, g) in contract_inputs.items():
+        leaves = [a.detach().clone().requires_grad_() for a in (A, Bm, img)]
+        grads = torch.autograd.grad(warp_contract(*leaves), leaves, g)
+        check(all(bool(torch.isfinite(d).all()) for d in grads),
+              f"warp_contract at {key}: non-finite gradients")
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    print("[entry points] warp_ret and warp_contract with their gradients at the three layer "
+          "shapes, bf16: kernel launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(launches == WANT_ENTRY_LAUNCHES,
+          f"the entry points launched {launches}, not {WANT_ENTRY_LAUNCHES}")
+    return launches
+
+
 def create_models(suite, **kw):
     r"""One model per path in ``suite``, at 64x64 RGB from the seed; returns
     their indices by path."""
@@ -640,13 +915,19 @@ def reset_counts():
     r"""Sets every kernel's launch count to 0; returns the counters by kernel id."""
     from vp_suite_tpu_torch.ops.cells import convlstm_gate_backward, convlstm_gate_fuse
     from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_backward, convlstm_scan_fused
-    from vp_suite_tpu_torch.ops.warp import warp_sample, warp_sample_backward
+    from vp_suite_tpu_torch.ops.warp import (warp_contract_backward, warp_contract_forward,
+                                             warp_ret_backward, warp_ret_forward, warp_sample,
+                                             warp_sample_backward)
     counters = {"K1": (convlstm_gate_fuse, "launches"), "K2": (convlstm_gate_backward, "launches"),
                 "K3": (convlstm_scan_fused, "launches"),
                 "K3s": (convlstm_scan_fused, "save_gates_launches"),
                 "K4": (convlstm_scan_backward, "launches"),
                 "warp_fwd": (warp_sample, "launches"),
-                "warp_bwd": (warp_sample_backward, "launches")}
+                "warp_bwd": (warp_sample_backward, "launches"),
+                "warp_ret_fwd": (warp_ret_forward, "launches"),
+                "warp_ret_bwd": (warp_ret_backward, "launches"),
+                "warp_contract_fwd": (warp_contract_forward, "launches"),
+                "warp_contract_bwd": (warp_contract_backward, "launches")}
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     return counters
@@ -934,6 +1215,114 @@ def time_warp(serve, warp_inputs):
                   f"{'predict' if kid == 'fwd' else 'train step'}")
             rows[kid].append((steps, ms, plain, nbytes, ops, library))
     return summed(rows["fwd"], F32_FLOPS), summed(rows["bwd"], F32_FLOPS)
+
+
+def einsum_library(A, Bm, img):
+    r"""``(ms, None)`` of ``torch.einsum("blpy,blpx,byxc->blpc", A, Bm, img)``,
+    the one PyTorch call that computes K9's forward, or ``(None, reason)``
+    where its intermediate does not fit the card."""
+    import torch
+    try:
+        return cuda_ms(lambda: torch.einsum("blpy,blpx,byxc->blpc", A, Bm, img),
+                       warmup=1, iters=3), None
+    except torch.cuda.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        return None, str(e).splitlines()[0]
+
+
+def time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs):
+    r"""K8 and K9 per call at EF-TrajGRU's three layer shapes in bf16 (CUDA
+    events over back-to-back calls; a forward call is one launch, a backward
+    call K8's three or K9's two), beside their plain versions (one run each:
+    K9's hold a 2 GB f32 intermediate per flow at 64x64), their bounds and:
+    for K8, the unfused path TrajGRU runs, ``warp_flow_ret`` itself (the
+    index math, the warp kernels and cuBLAS GEMMs), forward and backward
+    through autograd on the same image, flows, weights and bias, eager and
+    replayed from a CUDA graph, since no one PyTorch call computes the fused
+    function; for K9's forward,
+    ``torch.einsum``. Returns the kernels' JSON entries."""
+    import torch
+    from vp_suite_tpu_torch.ops.grid_sample import warp_flow_ret
+    from vp_suite_tpu_torch.ops.warp import (warp_contract_backward,
+                                             warp_contract_backward_reference,
+                                             warp_contract_forward, warp_contract_reference,
+                                             warp_ret_backward, warp_ret_backward_reference,
+                                             warp_ret_forward, warp_ret_reference)
+    rows = {k: [] for k in ("warp_ret_fwd", "warp_ret_bwd", "warp_contract_fwd",
+                            "warp_contract_bwd")}
+    #: warp_flow_ret's time summed over the shapes: (eager, on the card alone)
+    unfused = {"warp_ret_fwd": [0.0, 0.0], "warp_ret_bwd": [0.0, 0.0]}
+    for (side, ch), (iy, ix, img, w, bias, g, flows) in ret_inputs.items():
+        def flow_fwd():
+            return warp_flow_ret(img, flows, w.view(-1, 3 * ch), bias)
+
+        def flow_fwd_bwd():
+            leaves = [a.detach().requires_grad_() for a in (img, flows, w, bias)]
+            out = warp_flow_ret(leaves[0], leaves[1], leaves[2].view(-1, 3 * ch), leaves[3])
+            return torch.autograd.grad(out, leaves, g.view(out.shape))
+
+        # warp_flow_ret eager (the host's dispatch of its some 15 launches
+        # included) and replayed from a CUDA graph (the card alone); its
+        # backward is forward and backward less the forward
+        fwd = cuda_ms(flow_fwd, warmup=2, iters=10), graph_ms(flow_fwd, iters=20)
+        both = cuda_ms(flow_fwd_bwd, warmup=2, iters=10), graph_ms(flow_fwd_bwd, iters=20)
+        flow = {"warp_ret_fwd": fwd, "warp_ret_bwd": tuple(x - y for x, y in zip(both, fwd))}
+        for kid, fn, ref in (
+                ("warp_ret_fwd", lambda: warp_ret_forward(iy, ix, img, w, bias),
+                 lambda: warp_ret_reference(iy, ix, img, w, bias)),
+                ("warp_ret_bwd", lambda: warp_ret_backward(iy, ix, img, w, bias, g),
+                 lambda: warp_ret_backward_reference(iy, ix, img, w, bias, g))):
+            ms = cuda_ms(fn, warmup=2, iters=10)
+            plain = cuda_ms(ref, warmup=0, iters=1)
+            nbytes, ops = warp_ret_cost(side, ch, 2, backward=kid.endswith("bwd"))
+            bound, by = bound_ms(nbytes, ops, BF16_TENSOR_FLOPS)
+            eager, card = flow[kid]
+            print(f"[time] {kid} (K8) {side}x{side}x{ch} b={B} L={TRAJ_L} O={3 * ch} bf16: "
+                  f"{ms:.3f} ms/call (plain {plain:.3f} ms, warp_flow_ret's "
+                  f"{'backward' if kid.endswith('bwd') else 'forward'} {card:.3f} ms on the "
+                  f"card alone, {eager:.3f} ms eager, bound {bound:.3f} ms by {by}; "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s)")
+            rows[kid].append((1, ms, plain, nbytes, ops))
+            unfused[kid][0] += eager
+            unfused[kid][1] += card
+    for (side, ch), (A, Bm, img, g) in contract_inputs.items():
+        library, why = einsum_library(A, Bm, img)
+        for kid, fn, ref in (
+                ("warp_contract_fwd", lambda: warp_contract_forward(A, Bm, img),
+                 lambda: warp_contract_reference(A, Bm, img)),
+                ("warp_contract_bwd", lambda: warp_contract_backward(A, Bm, img, g),
+                 lambda: warp_contract_backward_reference(A, Bm, img, g))):
+            ms = cuda_ms(fn, warmup=1, iters=5)
+            plain = cuda_ms(ref, warmup=0, iters=1)
+            nbytes, ops = contract_cost(side, ch, 2, backward=kid.endswith("bwd"))
+            bound, by = bound_ms(nbytes, ops, BF16_TENSOR_FLOPS)
+            lib = library if kid.endswith("fwd") else None
+            yard = "" if kid.endswith("bwd") else \
+                f", torch.einsum {library:.3f} ms" if lib is not None else f", torch.einsum: {why}"
+            print(f"[time] {kid} (K9) {side}x{side}x{ch} b={B} L={TRAJ_L} bf16: {ms:.3f} ms/call "
+                  f"(plain {plain:.3f} ms{yard}, bound {bound:.3f} ms by {by}; "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s)")
+            rows[kid].append((1, ms, plain, nbytes, ops) + (() if lib is None else (lib,)))
+    t = {kid: summed(r, BF16_TENSOR_FLOPS) for kid, r in rows.items()}
+    print(f"[time] K8 over the three shapes: warp_ret forward {t['warp_ret_fwd']['ms']:.3f} ms "
+          f"against warp_flow_ret's {unfused['warp_ret_fwd'][1]:.3f} ms on the card alone "
+          f"({unfused['warp_ret_fwd'][0]:.3f} ms eager), backward {t['warp_ret_bwd']['ms']:.3f} "
+          f"ms against {unfused['warp_ret_bwd'][1]:.3f} ms ({unfused['warp_ret_bwd'][0]:.3f} ms)")
+    entries = [("warp_ret_fwd (K8a)", "vp_suite_tpu_torch/csrc/warp_ret.cu",
+                "vp_suite_tpu/ops/pallas_warp.py:743", "warp_ret_fwd"),
+               ("warp_ret_bwd (K8b, K8c; pallas_warp.py:771, :796)",
+                "vp_suite_tpu_torch/csrc/warp_ret.cu", "vp_suite_tpu/ops/pallas_warp.py:771",
+                "warp_ret_bwd"),
+               ("warp_contract_fwd (K9a)", "vp_suite_tpu_torch/csrc/warp_contract.cu",
+                "vp_suite_tpu/ops/pallas_warp.py:534", "warp_contract_fwd"),
+               ("warp_contract_bwd (K9b, K9c; pallas_warp.py:581, :607)",
+                "vp_suite_tpu_torch/csrc/warp_contract.cu", "vp_suite_tpu/ops/pallas_warp.py:581",
+                "warp_contract_bwd")]
+    return [dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=entry_launches[kid], max_abs_err=errs[kid], ms=t[kid]["ms"],
+                 plain_ms=t[kid]["plain_ms"], bound_ms=t[kid]["bound_ms"],
+                 bound_by=t[kid]["bound_by"], library_ms=t[kid]["library_ms"])
+            for name, source, replaces, kid in entries]
 
 
 def report_scan(kid, side, enc, steps, with_x, ms, plain, nbytes, ops):

@@ -16,7 +16,11 @@ f32 1e-5 (the same f32 formula, sums in another order); bf16 outputs within
 one bf16 ulp plus 1e-5 (both round one f32 result); its gradients 1e-5 of the
 largest of each kind, and in bf16 ``d_img`` within 2^-7 + 1e-5 of its largest
 (one bf16 ulp of the largest: both round an f32 sum, which the kernel's
-atomics take in an order that varies by run).
+atomics take in an order that varies by run). The fused warp + ``ret`` (K8)
+and the factor contraction (K9), relative to the largest of each kind: f32
+1e-5 (K8) and 5e-5 (K9), sums in another order; bf16 2^-6, since both sides
+round each result once and a sum taken in another order flips some roundings
+(and K9's kernel rounds the factor product, as the TPU kernel does).
 """
 import numpy as np
 import pytest
@@ -29,7 +33,12 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
-from vp_suite_tpu_torch.ops.warp import (warp_sample, warp_sample_backward,
+from vp_suite_tpu_torch.ops.grid_sample import _onehot_factor
+from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
+                                         warp_contract_backward_reference, warp_contract_forward,
+                                         warp_contract_reference, warp_ret, warp_ret_backward,
+                                         warp_ret_backward_reference, warp_ret_forward,
+                                         warp_ret_reference, warp_sample, warp_sample_backward,
                                          warp_sample_backward_reference, warp_sample_reference)
 from vp_suite_tpu_torch.training.loop import make_train_step
 from vp_suite_tpu_torch.training.train_state import create_train_state
@@ -273,3 +282,78 @@ def test_warp_kernels_match_the_plain_versions(cuda, dtype, c):
     for a, w in zip(leaves, want_grads):
         assert a.grad.dtype == w.dtype and a.grad.shape == w.shape
         _close_to_largest(a.grad, w, 1e-5 if w.dtype == torch.float32 else 2 ** -7 + 1e-5)
+
+
+#: (h, w, P): a square image with P = h*w, and a ragged one with P != h*w.
+FACTOR_SHAPES = {"16x16": (16, 16, 256), "ragged": (9, 11, 50)}
+
+
+@pytest.mark.parametrize("shape", list(FACTOR_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_ret_kernels_match_the_plain_versions(cuda, dtype, shape):
+    r"""f=24 and O=72 leave partial channel blocks in every tile of the kernels."""
+    rng = np.random.default_rng(10)
+    h, w, P = FACTOR_SHAPES[shape]
+    b, L, f = 2, 3, 24
+    idx = [torch.from_numpy((rng.random((b, P, L)) * (n + 4) - 2).astype(np.float32)).to(cuda)
+           for n in (h, w)]
+    args = idx + [_randn(rng, b, h, w, f).to(cuda, dtype),
+                  _randn(rng, L, f, 3 * f, scale=0.2).to(cuda), _randn(rng, 3 * f).to(cuda)]
+    g = _randn(rng, b, P, 3 * f).to(cuda, dtype)
+    before = (warp_ret_forward.launches, warp_ret_backward.launches)
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = warp_ret(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (warp_ret_forward.launches, warp_ret_backward.launches) == (before[0] + 1, before[1] + 3)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    want = warp_ret_reference(*args)
+    assert out.dtype == dtype and out.shape == want.shape == (b, P, 3 * f)
+    _close_to_largest(out, want, rel)
+    for a, w_ in zip(leaves, warp_ret_backward_reference(*args, g)):
+        assert a.grad.dtype == w_.dtype and a.grad.shape == w_.shape
+        _close_to_largest(a.grad, w_, rel)
+
+
+@pytest.mark.parametrize("shape", list(FACTOR_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_contract_kernels_match_the_plain_versions(cuda, dtype, shape):
+    r"""Dense random factors; c=24 leaves a partial channel block."""
+    rng = np.random.default_rng(11)
+    h, w, P = FACTOR_SHAPES[shape]
+    b, L, c = 2, 3, 24
+    args = [_randn(rng, b, L, P, h).to(cuda, dtype), _randn(rng, b, L, P, w).to(cuda, dtype),
+            _randn(rng, b, h, w, c).to(cuda, dtype)]
+    g = _randn(rng, b, L, P, c).to(cuda, dtype)
+    before = (warp_contract_forward.launches, warp_contract_backward.launches)
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = warp_contract(*leaves)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (warp_contract_forward.launches, warp_contract_backward.launches) \
+        == (before[0] + 1, before[1] + 2)
+    rel = 5e-5 if dtype == torch.float32 else 2 ** -6
+    want = warp_contract_reference(*args)
+    assert out.dtype == dtype and out.shape == want.shape == (b, L, P, c)
+    _close_to_largest(out, want, rel)
+    for a, w_ in zip(leaves, warp_contract_backward_reference(*args, g)):
+        assert a.grad.dtype == dtype and a.grad.shape == w_.shape
+        _close_to_largest(a.grad, w_, rel)
+
+
+def test_onehot_warp_contract_is_the_warp(cuda):
+    iy, ix, img, _ = _warp_args(np.random.default_rng(12), cuda, torch.float32)
+    h, w = img.shape[1:3]
+    got = warp_contract(_onehot_factor(iy.transpose(1, 2), h, torch.float32),
+                        _onehot_factor(ix.transpose(1, 2), w, torch.float32), img)
+    torch.testing.assert_close(got.transpose(1, 2), warp_sample(iy, ix, img), rtol=0, atol=1e-5)
+
+
+def test_factor_kernels_reject_what_they_do_not_take(cuda):
+    A = torch.zeros(1, 1, 4, 4, device=cuda)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        warp_contract_forward(A, A, torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.bfloat16))
+    iy = torch.zeros(1, 4, 2, device=cuda)
+    with pytest.raises(TypeError, match="float32 indices"):
+        warp_ret_forward(iy.double(), iy.double(), torch.zeros(1, 2, 2, 8, device=cuda),
+                         torch.zeros(2, 8, 24, device=cuda), torch.zeros(24, device=cuda))

@@ -39,65 +39,20 @@
 // add g * weight into d_img with f32 atomics; a shuffle reduction gives the index gradients. d_img is
 // f32 (the caller zeroes it and rounds it to img's type afterwards); its summation order follows the
 // atomics and varies from run to run.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 namespace {
 
+using namespace warpk;
+
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 16;  // cap of the grid-stride launch
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T, int V> struct alignas(sizeof(T) * V) Vec { T v[V]; };
 
 struct Dims {
   int b, P, L, h, w, c;
 };
-
-// The four taps of one sample in the order (y0,x0), (y0,x1), (y1,x0), (y1,x1): pixel offsets into the
-// batch item's image, whether each lies inside it, and weights wy*wx*valid.
-struct Taps {
-  int off[4];
-  bool valid[4];
-  float wt[4];
-  float wy0, wy1, wx0, wx1;
-};
-
-__device__ __forceinline__ Taps make_taps(float iy, float ix, int h, int w) {
-  Taps t;
-  const float fy = floorf(iy), fx = floorf(ix);
-  t.wy1 = iy - fy;
-  t.wy0 = 1.0f - t.wy1;
-  t.wx1 = ix - fx;
-  t.wx0 = 1.0f - t.wx1;
-  const bool vy0 = fy >= 0.0f && fy <= float(h - 1);
-  const bool vy1 = fy + 1.0f >= 0.0f && fy + 1.0f <= float(h - 1);
-  const bool vx0 = fx >= 0.0f && fx <= float(w - 1);
-  const bool vx1 = fx + 1.0f >= 0.0f && fx + 1.0f <= float(w - 1);
-  // integer indices only where they lie in the image: a far flow's floor need not fit an int
-  const int y0 = vy0 ? int(fy) : 0, y1 = vy1 ? int(fy) + 1 : 0;
-  const int x0 = vx0 ? int(fx) : 0, x1 = vx1 ? int(fx) + 1 : 0;
-  t.valid[0] = vy0 && vx0;
-  t.valid[1] = vy0 && vx1;
-  t.valid[2] = vy1 && vx0;
-  t.valid[3] = vy1 && vx1;
-  t.off[0] = y0 * w + x0;
-  t.off[1] = y0 * w + x1;
-  t.off[2] = y1 * w + x0;
-  t.off[3] = y1 * w + x1;
-  const float wy[4] = {t.wy0, t.wy0, t.wy1, t.wy1}, wx[4] = {t.wx0, t.wx1, t.wx0, t.wx1};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) t.wt[k] = wy[k] * wx[k] * (t.valid[k] ? 1.0f : 0.0f);
-  return t;
-}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
@@ -220,11 +175,6 @@ cudaError_t launch_bwd(const float* iy, const float* ix, const void* img, const 
   warp_bwd_kernel<T><<<grid, THREADS, 0, stream>>>(iy, ix, static_cast<const T*>(img),
                                                    static_cast<const T*>(g), d_img, d_iy, d_ix, d);
   return cudaGetLastError();
-}
-
-int finish(cudaError_t err) {
-  if (err != cudaSuccess) cudaGetLastError();  // clear it, so later launches do not report it
-  return int(err);
 }
 
 }  // namespace

@@ -31,6 +31,27 @@ def grid_sample(img, grid):
     return out.view(b, h_out, w_out, c)
 
 
+def _onehot_factor(i_frac, n, dtype):
+    r"""Weighted one-hot factor of one axis of a bilinear sample: ``[...]``
+    fractional indices -> ``[..., n]`` in ``dtype``, with weight ``1 - frac``
+    at ``floor(i)`` and ``frac`` at ``floor(i) + 1``, zero outside ``[0,
+    n-1]``. The index math runs in f32 (bf16 stops holding integers at 256);
+    the JAX package's ``grid_sample._onehot_factor``, bit for bit. With one
+    factor per axis, :func:`~vp_suite_tpu_torch.ops.warp.warp_contract` is
+    the warp."""
+    i_frac = i_frac.float()
+    i0 = torch.floor(i_frac)
+    w1 = i_frac - i0
+    w0 = 1.0 - w1
+    i1 = i0 + 1.0
+    v0 = (i0 >= 0) & (i0 <= n - 1)
+    v1 = (i1 >= 0) & (i1 <= n - 1)
+    iota = torch.arange(n, dtype=torch.float32, device=i_frac.device)
+    fac = (w0 * v0)[..., None] * (iota == i0[..., None]) \
+        + (w1 * v1)[..., None] * (iota == i1[..., None])
+    return fac.to(dtype)
+
+
 def _flow_to_indices(img, flows):
     r"""``[b, h, w, 2L]`` pixel-space flows ((dx, dy) pairs) -> fractional
     source indices ``iy``, ``ix`` ``[b, h*w, L]`` f32: torch's round trip

@@ -36,6 +36,19 @@ indices before the kernel (``_clamp_rows``), so it is an input transform, not
 another function. The backward's f32 atomics make ``d_img``'s summation order
 vary from run to run. The kernels are built with ``nvcc`` at first use
 (:mod:`vp_suite_tpu_torch.kernels.build`) and called through ``ctypes``.
+
+Two more entry points reach the JAX package's other warp kernels:
+
+- :func:`warp_ret` is the L warps fused with TrajGRU's 1x1 ``ret`` conv,
+  ``out[b, p, o] = bias[o] + sum_l sum_k w[l, k, o] * warp_l[b, p, k]``, with
+  the warp tensor kept out of device memory (``csrc/warp_ret.cu``, for K8a-c,
+  ``pallas_warp.warp_ret``). No model calls it, as in the JAX package, whose
+  ``TrajGRU`` runs the unfused ``warp_flow_ret``.
+- :func:`warp_contract` contracts prebuilt factor matrices, ``out[b, l, p, c]
+  = sum_{y, x} A[b, l, p, y] * Bm[b, l, p, x] * img[b, y, x, c]``, for any real
+  ``A`` and ``Bm`` (``csrc/warp_contract.cu``, for K9a-c,
+  ``pallas_warp.warp_contract``); with the one-hot factors of
+  :func:`~vp_suite_tpu_torch.ops.grid_sample._onehot_factor` it is the warp.
 """
 import itertools
 
@@ -136,6 +149,19 @@ def warp_sample_backward_reference(iy, ix, img, g):
     return d_iy, d_ix, d_img.view(b, h, w, c).to(img.dtype)
 
 
+def _launch(name, lib, entry, *args):
+    r"""Calls ``lib``'s C entry point ``entry`` with ``args`` (tensors as
+    their data pointers) on the current stream of the first tensor's card;
+    raises if it returns an error."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                                    for a in args), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+
+
 def warp_sample_forward(iy, ix, img):
     r"""The warp's forward with no autograd: ``[b, P, L, c]`` in
     ``img.dtype``. On CPU tensors it computes :func:`warp_sample_reference`;
@@ -151,14 +177,8 @@ def warp_sample_forward(iy, ix, img):
     out = torch.empty((b, P, L, c), dtype=img.dtype, device=img.device)
     if not out.numel():
         return out
-    lib = build.warp_library()
-    with torch.cuda.device(img.device):
-        err = lib.vp_warp_sample_fwd(int(img.dtype == torch.bfloat16), iy.data_ptr(),
-                                     ix.data_ptr(), img.data_ptr(), out.data_ptr(), b, P, L, h, w,
-                                     c, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"warp_sample: kernel launch failed: "
-                           f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+    _launch("warp_sample", build.warp_library(), "vp_warp_sample_fwd",
+            int(img.dtype == torch.bfloat16), iy, ix, img, out, b, P, L, h, w, c)
     warp_sample.launches += 1
     return out
 
@@ -181,15 +201,8 @@ def warp_sample_backward(iy, ix, img, g):
     d_img = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
     if not g.numel():
         return d_iy, d_ix, d_img.to(img.dtype)
-    lib = build.warp_library()
-    with torch.cuda.device(img.device):
-        err = lib.vp_warp_sample_bwd(int(img.dtype == torch.bfloat16), iy.data_ptr(),
-                                     ix.data_ptr(), img.data_ptr(), g.data_ptr(), d_img.data_ptr(),
-                                     d_iy.data_ptr(), d_ix.data_ptr(), b, P, L, h, w, c,
-                                     torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"warp_sample_backward: kernel launch failed: "
-                           f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+    _launch("warp_sample_backward", build.warp_library(), "vp_warp_sample_bwd",
+            int(img.dtype == torch.bfloat16), iy, ix, img, g, d_img, d_iy, d_ix, b, P, L, h, w, c)
     warp_sample_backward.launches += 1
     return d_iy, d_ix, d_img.to(img.dtype)
 
@@ -234,3 +247,311 @@ def warp_sample(iy, ix, img):
 warp_sample.launches = 0
 #: Launches of the backward kernel since the count was last set to 0.
 warp_sample_backward.launches = 0
+
+
+# ---- K8: the warp fused with TrajGRU's 1x1 ``ret`` conv ----------------------------------------
+
+def _check_ret(iy, ix, img, w, bias, g=None):
+    _check(iy, ix, img)
+    L, f = iy.shape[2], img.shape[-1]
+    if w.dim() != 3 or tuple(w.shape[:2]) != (L, f):
+        raise ValueError(f"w must be [L, f, O] with L = {L}, f = {f}, got shape {tuple(w.shape)}")
+    O = w.shape[2]
+    if tuple(bias.shape) != (O,):
+        raise ValueError(f"bias must be [O] = [{O}], got shape {tuple(bias.shape)}")
+    if g is not None and tuple(g.shape) != (*iy.shape[:2], O):
+        raise ValueError(f"g must be [b, P, O] = {(*iy.shape[:2], O)}, got {tuple(g.shape)}")
+    tensors = (iy, img, w, bias) if g is None else (iy, img, w, bias, g)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("iy, ix, img, w, bias and g must lie on one device")
+
+
+def warp_ret_reference(iy, ix, img, w, bias):
+    r"""Plain PyTorch version of :func:`warp_ret`'s forward: the warp
+    (:func:`warp_sample_reference`, rounded to ``img.dtype``) times ``w``
+    rounded to ``img.dtype``, summed in f32, plus the bias in f32, rounded
+    once. Returns ``[b, P, O]`` in ``img.dtype``."""
+    _check_ret(iy, ix, img, w, bias)
+    b, P, _ = iy.shape
+    warped = warp_sample_reference(iy, ix, img).float().reshape(b, P, -1)
+    out = warped @ w.to(img.dtype).float().reshape(-1, w.shape[-1]) + bias.float()
+    return out.to(img.dtype)
+
+
+def warp_ret_backward_reference(iy, ix, img, w, bias, g):
+    r"""Plain PyTorch version of :func:`warp_ret`'s backward, with the JAX
+    package's semantics (``pallas_warp._warpret_bwd``): ``g_l = g w_l^T``
+    summed in f32 and rounded to ``img.dtype``, then the warp's backward of
+    ``g_l`` (:func:`warp_sample_backward_reference`); ``d_w`` the f32 sum of
+    the rounded warp times ``g``, in ``w.dtype``; ``d_bias`` the f32 sum of
+    ``g``, in ``bias.dtype``. Returns ``(d_iy, d_ix, d_img, d_w, d_bias)``,
+    the index gradients in f32 and ``d_img`` in ``img.dtype``."""
+    _check_ret(iy, ix, img, w, bias, g)
+    gf = g.float()
+    g_l = torch.einsum("bpo,lfo->bplf", gf, w.to(img.dtype).float()).to(img.dtype)
+    d_iy, d_ix, d_img = warp_sample_backward_reference(iy, ix, img, g_l)
+    d_w = torch.einsum("bplf,bpo->lfo", warp_sample_reference(iy, ix, img).float(), gf)
+    return d_iy, d_ix, d_img, d_w.to(w.dtype), gf.sum((0, 1)).to(bias.dtype)
+
+
+def warp_ret_forward(iy, ix, img, w, bias):
+    r""":func:`warp_ret`'s forward with no autograd: ``[b, P, O]`` in
+    ``img.dtype``. On CPU tensors it computes :func:`warp_ret_reference`; on
+    CUDA tensors it launches the forward kernel, which takes contiguous f32
+    indices and a contiguous bf16 or f32 image (``w`` is rounded to the
+    image's dtype and ``bias`` taken in f32), and raises on anything else."""
+    _check_ret(iy, ix, img, w, bias)
+    if img.device.type == "cpu":
+        return warp_ret_reference(iy, ix, img, w, bias)
+    _check_kernel_operands("warp_ret", iy, ix, img)
+    b, P, L = iy.shape
+    _, h, wd, f = img.shape
+    O = w.shape[-1]
+    out = torch.empty((b, P, O), dtype=img.dtype, device=img.device)
+    if not out.numel():
+        return out
+    _launch("warp_ret", build.warp_ret_library(), "vp_warp_ret_fwd",
+            int(img.dtype == torch.bfloat16), iy, ix, img, w.to(img.dtype).contiguous(),
+            bias.float().contiguous(), out, b, P, L, h, wd, f, O)
+    warp_ret_forward.launches += 1
+    return out
+
+
+def _dw_slices(device, b, P, L, f, O):
+    r"""How many slices of the pixel tiles the d_W pass splits into: enough
+    blocks for four per SM, at most one slice per 64-pixel tile."""
+    tiles = b * -(-P // 64)
+    blocks = L * -(-f // 64) * -(-O // 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, -(-4 * sms // blocks)))
+
+
+def warp_ret_backward(iy, ix, img, w, bias, g):
+    r""":func:`warp_ret`'s backward: ``(d_iy, d_ix, d_img, d_w, d_bias)`` as
+    :func:`warp_ret_backward_reference` gives them. On CPU tensors it
+    computes that; on CUDA tensors it launches the backward kernels (d_img by
+    f32 atomics; d_W as per-slice partials summed in order by a third launch)
+    and takes ``d_bias`` as a sum outside them, as the JAX package does; it
+    raises on operands the kernels do not take."""
+    _check_ret(iy, ix, img, w, bias, g)
+    if img.device.type == "cpu":
+        return warp_ret_backward_reference(iy, ix, img, w, bias, g)
+    _check_kernel_operands("warp_ret_backward", iy, ix, img, g)
+    b, P, L = iy.shape
+    _, h, wd, f = img.shape
+    O = w.shape[-1]
+    dev = img.device
+    d_iy = torch.empty(iy.shape, dtype=torch.float32, device=dev)
+    d_ix = torch.empty_like(d_iy)
+    d_img = torch.zeros(img.shape, dtype=torch.float32, device=dev)
+    d_w = torch.zeros(w.shape, dtype=torch.float32, device=dev)
+    if g.numel():
+        slices = _dw_slices(dev, b, P, L, f, O)
+        partial = torch.empty((slices, L, f, O), dtype=torch.float32, device=dev)
+        _launch("warp_ret_backward", build.warp_ret_library(), "vp_warp_ret_bwd",
+                int(img.dtype == torch.bfloat16), iy, ix, img, w.to(img.dtype).contiguous(), g,
+                d_img, d_iy, d_ix, partial, d_w, slices, b, P, L, h, wd, f, O)
+        warp_ret_backward.launches += 3
+    d_bias = g.float().sum((0, 1))
+    return d_iy, d_ix, d_img.to(img.dtype), d_w.to(w.dtype), d_bias.to(bias.dtype)
+
+
+class WarpRetFunction(torch.autograd.Function):
+    r""":func:`warp_ret` under autograd: the forward kernel (its plain version
+    on the CPU), and the backward kernels (or their plain version), which give
+    all five gradients. Saves the indices, the image, ``w`` and ``bias``; the
+    warp tensor is not saved, as the fused form exists to keep it out of
+    memory."""
+
+    @staticmethod
+    def forward(ctx, iy, ix, img, w, bias):
+        out = warp_ret_forward(iy, ix, img, w, bias)
+        ctx.save_for_backward(iy, ix, img, w, bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        iy, ix, img, w, bias = ctx.saved_tensors
+        grads = warp_ret_backward(iy, ix, img, w, bias, g.to(img.dtype).contiguous())
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+
+
+def warp_ret(iy, ix, img, w, bias):
+    r"""The L bilinear warps fused with TrajGRU's 1x1 ``ret`` conv,
+    differentiable: ``out[b, p, o] = bias[o] + sum_l sum_k w[l, k, o] *
+    warp_sample(iy, ix, img)[b, p, l, k]``.
+
+    Args:
+        iy, ix: ``[b, P, L]`` f32 fractional source indices.
+        img: ``[b, h, w, f]``, bf16 or f32; its dtype is the compute dtype.
+        w: ``[L, f, O]`` ret weights (``warp_flow_ret``'s ``[L*f, O]``
+            viewed per flow), rounded to ``img``'s dtype.
+        bias: ``[O]``, added in f32.
+
+    Returns ``[b, P, O]`` in ``img.dtype``, ``warp_flow_ret``'s output viewed
+    ``[b, P, O]``. Rounding rule, in the kernels and the plain versions alike:
+    the warp samples and ``w`` are rounded to ``img``'s dtype, products are
+    summed in f32, the bias is added in f32 and the result rounded once; in
+    the backward, ``g_l = g w_l^T`` is rounded to ``img``'s dtype before the
+    warp's backward. Runs :class:`WarpRetFunction`: the CUDA kernels on CUDA
+    tensors (it raises on what they do not take), their plain versions on CPU
+    tensors.
+    """
+    _check_ret(iy, ix, img, w, bias)
+    return WarpRetFunction.apply(iy.contiguous(), ix.contiguous(), img.contiguous(),
+                                 w.contiguous(), bias.contiguous())
+
+
+#: Launches of the fused forward kernel since the count was last set to 0.
+warp_ret_forward.launches = 0
+#: Launches of the fused backward kernels (three per call) since the count was last set to 0.
+warp_ret_backward.launches = 0
+
+
+# ---- K9: the warp by prebuilt factor matrices ---------------------------------------------------
+
+def _check_contract(A, Bm, img, g=None):
+    if img.dim() != 4:
+        raise ValueError(f"img must be [b, h, w, c], got shape {tuple(img.shape)}")
+    b, h, w, c = img.shape
+    if A.dim() != 4 or A.shape[0] != b or A.shape[3] != h:
+        raise ValueError(f"A must be [b, L, P, h] with b = {b}, h = {h}, got shape "
+                         f"{tuple(A.shape)}")
+    if tuple(Bm.shape) != (*A.shape[:3], w):
+        raise ValueError(f"Bm must be [b, L, P, w] = {(*A.shape[:3], w)}, got {tuple(Bm.shape)}")
+    if g is not None and tuple(g.shape) != (*A.shape[:3], c):
+        raise ValueError(f"g must be [b, L, P, c] = {(*A.shape[:3], c)}, got {tuple(g.shape)}")
+    tensors = (A, Bm, img) if g is None else (A, Bm, img, g)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("A, Bm, img and g must lie on one device")
+
+
+def warp_contract_reference(A, Bm, img):
+    r"""Plain PyTorch version of :func:`warp_contract`: per flow, ``u =
+    A_l img`` over y, then ``Bm_l u`` over x (the JAX package's
+    ``_warp_contract_einsum``), in f32, rounded once to ``img.dtype``.
+    Returns ``[b, L, P, c]``."""
+    _check_contract(A, Bm, img)
+    imgf = img.float()
+    outs = [torch.einsum("bpx,bpxc->bpc", Bm[:, l].float(),
+                         torch.einsum("bpy,byxc->bpxc", A[:, l].float(), imgf))
+            for l in range(A.shape[1])]
+    return torch.stack(outs, 1).to(img.dtype)
+
+
+def warp_contract_backward_reference(A, Bm, img, g):
+    r"""Plain PyTorch version of :func:`warp_contract`'s backward, the JAX
+    package's einsum VJP (``pallas_warp._warp_bwd``), per flow in f32:
+    returns ``(d_A, d_Bm, d_img)`` in ``A``'s, ``Bm``'s and ``img``'s
+    dtypes."""
+    _check_contract(A, Bm, img, g)
+    imgf = img.float()
+    d_img = torch.zeros_like(imgf)
+    d_A, d_Bm = [], []
+    for l in range(A.shape[1]):
+        a, bm, gl = A[:, l].float(), Bm[:, l].float(), g[:, l].float()
+        u = torch.einsum("bpy,byxc->bpxc", a, imgf)
+        d_Bm.append(torch.einsum("bpxc,bpc->bpx", u, gl))
+        v = bm[..., None] * gl[:, :, None, :]
+        d_A.append(torch.einsum("byxc,bpxc->bpy", imgf, v))
+        d_img += torch.einsum("bpy,bpxc->byxc", a, v)
+    return (torch.stack(d_A, 1).to(A.dtype), torch.stack(d_Bm, 1).to(Bm.dtype),
+            d_img.to(img.dtype))
+
+
+def _check_contract_kernel_operands(name, *tensors):
+    r"""What the CUDA kernels take: contiguous CUDA tensors, all float32 or
+    all bfloat16."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {tensors[0].device}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or dtypes.pop() not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes A, Bm, img (and g) all float32 or all bfloat16, not "
+                        f"{', '.join(str(t.dtype) for t in tensors)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def warp_contract_forward(A, Bm, img):
+    r""":func:`warp_contract`'s forward with no autograd: ``[b, L, P, c]`` in
+    ``img.dtype``. On CPU tensors it computes
+    :func:`warp_contract_reference`; on CUDA tensors it launches the forward
+    kernel, which takes contiguous operands all f32 or all bf16 (it forms the
+    factor product ``A[p, y] * Bm[p, x]`` in that dtype and sums in f32), and
+    raises on anything else."""
+    _check_contract(A, Bm, img)
+    if img.device.type == "cpu":
+        return warp_contract_reference(A, Bm, img)
+    _check_contract_kernel_operands("warp_contract", A, Bm, img)
+    b, L, P, h = A.shape
+    _, _, w, c = img.shape
+    out = torch.empty((b, L, P, c), dtype=img.dtype, device=img.device)
+    if out.numel():
+        _launch("warp_contract", build.warp_contract_library(), "vp_warp_contract_fwd",
+                int(img.dtype == torch.bfloat16), A, Bm, img, out, b, L, P, h, w, c)
+        warp_contract_forward.launches += 1
+    return out
+
+
+def warp_contract_backward(A, Bm, img, g):
+    r""":func:`warp_contract`'s backward: ``(d_A, d_Bm, d_img)`` in the
+    inputs' dtype. On CPU tensors it computes
+    :func:`warp_contract_backward_reference`; on CUDA tensors it launches
+    the two backward kernels (no atomics), which take contiguous operands all
+    f32 or all bf16, and raises on anything else."""
+    _check_contract(A, Bm, img, g)
+    if img.device.type == "cpu":
+        return warp_contract_backward_reference(A, Bm, img, g)
+    _check_contract_kernel_operands("warp_contract_backward", A, Bm, img, g)
+    b, L, P, h = A.shape
+    _, _, w, c = img.shape
+    d_A, d_Bm, d_img = torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(img)
+    if not g.numel():
+        return d_A.zero_(), d_Bm.zero_(), d_img.zero_()
+    _launch("warp_contract_backward", build.warp_contract_library(), "vp_warp_contract_bwd",
+            int(img.dtype == torch.bfloat16), A, Bm, img, g, d_A, d_Bm, d_img, b, L, P, h, w, c)
+    warp_contract_backward.launches += 2
+    return d_A, d_Bm, d_img
+
+
+class WarpContractFunction(torch.autograd.Function):
+    r""":func:`warp_contract` under autograd: the forward kernel and the
+    backward kernels (their plain versions on the CPU). Saves ``A``, ``Bm``
+    and the image."""
+
+    @staticmethod
+    def forward(ctx, A, Bm, img):
+        out = warp_contract_forward(A, Bm, img)
+        ctx.save_for_backward(A, Bm, img)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        A, Bm, img = ctx.saved_tensors
+        grads = warp_contract_backward(A, Bm, img, g.to(img.dtype).contiguous())
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+
+
+def warp_contract(A, Bm, img):
+    r"""The warp by prebuilt factor matrices, differentiable:
+    ``out[b, l, p, c] = sum_{y, x} A[b, l, p, y] * Bm[b, l, p, x] *
+    img[b, y, x, c]``.
+
+    Args:
+        A: ``[b, L, P, h]`` row factors, any real values.
+        Bm: ``[b, L, P, w]`` column factors.
+        img: ``[b, h, w, c]``; on CUDA tensors all three are f32 or all bf16.
+
+    Returns ``[b, L, P, c]`` in ``img.dtype`` (the JAX package's layout).
+    With ``A = _onehot_factor(iy, h)`` and ``Bm = _onehot_factor(ix, w)`` it
+    is the bilinear warp. Runs :class:`WarpContractFunction`: the CUDA
+    kernels on CUDA tensors, their plain versions on CPU tensors.
+    """
+    _check_contract(A, Bm, img)
+    return WarpContractFunction.apply(A.contiguous(), Bm.contiguous(), img.contiguous())
+
+
+#: Launches of the factor-contraction forward kernel since the count was last set to 0.
+warp_contract_forward.launches = 0
+#: Launches of its backward kernels (two per call) since the count was last set to 0.
+warp_contract_backward.launches = 0
