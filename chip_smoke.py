@@ -17,8 +17,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    bit for bit as K3 gives it;
 4. holds K4, the scan's reverse-time backward (CUDA C++), against
    ``convlstm_scan_backward_reference`` at the fused training path's six
-   launch shapes, and the scan's eight input gradients through its autograd
-   Function against autograd of the plain forward;
+   launch shapes with a nonzero gradient of ``h_last``, and the scan's eight
+   input gradients through its autograd Function, of a loss over ``h_seq``,
+   ``h_last`` and ``c_last``, against autograd of the plain forward;
 5. holds the multi-flow bilinear warp's forward and backward kernels (CUDA
    C++) against ``warp_sample_reference`` and
    ``warp_sample_backward_reference`` at EF-TrajGRU's three layer shapes
@@ -293,11 +294,12 @@ def scan_cost(side, enc, steps, with_x, itemsize, save_gates=False):
 
 
 def scan_bwd_cost(side, enc, steps, itemsize):
-    r"""(bytes, ops) of one K4 launch: z, c_prev, dh_seq, dc_last, weights and
-    peepholes read, dz written, dh0 and dc0 written in f32; the transposed
-    3x3 conv's MACs."""
+    r"""(bytes, ops) of one K4 launch: z, c_prev, dh_seq, dh_last, dc_last,
+    weights and peepholes read, dz written, dh0 and dc0 written in f32; the
+    transposed 3x3 conv's MACs."""
     px = B * side * side
-    elems = steps * px * (4 + 1 + 1 + 4) * enc + px * enc + 36 * enc * enc + 3 * side * side * enc
+    elems = steps * px * (4 + 1 + 1 + 4) * enc + 2 * px * enc + 36 * enc * enc \
+        + 3 * side * side * enc
     return elems * itemsize + 2 * px * enc * 4, 2 * steps * px * 9 * 4 * enc * enc
 
 
@@ -529,11 +531,12 @@ def check_scan_backward(rnd, errs, scan_launches):
         base = scan_args(rnd, side, enc, steps, with_x, torch.float32)
         # a mean-type loss: cotangents of the size a loss over b*T frames hands down
         d_seq = rnd(steps, B, side, side, enc, scale=1e-2)
+        d_h = rnd(B, side, side, enc, scale=1e-2)
         d_c = rnd(B, side, side, enc, scale=1e-2)
         for dt in (torch.float32, torch.bfloat16):
             args = [a if a is None or i == 4 else a.to(dt) for i, a in enumerate(base)]
             _, _, z, c_prev = convlstm_scan_forward(*args, seq_len=steps, save_gates=True)
-            bwd_args = (z, c_prev, d_seq.to(dt), d_c.to(dt), args[3], *args[5:])
+            bwd_args = (z, c_prev, d_seq.to(dt), d_c.to(dt), args[3], *args[5:], d_h.to(dt))
             got = convlstm_scan_backward(*bwd_args)
             torch.cuda.synchronize()
             want = convlstm_scan_backward_reference(*bwd_args)
@@ -546,7 +549,8 @@ def check_scan_backward(rnd, errs, scan_launches):
             grads = []
             for fn in (convlstm_scan_fused, convlstm_scan_reference):
                 seq, (h, c) = fn(*leaves, seq_len=steps)
-                loss = (seq.float() * d_seq).sum() + (c.float() * d_c).sum()
+                loss = (seq.float() * d_seq).sum() + (h.float() * d_h).sum() \
+                    + (c.float() * d_c).sum()
                 grads.append(torch.autograd.grad(loss, inputs_))
             e_all = [rel_err(g, w) for g, w in zip(*grads)]
             present = [n for n, a in zip(names, leaves) if a is not None]

@@ -9,9 +9,11 @@ that has neither:
 Tolerances: f32 with TF32 off, 1e-5 for the gate block and its backward (same
 formula) and 1e-4 for the scan and its backward (sums in another order); bf16
 scan 3e-2, since ``h`` is rounded every step and a one-ulp flip feeds the next
-steps; bf16 scan backward 1% of the largest gradient of each kind, since
-``dz`` is rounded to bf16 every step (a flipped rounding is 0.4% of the value)
-and flips feed the earlier steps through the transposed conv. The warp:
+steps; bf16 scan backward (with a nonzero gradient of ``h_last``, at every
+output-channel block the bf16 kernel picks) 1% of the largest gradient of
+each kind, since ``dz`` is rounded to bf16 every step (a flipped rounding is
+0.4% of the value) and flips feed the earlier steps through the transposed
+conv. The warp:
 f32 1e-5 (the same f32 formula, sums in another order); bf16 outputs within
 one bf16 ulp plus 1e-5 (both round one f32 result); its gradients 1e-5 of the
 largest of each kind, and in bf16 ``d_img`` within 2^-7 + 1e-5 of its largest
@@ -177,14 +179,23 @@ def _close_to_largest(got, want, rel):
     assert err <= rel * scale, (err, scale)
 
 
+#: (T, sh, sw, enc): sh and sw not multiples of the 16x4 (f32) or 16x8 (bf16)
+#: pixel tile, every output-channel block the bf16 kernel picks (enc 16 and 32
+#: take 16 and 32 channels, 64 takes 32, 96 takes 24), and a single step.
+SCAN_BWD_SHAPES = [(3, 12, 20, 32), (1, 9, 17, 16), (2, 10, 18, 64), (2, 7, 13, 96)]
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=lambda s: "T{}_{}x{}x{}".format(*s))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_scan_backward_kernel_matches_reference(cuda, dtype):
+def test_scan_backward_kernel_matches_reference(cuda, dtype, shape):
+    t, sh, sw, enc = shape
     rng = np.random.default_rng(5)
-    args = _scan_args(rng, cuda, dtype, with_x=True)
-    _, _, z, c_prev = convlstm_scan_forward(*args, seq_len=3, save_gates=True)
+    args = _scan_args(rng, cuda, dtype, with_x=True, t=t, sh=sh, sw=sw, enc=enc)
+    _, _, z, c_prev = convlstm_scan_forward(*args, seq_len=t, save_gates=True)
     dh_seq = _randn(rng, *c_prev.shape).to(cuda, dtype)
     dc_last = _randn(rng, *c_prev.shape[1:]).to(cuda, dtype)
-    bwd_args = (z, c_prev, dh_seq, dc_last, args[3], *args[5:])
+    dh_last = _randn(rng, *c_prev.shape[1:]).to(cuda, dtype)
+    bwd_args = (z, c_prev, dh_seq, dc_last, args[3], *args[5:], dh_last)
     before = convlstm_scan_backward.launches
     got = convlstm_scan_backward(*bwd_args)
     torch.cuda.synchronize()
@@ -211,22 +222,25 @@ def test_autograd_through_the_kernels_matches_the_plain_versions(cuda):
         assert g is not None
         torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)
 
-    for with_x in (False, True):
-        args = [None if a is None else a.requires_grad_()
-                for a in _scan_args(rng, cuda, torch.float32, with_x)]
-        r_seq = _randn(rng, *args[1].shape).to(cuda)
-        r_c = _randn(rng, *args[1].shape).to(cuda)
-        inputs = [a for a in args if a is not None]
-        grads = []
-        for fn in (convlstm_scan_fused, convlstm_scan_reference):
-            seq, (h, c) = fn(*args, seq_len=3)
-            loss = (seq * r_seq).sum() + (h * h).sum() + (c * r_c).sum()
-            grads.append(torch.autograd.grad(loss, inputs))
-        for g, want in zip(*grads):
-            assert g is not None
-            _close_to_largest(g, want, 1e-4)
-        dc0 = grads[0][2 if with_x else 1]
-        assert dc0.shape == r_c.shape and not torch.allclose(dc0, r_c)
+    # bf16: the plain forward rounds at other places (dh at every step, and
+    # h_last's gradient folded into h_seq's in bf16), 2% of the largest.
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for with_x in (False, True):
+            args = [None if a is None else a.requires_grad_()
+                    for a in _scan_args(rng, cuda, dtype, with_x)]
+            r_seq, r_h, r_c = (_randn(rng, *args[1].shape).to(cuda) for _ in range(3))
+            inputs = [a for a in args if a is not None]
+            grads = []
+            for fn in (convlstm_scan_fused, convlstm_scan_reference):
+                seq, (h, c) = fn(*args, seq_len=3)
+                loss = (seq.float() * r_seq).sum() + (h.float() * r_h).sum() \
+                    + (h.float() * h.float()).sum() + (c.float() * r_c).sum()
+                grads.append(torch.autograd.grad(loss, inputs))
+            for g, want in zip(*grads):
+                assert g is not None
+                _close_to_largest(g, want, rel)
+            dc0 = grads[0][2 if with_x else 1]
+            assert dc0.shape == r_c.shape and not torch.allclose(dc0.float(), r_c)
 
 
 @pytest.mark.parametrize("cfg", [{}, dict(use_fused_scan=True, interleaved_encode=False,

@@ -126,7 +126,7 @@ def scan_library() -> ctypes.CDLL:
 def scan_bwd_library() -> ctypes.CDLL:
     r"""The ConvLSTM scan backward library (``csrc/convlstm_scan_bwd.cu``:
     K4), built on first call."""
-    return _load("convlstm_scan_bwd.cu", {"vp_convlstm_scan_bwd": _scan_signature(10)})
+    return _load("convlstm_scan_bwd.cu", {"vp_convlstm_scan_bwd": _scan_signature(11)})
 
 
 @functools.cache

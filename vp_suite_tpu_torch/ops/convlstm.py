@@ -56,18 +56,20 @@ def _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
         raise ValueError("the scan's tensors must lie on one device")
 
 
-def _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+def _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last):
     if z_seq.dim() != 5 or z_seq.shape[-1] % 4:
         raise ValueError(f"z_seq must be [T, b, sh, sw, 4enc], got shape {tuple(z_seq.shape)}")
     T, b, sh, sw, enc4 = z_seq.shape
     enc = enc4 // 4
     want = {"c_prev_seq": (c_prev_seq, (T, b, sh, sw, enc)), "dh_seq": (dh_seq, (T, b, sh, sw, enc)),
             "dc_last": (dc_last, (b, sh, sw, enc)), "h_kernel": (h_kernel, (3, 3, enc, 4 * enc)),
-            "wci": (wci, (sh, sw, enc)), "wcf": (wcf, (sh, sw, enc)), "wco": (wco, (sh, sw, enc))}
+            "wci": (wci, (sh, sw, enc)), "wcf": (wcf, (sh, sw, enc)), "wco": (wco, (sh, sw, enc)),
+            "dh_last": (dh_last, (b, sh, sw, enc))}
     for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    tensors = (z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    tensors = [t for t in (z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
+               if t is not None]
     if len({t.device for t in tensors}) != 1:
         raise ValueError("the scan backward's tensors must lie on one device")
 
@@ -158,18 +160,21 @@ def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
     return h_seq, c.to(dt)
 
 
-def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco,
+                                     dh_last=None):
     r"""Plain PyTorch version of the reverse-time scan backward, under the
     kernel's dtype rules: activations recomputed in f32 from the residuals,
-    ``(dh, dc)`` carried in f32, ``dz`` rounded to the activation dtype
-    (``z_seq``'s) before it is stored and before the transposed conv (a
-    ``F.conv_transpose2d`` with the forward's weight). Same signature and
-    return as :func:`convlstm_scan_backward`."""
-    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    ``(dh, dc)`` carried in f32 (``dh`` starting from ``dh_last``),
+    ``dz`` rounded to the activation dtype (``z_seq``'s) before it is stored
+    and before the transposed conv (a ``F.conv_transpose2d`` with the
+    forward's weight). Same signature and return as
+    :func:`convlstm_scan_backward`."""
+    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
     dt = z_seq.dtype
     w = h_kernel.to(dt).float().permute(3, 2, 0, 1)   # conv_transpose2d's [in=4enc, out=enc, 3, 3]
     wci, wcf, wco = (p.to(dt).float() for p in (wci, wcf, wco))
-    dh = torch.zeros(dc_last.shape, dtype=torch.float32, device=dc_last.device)
+    dh = torch.zeros(dc_last.shape, dtype=torch.float32, device=dc_last.device) \
+        if dh_last is None else dh_last.to(dt).float()
     dc = dc_last.to(dt).float()
     dzs = []
     for t in reversed(range(z_seq.shape[0])):
@@ -194,16 +199,20 @@ def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kerne
     return torch.stack(dzs[::-1]), dh.contiguous(), dc
 
 
-def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco):
+def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco,
+                           dh_last=None):
     r"""The scan's reverse-time backward from its residuals.
 
     Args:
         z_seq, c_prev_seq: the forward's residuals (``convlstm_scan_forward``
             with ``save_gates``); their dtype is the activation dtype.
-        dh_seq: ``[T, b, sh, sw, enc]`` gradient of ``h_seq`` (the gradient of
-            ``h_last`` included in its last step).
+        dh_seq: ``[T, b, sh, sw, enc]`` gradient of ``h_seq``.
         dc_last: ``[b, sh, sw, enc]`` gradient of ``c_last``.
         h_kernel, wci, wcf, wco: the forward's weights and peepholes.
+        dh_last: ``[b, sh, sw, enc]`` gradient of ``h_last``, or None
+            (zeros). It is taken in the activation dtype and starts the f32
+            ``dh`` carry, to which ``dh_seq[-1]`` is then added in f32, as in
+            the JAX kernel.
 
     Returns ``(dz_seq [T, b, sh, sw, 4enc]`` in the activation dtype, ``dh0``,
     ``dc0)``, the last two f32. On CPU tensors it computes
@@ -211,10 +220,10 @@ def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wc
     which needs ``enc`` a multiple of 16, and raises on anything it does not
     take.
     """
-    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco)
+    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
     if z_seq.device.type == "cpu":
         return convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
-                                                wci, wcf, wco)
+                                                wci, wcf, wco, dh_last)
     if z_seq.device.type != "cuda":
         raise ValueError(f"convlstm_scan_backward runs on CPU or CUDA tensors, not {z_seq.device}")
     dt = z_seq.dtype
@@ -227,6 +236,8 @@ def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wc
                          f"is not a multiple of 16")
     z_seq, c_prev_seq = z_seq.contiguous(), c_prev_seq.contiguous()
     dh_seq = dh_seq.to(dt).contiguous()
+    if dh_last is not None:
+        dh_last = dh_last.to(dt).contiguous()
     h_kernel = h_kernel.to(dt).contiguous()
     wci, wcf, wco = (p.to(dt).contiguous() for p in (wci, wcf, wco))
     # a private f32 copy that the kernel updates in place: dc_last in, dc0 out
@@ -237,8 +248,9 @@ def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wc
     with torch.cuda.device(z_seq.device):
         err = lib.vp_convlstm_scan_bwd(
             int(dt == torch.bfloat16), z_seq.data_ptr(), c_prev_seq.data_ptr(), dh_seq.data_ptr(),
-            dc.data_ptr(), h_kernel.data_ptr(), wci.data_ptr(), wcf.data_ptr(), wco.data_ptr(),
-            dz_seq.data_ptr(), dh0.data_ptr(), T, b, sh, sw, enc,
+            None if dh_last is None else dh_last.data_ptr(), dc.data_ptr(), h_kernel.data_ptr(),
+            wci.data_ptr(), wcf.data_ptr(), wco.data_ptr(), dz_seq.data_ptr(), dh0.data_ptr(),
+            T, b, sh, sw, enc,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"convlstm_scan_backward: kernel launch failed: "
@@ -248,29 +260,29 @@ def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wc
 
 
 class ScanFunction(torch.autograd.Function):
-    r"""The scan under autograd. Forward K3, or K3s when ``save`` asks for
-    the training residuals; backward K4 plus the bulk weight, bias and
-    peephole contractions (plain versions on the CPU). Gradients come back in
-    each input's dtype; inputs that need none get None, and the hidden
-    kernel's cuDNN weight gradient is skipped when the kernel is frozen."""
+    r"""The scan under autograd: forward K3s, which saves the training
+    residuals; backward K4 plus the bulk weight, bias and peephole
+    contractions (plain versions on the CPU). ``h_last`` is an output of its
+    own, so its gradient reaches K4 apart from ``h_seq``'s and enters the f32
+    ``dh`` carry there, as in the JAX kernel. Gradients come back in each
+    input's dtype; inputs that need none get None, and the hidden kernel's
+    cuDNN weight gradient is skipped when the kernel is frozen."""
 
     @staticmethod
-    def forward(ctx, i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save):
-        if not save:
-            return convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
+    def forward(ctx, i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
         h_seq, c_last, z_seq, c_prev_seq = convlstm_scan_forward(
             i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates=True)
         ctx.save_for_backward(z_seq, c_prev_seq, h_seq, h0, c_last, h_kernel, bias, wci, wcf, wco)
         ctx.dtypes = (None if i2h_t is None else i2h_t.dtype, c0.dtype)
-        return h_seq, c_last
+        return h_seq, h_seq[-1].clone(), c_last
 
     @staticmethod
-    def backward(ctx, dh_seq, dc_last):
+    def backward(ctx, dh_seq, dh_last, dc_last):
         z_seq, c_prev_seq, h_seq, h0, c_last, h_kernel, bias, wci, wcf, wco = ctx.saved_tensors
         i2h_dtype, c0_dtype = ctx.dtypes
         need = ctx.needs_input_grad
         dz_seq, dh0, dc0 = convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
-                                                  wci, wcf, wco)
+                                                  wci, wcf, wco, dh_last)
         T, b, sh, sw, enc = c_prev_seq.shape
         d_hk = d_bias = None
         if need[3]:
@@ -291,7 +303,7 @@ class ScanFunction(torch.autograd.Function):
         return (dz_seq.to(i2h_dtype) if need[0] else None,
                 dh0.to(h0.dtype) if need[1] else None,
                 dc0.to(c0_dtype) if need[2] else None,
-                d_hk, d_bias, *d_peep, None, None)
+                d_hk, d_bias, *d_peep, None)
 
 
 def convlstm_scan_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
@@ -317,15 +329,17 @@ def convlstm_scan_fused(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len: i
         seq_len: T.
 
     Returns ``(h_seq [T, b, sh, sw, enc], (h_last, c_last))``, all in the
-    activation dtype; ``h_last`` is ``h_seq[-1]``. Runs :class:`ScanFunction`:
-    on CUDA tensors K3 (K3s and, in the backward, K4 when grad mode is on
-    and some input requires grad; ``enc`` must be a multiple of 16), on CPU
-    tensors their plain versions.
+    activation dtype; ``h_last`` equals ``h_seq[-1]``. On CUDA tensors it
+    launches K3, or, when grad mode is on and some input requires grad, runs
+    :class:`ScanFunction` (K3s, and K4 in the backward); ``enc`` must be a
+    multiple of 16. On CPU tensors it runs their plain versions.
     """
     _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
     tensors = (i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco)
-    save = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-    h_seq, c_last = ScanFunction.apply(*tensors, seq_len, save)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        h_seq, h_last, c_last = ScanFunction.apply(*tensors, seq_len)
+        return h_seq, (h_last, c_last)
+    h_seq, c_last = convlstm_scan_forward(*tensors, seq_len)
     return h_seq, (h_seq[-1], c_last)
 
 
