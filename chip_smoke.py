@@ -6,15 +6,18 @@ r"""Runs the PyTorch port's serving and training paths on one NVIDIA H100 and ch
 Needs PyTorch built for CUDA, Triton and ``nvcc``; never imports JAX. It
 builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
 
-1. prints the card (``nvidia-smi`` name and power limit) and the versions;
+1. prints the card (``nvidia-smi`` name and power limit) and the versions,
+   and checks that ``-Xptxas -v`` reports no spilled bytes for any
+   instantiation of the scan kernels (``csrc/convlstm_scan{,_bwd}.cu``);
 2. holds K1, the ConvLSTM gate kernel, and K2, its backward (both Triton),
    against ``convlstm_gate_reference`` and ``convlstm_gate_backward_reference``
    at EF-ConvLSTM's three cell shapes, b=32;
 3. holds K3, the whole-recurrence ConvLSTM scan kernel, and K3s, its form
    that saves the training residuals (CUDA C++), against
    ``convlstm_scan_forward_reference`` at the same shapes, in decode mode
-   (T=10) and with a precomputed input half (T=5); K3s must leave ``h_seq``
-   bit for bit as K3 gives it;
+   (T=10) and with a precomputed input half (T=5), in f32 and bf16 (the
+   bf16 kernel: resident weights, a ``cp.async`` ring of h stages, ``wgmma``);
+   K3s must leave ``h_seq`` and ``c_last`` bit for bit as K3 gives them;
 4. holds K4, the scan's reverse-time backward (CUDA C++), against
    ``convlstm_scan_backward_reference`` at the fused training path's six
    launch shapes with a nonzero gradient of ``h_last``, and the scan's eight
@@ -69,8 +72,11 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
 """
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -390,8 +396,12 @@ def main():
           f"python {sys.version.split()[0]}")
 
     t0 = time.time()
-    build.build_all(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build_all(verbose=True)
+    print(log.getvalue(), end="")
     print(f"[build] CUDA kernels built in {time.time() - t0:.1f} s")
+    check_no_spills(log.getvalue())
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
@@ -420,6 +430,30 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def check_no_spills(log):
+    r"""Every instantiation of the scan kernels builds without spilling
+    registers, as ptxas's ``-v`` report in ``log`` says: they keep their
+    accumulators (and the bf16 kernels their A fragments) in registers."""
+    spilled, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            kernel = re.search(r"scan_(fwd|bwd)_(bf16|f32)_kernel(ILi\d+E)?", name)
+            if kernel:
+                spilled[kernel.group(0)] = int(spill.group(1)) + int(spill.group(2))
+            name = None
+    print("[build] scan kernels, bytes spilled: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(spilled.items())))
+    check(any(k.startswith("scan_fwd_bf16") for k in spilled)
+          and any(k.startswith("scan_bwd_bf16") for k in spilled),
+          "no -Xptxas -v report of the scan kernels in the build's output")
+    check(not any(spilled.values()), f"scan kernels spill registers: {spilled}")
 
 
 def check_gate_kernels(rnd, errs):

@@ -51,16 +51,24 @@ def _torch(args):
     return [None if a is None else torch.from_numpy(a) for a in args]
 
 
-@pytest.mark.parametrize("with_x,with_state", [(False, False), (True, False),
-                                               (False, True), (True, True)])
-def test_scan_reference_matches_jax_kernel(with_x, with_state):
+#: (with_x, with_state, (sh, sw, enc)): every mode at 8x8x4, and at 6x10x16 (sh != sw and
+#: enc=16, the narrowest the port's bf16 kernel takes, whose h stages are half full).
+SCAN_CASES = [pytest.param(x, s, (8, 8, 4), id=f"{x}-{s}")
+              for x, s in ((False, False), (True, False), (False, True), (True, True))] \
+    + [pytest.param(x, s, (6, 10, 16), id=f"{x}-{s}-6x10x16")
+       for x, s in ((False, False), (True, False), (False, True), (True, True))]
+
+
+@pytest.mark.parametrize("with_x,with_state,shape", SCAN_CASES)
+def test_scan_reference_matches_jax_kernel(with_x, with_state, shape):
     t = 3
-    args = _setup(t=t, with_x=with_x, with_state=with_state)
+    sh, sw, enc = shape
+    args = _setup(t=t, sh=sh, sw=sw, enc=enc, with_x=with_x, with_state=with_state)
     with jax.default_matmul_precision("highest"):
         j_seq, (j_h, j_c) = jax_scan_fused(
             *[None if a is None else jnp.asarray(a) for a in args], seq_len=t, interpret=True)
     seq, (h, c) = convlstm.convlstm_scan_reference(*_torch(args), seq_len=t)
-    assert seq.shape == (t, 2, 8, 8, 4)
+    assert seq.shape == (t, 2, sh, sw, enc)
     for ours, theirs in ((seq, j_seq), (h, j_h), (c, j_c)):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=2e-5)
 

@@ -8,7 +8,8 @@ that has neither:
 
 Tolerances: f32 with TF32 off, 1e-5 for the gate block and its backward (same
 formula) and 1e-4 for the scan and its backward (sums in another order); bf16
-scan 3e-2, since ``h`` is rounded every step and a one-ulp flip feeds the next
+scan 3e-2 (at every hidden-channel block and stage count the bf16 kernel
+picks), since ``h`` is rounded every step and a one-ulp flip feeds the next
 steps; bf16 scan backward (with a nonzero gradient of ``h_last``, at every
 output-channel block the bf16 kernel picks) 1% of the largest gradient of
 each kind, since ``dz`` is rounded to bf16 every step (a flipped rounding is
@@ -106,6 +107,14 @@ def test_scan_kernel_rejects_what_it_does_not_take(cuda):
         + [torch.zeros(8, 8, 8, device=cuda) for _ in range(3)]
     with pytest.raises(ValueError, match="multiple of 16"):
         convlstm_scan_fused(*args, seq_len=2)
+    # bf16 keeps a block's weights resident: above enc=288 they do not fit
+    enc = 304
+    wide = [None] + [torch.zeros(*s, device=cuda, dtype=torch.bfloat16)
+                     for s in ((1, 4, 4, enc), (1, 4, 4, enc), (3, 3, enc, 4 * enc))] \
+        + [torch.zeros(4 * enc, device=cuda)] \
+        + [torch.zeros(4, 4, enc, device=cuda, dtype=torch.bfloat16) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        convlstm_scan_forward(*wide, seq_len=1)
 
 
 @pytest.mark.parametrize("cfg", [{}, dict(use_fused_scan=True, interleaved_encode=False,
@@ -156,17 +165,29 @@ def test_gate_backward_kernel_matches_reference(cuda, dtype):
         torch.testing.assert_close(g.float(), want.float(), rtol=2 ** -7, atol=atol)
 
 
+#: (T, sh, sw, enc) of the forward scan: sh and sw not multiples of the 16x4
+#: (f32) or 16x8 (bf16) pixel tile, every hidden-channel block the bf16 kernel
+#: picks (enc 32 and 64 take 32, 48 and 96 take 24, 16 takes 16, 208 takes 8),
+#: a half last stage of h channels (enc 16, 48 and 208), three stages (96) and
+#: a single step.
+SCAN_FWD_SHAPES = [(3, 12, 20, 32), (1, 9, 17, 16), (2, 10, 18, 48), (2, 10, 18, 64),
+                   (2, 7, 13, 96), (1, 5, 6, 208)]
+
+
+@pytest.mark.parametrize("shape", SCAN_FWD_SHAPES, ids=lambda s: "T{}_{}x{}x{}".format(*s))
 @pytest.mark.parametrize("with_x", [False, True], ids=["decode", "with_i2h"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_scan_residuals_match_reference(cuda, dtype, with_x):
-    args = _scan_args(np.random.default_rng(4), cuda, dtype, with_x)
-    plain_seq, _ = convlstm_scan_forward(*args, seq_len=3)
+def test_scan_residuals_match_reference(cuda, dtype, with_x, shape):
+    t, sh, sw, enc = shape
+    args = _scan_args(np.random.default_rng(4), cuda, dtype, with_x, t=t, sh=sh, sw=sw, enc=enc)
+    plain_seq, plain_c = convlstm_scan_forward(*args, seq_len=t)
     before = convlstm_scan_fused.save_gates_launches
-    seq, c_last, z, c_prev = convlstm_scan_forward(*args, seq_len=3, save_gates=True)
+    seq, c_last, z, c_prev = convlstm_scan_forward(*args, seq_len=t, save_gates=True)
     torch.cuda.synchronize()
     assert convlstm_scan_fused.save_gates_launches == before + 1
-    assert torch.equal(seq, plain_seq)   # saving the residuals leaves h_seq bit for bit
-    rseq, rc, rz, rc_prev = convlstm_scan_forward_reference(*args, seq_len=3, save_gates=True)
+    # saving the residuals leaves h_seq and c_last bit for bit
+    assert torch.equal(seq, plain_seq) and torch.equal(c_last, plain_c)
+    rseq, rc, rz, rc_prev = convlstm_scan_forward_reference(*args, seq_len=t, save_gates=True)
     atol = 1e-4 if dtype == torch.float32 else 3e-2
     for got, want in ((seq, rseq), (c_last, rc), (z, rz), (c_prev, rc_prev)):
         assert got.dtype == dtype and got.shape == want.shape

@@ -241,13 +241,6 @@ constexpr size_t bf16_smem_bytes(int enc, int nc) {
   return bf16_weight_bytes(enc, nc) + STAGES * STAGE_BYTES;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const void* base, size_t i) {
-  return *reinterpret_cast<const uint32_t*>(static_cast<const bf16*>(base) + i);
-}
-__device__ __forceinline__ float2 bf2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
 // What the gate backward of step t needs at one pixel and channel pair (j, j+1), apart from the
 // gradient that reaches h_t through step t+1.
 struct PairIn {
@@ -288,12 +281,6 @@ __device__ __forceinline__ void finish_pair(const BwdParams& p, int t, size_t pi
   dz[enc] = __floats2bfloat162_rn(a.dzc, b.dzc);
   dz[3 * enc / 2] = __floats2bfloat162_rn(a.dzo, b.dzo);
   *reinterpret_cast<float2*>(p.dc + pix * enc + j) = make_float2(a.dc, b.dc);
-}
-
-__device__ __forceinline__ TileIndex pixel_tile(int tile, const BwdParams& p) {
-  const int tx = tile % p.tiles_x;
-  tile /= p.tiles_x;
-  return TileIndex{tile / p.tiles_y, (tile % p.tiles_y) * PT_H, tx * PT_W, 0};
 }
 
 // A lane's share of a tile, in the wgmma accumulator layout: tile row `row` (its warp), pixels
@@ -471,27 +458,6 @@ __global__ void __launch_bounds__(BF_THREADS, 1) scan_bwd_bf16_kernel(BwdParams 
 }
 
 // ---- launch ------------------------------------------------------------------------------------
-
-template <typename K>
-cudaError_t launch_cooperative(K kernel, size_t smem, int max_blocks, int multiple, BwdParams p,
-                               int threads, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm == 0) return cudaErrorInvalidConfiguration;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  int grid = max_blocks < per_sm * sms ? max_blocks : per_sm * sms;
-  grid -= grid % multiple;
-  if (grid < 1) return cudaErrorInvalidConfiguration;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(threads),
-                                    args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
 
 template <int NC>
 cudaError_t launch_bf16(BwdParams p, cudaStream_t stream) {

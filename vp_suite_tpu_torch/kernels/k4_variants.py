@@ -105,19 +105,35 @@ SHAPES = [(5, 32, 64, 64, 64), (5, 32, 32, 32, 96), (5, 32, 16, 16, 96), (10, 32
 CHECK = [(3, 2, 12, 20, 32), (2, 2, 7, 13, 96), SHAPES[0], SHAPES[1]]
 
 
-def variant_source(name: str) -> str:
-    text = (build.CSRC / "convlstm_scan_bwd.cu").read_text()
-    for old, new in EDITS.get(name, []):
+def apply_edits(source: str, edits: dict, name: str) -> str:
+    r"""The text of ``csrc/<source>`` with variant ``name``'s edits of ``edits``
+    applied (none for a name it lacks); raises if a text to replace does not
+    occur exactly once."""
+    text = (build.CSRC / source).read_text()
+    for old, new in edits.get(name, []):
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: the text to replace occurs {text.count(old)} times")
         text = text.replace(old, new)
     return text
 
 
-def build_variants(sources: dict) -> dict:
-    r"""``{name: (source text, include dir)}`` -> ``{name: ctypes library}``, one
-    ``nvcc`` per variant, all started together."""
-    out_dir = build.BUILD_DIR / "variants"
+def variant_source(name: str) -> str:
+    return apply_edits("convlstm_scan_bwd.cu", EDITS, name)
+
+
+def _declare_bwd(lib, text):
+    n_ptr = 11 if "const void* dh_last" in text else 10
+    lib.vp_convlstm_scan_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.vp_convlstm_scan_bwd.restype = ctypes.c_int
+    return lib, n_ptr == 11
+
+
+def build_variants(sources: dict, declare=_declare_bwd, subdir: str = "variants") -> dict:
+    r"""``{name: (source text, include dir)}`` -> ``{name: declare(ctypes library,
+    source text)}``, one ``nvcc`` per variant, all started together, into
+    ``kernels/_build/<subdir>/``."""
+    out_dir = build.BUILD_DIR / subdir
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (text, include) in sources.items():
@@ -131,12 +147,7 @@ def build_variants(sources: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        n_ptr = 11 if "const void* dh_last" in sources[name][0] else 10
-        lib.vp_convlstm_scan_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.vp_convlstm_scan_bwd.restype = ctypes.c_int
-        libs[name] = (lib, n_ptr == 11)
+        libs[name] = declare(ctypes.CDLL(str(out_dir / f"{name}.so")), sources[name][0])
     return libs
 
 

@@ -113,8 +113,9 @@ def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
     also the residuals ``(z_seq [T, b, sh, sw, 4enc], c_prev_seq [T, b, sh,
     sw, enc])`` in the activation dtype. On CPU tensors it computes
     :func:`convlstm_scan_forward_reference`; on CUDA tensors it launches K3
-    (K3s with ``save_gates``), which needs ``enc`` a multiple of 16, and
-    raises on anything it does not take."""
+    (K3s with ``save_gates``), which needs ``enc`` a multiple of 16 (and in
+    bf16 at most 288, since a block keeps its channels' weights resident in
+    shared memory), and raises on anything it does not take."""
     _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
     if h0.device.type == "cpu":
         return convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco,
