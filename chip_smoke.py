@@ -28,7 +28,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    ``warp_sample_backward_reference`` at EF-TrajGRU's three layer shapes
    (b=32, L=13), in f32 and bf16, on flows of a few pixels, some of which
    leave the image, and the warp's three gradients through its autograd
-   Function against autograd of the plain forward;
+   Function against autograd of the plain forward; prints the share of the
+   in-image taps that leave their block's band in the backward (and go to
+   global atomics) at each shape;
 6. holds K8, the warp fused with TrajGRU's 1x1 ``ret`` conv (``warp_ret``;
    CUDA C++ forward and backward), against ``warp_ret_reference`` and
    ``warp_ret_backward_reference`` at the same three shapes (O = 3f) in f32
@@ -58,16 +60,18 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     (Adam, lr 1e-4, MSE) on the same models' configurations, b=32, 5 -> 10,
     bf16: EF-ConvLSTM per-step (K1 + K2) and fused (K3s + K4), EF-TrajGRU (the
     warp forward and backward), with the counts set to 0 just before the first
-    step and read just after; checks losses, gradients and launch counts, and
-    at b=2 holds one f32 SGD step on the card against the same step on the
-    CPU;
+    step and read just after; checks losses, gradients and launch counts,
+    prints the share of the warp backward's taps outside their block's band
+    for the indices of EF-TrajGRU's second step, and at b=2 holds one f32 SGD
+    step on the card against the same step on the CPU;
 11. times each kernel at the shapes its path gives it, beside its plain
     version, its bound and the one PyTorch call that computes the same
     function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
     forward; for K8, whose fused function no one call computes,
     ``warp_flow_ret`` itself, forward and backward through autograd, on the
     same inputs), and times
-    ``predict`` and the train step.
+    ``predict`` and the train step, with the warp backward's device time in
+    EF-TrajGRU's train step under the profiler.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -629,6 +633,42 @@ def warp_args(rnd, side, ch):
     return [*idx, rnd(B, side, side, ch), rnd(B, P, TRAJ_L, ch, scale=1e-2)]
 
 
+def band_share(iy, ix, h, w, c, bf16=True):
+    r"""``((taps outside their block's band, taps in the image), tiling)`` of
+    the warp backward on these indices, with the tiling its kernel takes for
+    these sizes on this card (``vp_warp_bwd_geometry``)."""
+    from vp_suite_tpu_torch.kernels import build
+    from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
+    b, P, L = iy.shape
+    geom = geometry(build.warp_library(), b, P, L, h, w, c, bf16)
+    return out_of_band_share(iy, ix, h, w, geom), geom
+
+
+@contextlib.contextmanager
+def recording_band_shares(shares):
+    r"""While active, every backward of ``WarpFunction`` first adds its
+    indices' ``(outside, in-image)`` tap counts (:func:`band_share`) to
+    ``shares[(h, w, c)]``."""
+    import torch
+    from vp_suite_tpu_torch.ops.warp import WarpFunction
+    plain = WarpFunction.backward
+
+    def backward(ctx, g):
+        iy, ix, img = ctx.saved_tensors
+        _, h, w, c = img.shape
+        (outside, taps), _ = band_share(iy, ix, h, w, c, img.dtype == torch.bfloat16)
+        acc = shares.setdefault((h, w, c), [0, 0])
+        acc[0] += outside
+        acc[1] += taps
+        return plain(ctx, g)
+
+    WarpFunction.backward = staticmethod(backward)
+    try:
+        yield shares
+    finally:
+        WarpFunction.backward = staticmethod(plain)
+
+
 def check_warp_kernels(rnd, errs):
     r"""The warp's forward and backward kernels against their plain versions,
     and its three gradients through ``WarpFunction`` against autograd of the
@@ -645,6 +685,10 @@ def check_warp_kernels(rnd, errs):
         base = warp_args(rnd, side, ch)
         out_of_image = ((base[0] < 0) | (base[0] > side - 1) | (base[1] < 0)
                         | (base[1] > side - 1)).float().mean().item()
+        (outside, taps), geom = band_share(base[0], base[1], side, side, ch)
+        print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L}: the backward's tiling in bf16 {geom}; "
+              f"{outside} of {taps} in-image taps ({outside / taps:.2%}) fall outside their "
+              f"block's band and go to global atomics")
         for dt in (torch.float32, torch.bfloat16):
             iy, ix, img, g = base[0], base[1], base[2].to(dt), base[3].to(dt)
             got = warp_sample_forward(iy, ix, img)
@@ -1023,8 +1067,14 @@ def drive_training():
                   and bool(torch.isfinite(p.grad).all()) and bool((p.grad != 0).any()),
                   f"{name}: parameter {pname} has no finite, non-zero f32 gradient after a step")
         losses = [float(metrics["total"])]
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["total"]))
+        with recording_band_shares({}) as shares:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["total"]))
+        if shares:
+            print(f"[train] {name}: taps of the warp backward outside their block's band, from "
+                  f"the indices of one train step (not timed): "
+                  + ", ".join(f"{h}x{w}x{c} {o} of {n} ({o / n:.2%})"
+                              for (h, w, c), (o, n) in shares.items()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
@@ -1397,12 +1447,14 @@ def time_paths(serve, train):
               f"{s['lat']:.2f} ms, {B * (CTX + PRED) / s['lat'] * 1e3:.0f} frames/s, "
               f"peak memory {s['peak']:.2f} GiB above what was live before")
         profile(f"train step {name}",
-                lambda: float(s["step"](s["state"], train["batch"])[1]["total"]))
+                lambda: float(s["step"](s["state"], train["batch"])[1]["total"]),
+                pick=("warp_bwd_kernel",) if name == "trajgru" else ())
 
 
-def profile(name, fn):
+def profile(name, fn, pick=()):
     r"""One call of ``fn`` under ``torch.profiler``: device busy share and the
-    kernels that take most of the device time."""
+    kernels that take most of the device time, and the device time of the
+    kernels whose names hold each string of ``pick``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1419,6 +1471,11 @@ def profile(name, fn):
           f"(busy {busy / wall:.0%}), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    for key in pick:
+        hits = [e for e in kernels if key in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"[profile] {name}: {key} {ms:.3f} ms of the {busy:.2f} ms of device time "
+              f"({ms / busy:.1%}), {sum(e.count for e in hits)} launches")
 
 
 if __name__ == "__main__":

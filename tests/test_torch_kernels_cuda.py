@@ -36,7 +36,9 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
-from vp_suite_tpu_torch.ops.grid_sample import _onehot_factor
+from vp_suite_tpu_torch.kernels import build
+from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
+from vp_suite_tpu_torch.ops.grid_sample import _onehot_factor, grid_sample
 from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
                                          warp_contract_backward_reference, warp_contract_forward,
                                          warp_contract_reference, warp_ret, warp_ret_backward,
@@ -317,6 +319,88 @@ def test_warp_kernels_match_the_plain_versions(cuda, dtype, c):
     for a, w in zip(leaves, want_grads):
         assert a.grad.dtype == w.dtype and a.grad.shape == w.shape
         _close_to_largest(a.grad, w, 1e-5 if w.dtype == torch.float32 else 2 ** -7 + 1e-5)
+
+
+def _check_warp_backward(iy, ix, img, g):
+    r"""The backward kernel (one launch) against its plain version, within the
+    warp's gradient tolerances; returns the block tiling it ran with."""
+    b, P, L = iy.shape
+    _, h, w, c = img.shape
+    geom = geometry(build.warp_library(), b, P, L, h, w, c, img.dtype == torch.bfloat16)
+    before = warp_sample_backward.launches
+    got = warp_sample_backward(iy, ix, img, g)
+    torch.cuda.synchronize()
+    assert warp_sample_backward.launches == before + 1
+    for q, want in zip(got, warp_sample_backward_reference(iy, ix, img, g)):
+        assert q.dtype == want.dtype and q.shape == want.shape
+        _close_to_largest(q, want, 1e-5 if want.dtype == torch.float32 else 2 ** -7 + 1e-5)
+    return geom
+
+
+@pytest.mark.parametrize("c", [24, 20, 72, 6, 5], ids=["c24", "c20", "c72-3-chunks", "c6", "c5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_backward_band_and_out_of_band_taps(cuda, dtype, c):
+    r"""A 40x64 image, whose blocks' bands (the tile's rows and R = 6 above
+    and below) are smaller than it, and a fifth of the row offsets 7-12 rows
+    away: both the shared window and the global atomics for taps outside it
+    take part. c = 24/20/72/6/5 cover whole and ragged channel chunks and every
+    vector width (16, 8, 4 and 2 bytes, one channel)."""
+    rng = np.random.default_rng(13)
+    b, h, w, L = 2, 40, 64, 3
+    P = h * w
+    oy = np.repeat(np.arange(h, dtype=np.float32), w)[None, :, None]
+    ox = np.tile(np.arange(w, dtype=np.float32), h)[None, :, None]
+    far = (rng.random((b, P, L)) < 0.2) * rng.choice([-1.0, 1.0], (b, P, L)) \
+        * rng.uniform(7.0, 12.0, (b, P, L))
+    iy = oy + rng.normal(0.0, 2.0, (b, P, L)) + far
+    ix = ox + rng.normal(0.0, 2.0, (b, P, L)) - (rng.random((b, P, L)) < 0.05) * w
+    iy, ix = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (iy, ix))
+    img = _randn(rng, b, h, w, c).to(cuda, dtype)
+    g = _randn(rng, b, P, L, c).to(cuda, dtype)
+    geom = _check_warp_backward(iy, ix, img, g)
+    assert 0 < geom["rows"] < h
+    outside, taps = out_of_band_share(iy, ix, h, w, geom)
+    assert 0.05 * taps < outside < 0.5 * taps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_backward_without_a_window(cuda, dtype):
+    r"""So wide an image (w = 1900, 32 channels) that not one row of f32
+    accumulators fits in shared memory: every tap goes to global atomics."""
+    rng = np.random.default_rng(15)
+    b, h, w, c, L = 1, 3, 1900, 32, 1
+    P = h * w
+    iy = np.repeat(np.arange(h, dtype=np.float32), w)[None, :, None] + rng.normal(0.0, 1.0, (b, P, L))
+    ix = np.tile(np.arange(w, dtype=np.float32), h)[None, :, None] + rng.normal(0.0, 3.0, (b, P, L))
+    iy, ix = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (iy, ix))
+    geom = _check_warp_backward(iy, ix, _randn(rng, b, h, w, c).to(cuda, dtype),
+                                _randn(rng, b, P, L, c).to(cuda, dtype))
+    assert geom["rows"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grid_sample_backward_with_p_not_hw(cuda, dtype):
+    r"""``grid_sample`` sends the warp P = 10*13 != h*w = 24*40 samples of one
+    flow; its gradients on the card against the same call on the CPU (the
+    plain backward), with the tiles' bands placed as if the output pixels
+    were rows of the image."""
+    rng = np.random.default_rng(14)
+    b, h, w, c, h_out, w_out = 2, 24, 40, 16, 10, 13
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (b, h_out, w_out, 2)).astype(np.float32))
+    img = _randn(rng, b, h, w, c).to(dtype)
+    g = _randn(rng, b, h_out, w_out, c).to(dtype)
+    geom = geometry(build.warp_library(), b, h_out * w_out, 1, h, w, c, dtype == torch.bfloat16)
+    assert 0 < geom["rows"] < h
+    grads = []
+    for device in (cuda, torch.device("cpu")):
+        leaves = [a.to(device).requires_grad_() for a in (img, grid)]
+        before = warp_sample_backward.launches
+        grid_sample(*leaves).backward(g.to(device))
+        assert warp_sample_backward.launches == before + (device.type == "cuda")
+        grads.append([a.grad.cpu() for a in leaves])
+    for q, want in zip(*grads):
+        assert q.dtype == want.dtype
+        _close_to_largest(q, want, 1e-5 if want.dtype == torch.float32 else 2 ** -7 + 1e-5)
 
 
 #: (h, w, P): a square image with P = h*w, and a ragged one with P != h*w.
