@@ -28,9 +28,10 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    ``warp_sample_backward_reference`` at EF-TrajGRU's three layer shapes
    (b=32, L=13), in f32 and bf16, on flows of a few pixels, some of which
    leave the image, and the warp's three gradients through its autograd
-   Function against autograd of the plain forward; prints the share of the
-   in-image taps that leave their block's band in the backward (and go to
-   global atomics) at each shape;
+   Function against autograd of the plain forward; prints both kernels'
+   tilings and the share of the in-image taps that leave their block's band
+   at each shape (read from global memory in the forward, sent to global
+   atomics in the backward);
 6. holds K8, the warp fused with TrajGRU's 1x1 ``ret`` conv (``warp_ret``;
    CUDA C++ forward and backward), against ``warp_ret_reference`` and
    ``warp_ret_backward_reference`` at the same three shapes (O = 3f) in f32
@@ -70,8 +71,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     forward; for K8, whose fused function no one call computes,
     ``warp_flow_ret`` itself, forward and backward through autograd, on the
     same inputs), and times
-    ``predict`` and the train step, with the warp backward's device time in
-    EF-TrajGRU's train step under the profiler.
+    ``predict`` and the train step, with the warp forward's device time in
+    EF-TrajGRU's ``predict`` and the warp forward's and backward's in its
+    train step under the profiler.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -633,15 +635,16 @@ def warp_args(rnd, side, ch):
     return [*idx, rnd(B, side, side, ch), rnd(B, P, TRAJ_L, ch, scale=1e-2)]
 
 
-def band_share(iy, ix, h, w, c, bf16=True):
+def band_share(iy, ix, h, w, c, bf16=True, forward=False):
     r"""``((taps outside their block's band, taps in the image), tiling)`` of
-    the warp backward on these indices, with the tiling its kernel takes for
-    these sizes on this card (``vp_warp_bwd_geometry``)."""
-    from vp_suite_tpu_torch.kernels import build
-    from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
+    the warp backward (or, with ``forward``, the forward) on these indices,
+    with the tiling its kernel takes for these sizes on this card
+    (``vp_warp_bwd_geometry``, ``vp_warp_fwd_geometry``)."""
+    from vp_suite_tpu_torch.kernels import build, warp_bwd_variants, warp_fwd_variants
     b, P, L = iy.shape
-    geom = geometry(build.warp_library(), b, P, L, h, w, c, bf16)
-    return out_of_band_share(iy, ix, h, w, geom), geom
+    tool = warp_fwd_variants if forward else warp_bwd_variants
+    geom = tool.geometry(build.warp_library(), b, P, L, h, w, c, bf16)
+    return warp_bwd_variants.out_of_band_share(iy, ix, h, w, geom), geom
 
 
 @contextlib.contextmanager
@@ -689,6 +692,12 @@ def check_warp_kernels(rnd, errs):
         print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L}: the backward's tiling in bf16 {geom}; "
               f"{outside} of {taps} in-image taps ({outside / taps:.2%}) fall outside their "
               f"block's band and go to global atomics")
+        for dt in (torch.bfloat16, torch.float32):
+            (outside, taps), geom = band_share(base[0], base[1], side, side, ch,
+                                               dt == torch.bfloat16, forward=True)
+            print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L}: the forward's tiling in "
+                  f"{str(dt)[6:]} {geom}; {outside} of {taps} in-image taps ({outside / taps:.2%}) "
+                  f"fall outside their block's band and are read from global memory")
         for dt in (torch.float32, torch.bfloat16):
             iy, ix, img, g = base[0], base[1], base[2].to(dt), base[3].to(dt)
             got = warp_sample_forward(iy, ix, img)
@@ -1441,14 +1450,15 @@ def time_paths(serve, train):
               f"(runs {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
               f"{B * PRED / lat * 1e3:.0f} frames/s, peak memory {peak:.2f} GiB above what "
               f"was allocated before")
-        profile(f"predict {name}", lambda: suite.predict(frames, pred_frames=PRED, model_idx=i))
+        profile(f"predict {name}", lambda: suite.predict(frames, pred_frames=PRED, model_idx=i),
+                pick=("warp_fwd_kernel",) if name == "trajgru" else ())
     for name, s in train["steps"].items():
         print(f"[time] train step {name} bf16 b={B} {CTX}->{PRED} at 64x64: median "
               f"{s['lat']:.2f} ms, {B * (CTX + PRED) / s['lat'] * 1e3:.0f} frames/s, "
               f"peak memory {s['peak']:.2f} GiB above what was live before")
         profile(f"train step {name}",
                 lambda: float(s["step"](s["state"], train["batch"])[1]["total"]),
-                pick=("warp_bwd_kernel",) if name == "trajgru" else ())
+                pick=("warp_fwd_kernel", "warp_bwd_kernel") if name == "trajgru" else ())
 
 
 def profile(name, fn, pick=()):

@@ -1,11 +1,12 @@
 r"""The named variants of the scan kernels (``kernels/k3_variants.py`` for K3/K3s,
-``kernels/k4_variants.py`` for K4) and of the warp backward
-(``kernels/warp_bwd_variants.py``) still apply to the sources as they stand.
+``kernels/k4_variants.py`` for K4) and of the warp backward and forward
+(``kernels/warp_bwd_variants.py``, ``kernels/warp_fwd_variants.py``) still
+apply to the sources as they stand.
 
 Each variant is a set of text replacements in a kernel's source; an edit whose
 text no longer occurs exactly once would build a variant that is not the one
 its name says. These tests need no card: they only read the sources (and count, on the CPU,
-where the warp backward's taps land under a given tiling).
+where the warp's taps land under a given tiling, and which tiling the forward takes on an H100).
 """
 import itertools
 import math
@@ -14,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from vp_suite_tpu_torch.kernels import k3_variants, k4_variants, warp_bwd_variants
+from vp_suite_tpu_torch.kernels import k3_variants, k4_variants, warp_bwd_variants, warp_fwd_variants
 
 CASES = [pytest.param(k3_variants, "convlstm_scan.cu", name, id=f"K3-{name}") for name in k3_variants.EDITS] \
     + [pytest.param(k4_variants, "convlstm_scan_bwd.cu", name, id=f"K4-{name}") for name in k4_variants.EDITS] \
     + [pytest.param(warp_bwd_variants, "warp_sample.cu", name, id=f"warp_bwd-{name}")
-       for name in warp_bwd_variants.EDITS]
+       for name in warp_bwd_variants.EDITS] \
+    + [pytest.param(warp_fwd_variants, "warp_sample.cu", name, id=f"warp_fwd-{name}")
+       for name in warp_fwd_variants.EDITS]
 
 
 @pytest.mark.parametrize("tool,source,name", CASES)
@@ -42,6 +45,57 @@ def test_k3_faults_are_named_variants():
 def test_warp_bwd_faults_are_named_variants():
     assert set(warp_bwd_variants.FAULTS) == {"no_sync_before_flush", "flush_store", "band_off_by_one"}
     assert set(warp_bwd_variants.FAULTS) <= set(warp_bwd_variants.EDITS)
+
+
+def test_warp_fwd_faults_are_named_variants():
+    assert set(warp_fwd_variants.FAULTS) == {"band_row_too_wide", "band_start_off_by_one",
+                                             "band_short"}
+    assert set(warp_fwd_variants.RACES) == {"no_copy_wait"}
+    assert set(warp_fwd_variants.FAULTS + warp_fwd_variants.RACES) <= set(warp_fwd_variants.EDITS)
+
+
+#: (b, P, h, w, c, bf16) -> what the forward's tiling must hold on an H100: bands of
+#: 20 / 12 / 10 rows in 160 / 72 / 30 KB and 256 blocks at EF-TrajGRU's three layer shapes
+#: in bf16, two vectors a lane; two passes of 32 channels in f32 at 64x64x64; one vector a
+#: lane where c / V is odd; R shrunk and no band where not one row of 16 bytes a pixel fits;
+#: a band placed by pixel index where P != h*w.
+FWD_PLANS = {
+    "64x64x64-bf16": ((32, 4096, 64, 64, 64, True),
+                      dict(tile_px=512, tiles=8, R=6, rows=20, cw=64, passes=1, vpl=2, V=8,
+                           smem=163840, threads=1024)),
+    "32x32x96-bf16": ((32, 1024, 32, 32, 96, True),
+                      dict(tile_px=128, tiles=8, R=4, rows=12, cw=96, passes=1, vpl=2, V=8,
+                           smem=73728, threads=512)),
+    "16x16x96-bf16": ((32, 256, 16, 16, 96, True),
+                      dict(tile_px=32, tiles=8, R=4, rows=10, cw=96, passes=1, vpl=2, V=8,
+                           smem=30720, threads=512)),
+    "64x64x64-f32": ((32, 4096, 64, 64, 64, False),
+                     dict(tile_px=512, tiles=8, R=6, rows=20, cw=32, passes=2, vpl=2, V=4,
+                          smem=163840, threads=1024)),
+    "32x32x96-f32": ((32, 1024, 32, 32, 96, False),
+                     dict(tile_px=128, tiles=8, R=4, rows=12, cw=96, passes=1, vpl=2, V=4,
+                          smem=147456, threads=1024)),
+    "c20-bf16": ((2, 2560, 40, 64, 20, True),
+                 dict(tile_px=64, tiles=40, R=6, rows=13, cw=20, passes=1, vpl=1, V=4,
+                      smem=33280, threads=512)),
+    "no-band": ((1, 30000, 2, 15000, 8, True),
+                dict(tile_px=15000, tiles=2, R=4, rows=0, cw=8, passes=1, vpl=1, V=8,
+                     smem=0, threads=512)),
+    "P-not-hw": ((2, 130, 24, 40, 16, False),
+                 dict(tile_px=40, tiles=4, R=4, rows=9, cw=16, passes=1, vpl=2, V=4,
+                      smem=23040, threads=512)),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_PLANS))
+def test_warp_fwd_plan_on_an_h100(case):
+    args, want = FWD_PLANS[case]
+    got = warp_fwd_variants.plan(*args)
+    assert got == want
+    b, P, h, w, c, bf16 = args
+    assert got["smem"] <= warp_fwd_variants.H100_LIMITS[1]
+    assert got["passes"] * got["cw"] >= c > (got["passes"] - 1) * got["cw"]
+    assert (got["cw"] // got["V"]) % got["vpl"] == 0
 
 
 def _out_of_band_loop(iy, ix, h, w, geom):

@@ -36,15 +36,16 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
-from vp_suite_tpu_torch.kernels import build
+from vp_suite_tpu_torch.kernels import build, warp_fwd_variants
 from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
-from vp_suite_tpu_torch.ops.grid_sample import _onehot_factor, grid_sample
+from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices, _onehot_factor, grid_sample
 from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
                                          warp_contract_backward_reference, warp_contract_forward,
                                          warp_contract_reference, warp_ret, warp_ret_backward,
                                          warp_ret_backward_reference, warp_ret_forward,
                                          warp_ret_reference, warp_sample, warp_sample_backward,
-                                         warp_sample_backward_reference, warp_sample_reference)
+                                         warp_sample_backward_reference, warp_sample_forward,
+                                         warp_sample_reference)
 from vp_suite_tpu_torch.training.loop import make_train_step
 from vp_suite_tpu_torch.training.train_state import create_train_state
 
@@ -401,6 +402,133 @@ def test_grid_sample_backward_with_p_not_hw(cuda, dtype):
     for q, want in zip(*grads):
         assert q.dtype == want.dtype
         _close_to_largest(q, want, 1e-5 if want.dtype == torch.float32 else 2 ** -7 + 1e-5)
+
+
+def _assert_warp_close(got, want):
+    r"""The warp forward's tolerance: 1e-5 in f32; one bf16 ulp of the value
+    plus 1e-5 in bf16."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ulp = 0 if want.dtype == torch.float32 else 1
+    bound = ulp * torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7) + 1e-5
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def _check_warp_forward(iy, ix, img):
+    r"""The forward kernel (one launch) against its plain version; returns the
+    block tiling it ran with."""
+    b, P, L = iy.shape
+    _, h, w, c = img.shape
+    geom = warp_fwd_variants.geometry(build.warp_library(), b, P, L, h, w, c,
+                                      img.dtype == torch.bfloat16)
+    before = warp_sample.launches
+    got = warp_sample_forward(iy, ix, img)
+    torch.cuda.synchronize()
+    assert warp_sample.launches == before + 1
+    _assert_warp_close(got, warp_sample_reference(iy, ix, img))
+    return geom
+
+
+@pytest.mark.parametrize("c", [64, 96, 20], ids=["c64", "c96", "c20"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_forward_band_and_out_of_band_taps(cuda, dtype, c):
+    r"""A 40x64 image, whose blocks' bands (the tile's rows and R = 6 above
+    and below) are smaller than it, a fifth of the row offsets 7-12 rows away
+    and some samples out of the image: taps from the band in shared memory
+    and from global memory take part. c = 96 in f32 takes two channel passes;
+    c = 20 vectors of 8 bytes in bf16."""
+    rng = np.random.default_rng(16)
+    b, h, w, L = 2, 40, 64, 3
+    P = h * w
+    oy = np.repeat(np.arange(h, dtype=np.float32), w)[None, :, None]
+    ox = np.tile(np.arange(w, dtype=np.float32), h)[None, :, None]
+    far = (rng.random((b, P, L)) < 0.2) * rng.choice([-1.0, 1.0], (b, P, L)) \
+        * rng.uniform(7.0, 12.0, (b, P, L))
+    iy = oy + rng.normal(0.0, 2.0, (b, P, L)) + far
+    ix = ox + rng.normal(0.0, 2.0, (b, P, L)) - (rng.random((b, P, L)) < 0.05) * w
+    iy, ix = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (iy, ix))
+    geom = _check_warp_forward(iy, ix, _randn(rng, b, h, w, c).to(cuda, dtype))
+    assert 0 < geom["rows"] < h
+    assert geom["passes"] == (2 if (c, dtype) == (96, torch.float32) else 1)
+    outside, taps = out_of_band_share(iy, ix, h, w, geom)
+    assert 0.05 * taps < outside < 0.5 * taps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_forward_zero_flows(cuda, dtype):
+    r"""EF-TrajGRU's indices at zero flows (its flow convs' start): every tap
+    lies in its block's band."""
+    rng = np.random.default_rng(17)
+    b, side, c, L = 2, 32, 96, 13
+    img = _randn(rng, b, side, side, c).to(cuda, dtype)
+    iy, ix = _flow_to_indices(img, torch.zeros(b, side, side, 2 * L, device=cuda))
+    geom = _check_warp_forward(iy, ix, img)
+    assert out_of_band_share(iy, ix, side, side, geom)[0] == 0
+
+
+def test_warp_forward_f32_in_channel_passes(cuda):
+    r"""EF-TrajGRU's first layer in f32 at b=32 (two flows): the full band,
+    20 rows of 64x64 channels, is 320 KB; the forward takes two passes of 32
+    channels."""
+    rng = np.random.default_rng(18)
+    b, side, c, L = 32, 64, 64, 2
+    P = side * side
+    oy = np.repeat(np.arange(side, dtype=np.float32), side)[None, :, None]
+    ox = np.tile(np.arange(side, dtype=np.float32), side)[None, :, None]
+    iy, ix = (torch.from_numpy((o + rng.normal(0.0, 3.0, (b, P, L))).astype(np.float32)).to(cuda)
+              for o in (oy, ox))
+    geom = _check_warp_forward(iy, ix, _randn(rng, b, side, side, c).to(cuda))
+    assert (geom["passes"], geom["cw"], geom["rows"]) == (2, 32, 20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_forward_without_a_band(cuda, dtype):
+    r"""So wide an image (w = 15000, 16 bytes of channels a pixel) that not
+    one row fits in shared memory: every tap reads global memory."""
+    rng = np.random.default_rng(19)
+    b, h, w, L = 1, 2, 15000, 2
+    c = 4 if dtype == torch.float32 else 8
+    P = h * w
+    iy = np.repeat(np.arange(h, dtype=np.float32), w)[None, :, None] + rng.normal(0.0, 1.0, (b, P, L))
+    ix = np.tile(np.arange(w, dtype=np.float32), h)[None, :, None] + rng.normal(0.0, 3.0, (b, P, L))
+    iy, ix = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (iy, ix))
+    geom = _check_warp_forward(iy, ix, _randn(rng, b, h, w, c).to(cuda, dtype))
+    assert geom["rows"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grid_sample_forward_with_p_not_hw(cuda, dtype):
+    r"""``grid_sample`` sends the warp P = 10*13 != h*w = 24*40 samples of one
+    flow; the card's result against the same call on the CPU (the plain
+    forward), with the tiles' bands placed as if the output pixels were rows
+    of the image."""
+    rng = np.random.default_rng(20)
+    b, h, w, c, h_out, w_out = 2, 24, 40, 16, 10, 13
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (b, h_out, w_out, 2)).astype(np.float32))
+    img = _randn(rng, b, h, w, c).to(dtype)
+    geom = warp_fwd_variants.geometry(build.warp_library(), b, h_out * w_out, 1, h, w, c,
+                                      dtype == torch.bfloat16)
+    assert 0 < geom["rows"] < h
+    before = warp_sample.launches
+    got = grid_sample(img.to(cuda), grid.to(cuda))
+    torch.cuda.synchronize()
+    assert warp_sample.launches == before + 1
+    _assert_warp_close(got.cpu(), grid_sample(img, grid))
+
+
+def test_warp_forward_geometry_matches_its_mirror(cuda):
+    r"""``vp_warp_fwd_geometry`` on an H100 against
+    :func:`warp_fwd_variants.plan` with the H100's limits, at EF-TrajGRU's
+    three layer shapes and the shapes of the tests above."""
+    props = torch.cuda.get_device_properties(0)
+    if (props.multi_processor_count, props.shared_memory_per_multiprocessor) != (132, 233472):
+        pytest.skip("the mirror's limits are an H100 SXM's")
+    lib = build.warp_library()
+    for b, P, h, w, c in [(32, 4096, 64, 64, 64), (32, 1024, 32, 32, 96), (32, 256, 16, 16, 96),
+                          (2, 2560, 40, 64, 96), (2, 130, 24, 40, 16), (1, 30000, 2, 15000, 8),
+                          (2, 2560, 40, 64, 20)]:
+        for bf16 in (True, False):
+            assert warp_fwd_variants.geometry(lib, b, P, 13, h, w, c, bf16) \
+                == warp_fwd_variants.plan(b, P, h, w, c, bf16), (b, P, h, w, c, bf16)
 
 
 #: (h, w, P): a square image with P = h*w, and a ragged one with P != h*w.

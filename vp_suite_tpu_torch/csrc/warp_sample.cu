@@ -28,13 +28,32 @@
 // [b*P, L*c] is the input of TrajGRU's 1x1 ret conv as one GEMM, with no transpose.
 //
 // Bound: bytes. The forward writes b*P*L*c outputs once (218 MB in bf16 at b=32, 64x64, L=13, c=64)
-// and reads the indices once; the image (16.8 MB there) is read 4L times, mostly from the 50 MB L2.
-// The backward reads g once and the image and indices again, and scatters into an f32 d_img
-// (33.6 MB there) that stays in L2.
+// and reads the indices and the image once (16.8 MB there). The backward reads g once and the image
+// and indices again, and scatters into an f32 d_img (33.6 MB there) that stays in L2.
 //
-// Forward, simple first: each thread takes 16 bytes of channels of one sample (8 bf16 or 4 f32, when
-// c and the pointers allow it, else one channel), so every tap is read and every output written as
-// whole vectors, neighbouring threads on neighbouring addresses.
+// Forward: a gather of 4L taps per output pixel would read the image 52 times (873 MB of 16-byte
+// tap reads from L2 at 64x64x64, 3.5 times the bytes bound). The TPU's band kernel
+// (_make_band_fwd_kernel) contracts each output tile with only the band of image rows around it;
+// here that band is staged once per block in shared memory:
+// - one block per (batch item, tile of out_rows output rows, channel pass); its band holds `rows`
+//   image rows (the tile's rows and R above and below, clamped into the image) at the full width,
+//   for the pass's cw channels (all c where the band fits, else the fewest passes that fit), in the
+//   image's type, copied in by cp.async and waited for once;
+// - a sample's vectors of V channels (16 bytes when c and the pointers allow it) go to G lanes, two
+//   each where their number is even (VPL), so that the index work of a sample (its four taps from
+//   iy/ix, loaded one sample ahead) is shared by two vectors; the block's samples (tile pixel, flow)
+//   times G are spread over the threads in order, so neighbouring lanes write neighbouring addresses
+//   of the pixel-major output; each lane reads each tap inside the band from shared memory and one
+//   outside it (a flow that leaves the band: the port is exact for any flow, unlike the TPU's clamp
+//   mode) from global memory, sums in f32 and rounds once;
+// - the output goes out with streaming stores (st.global.cs), so that it does not evict from L2 the
+//   image rows that other blocks' bands still have to copy.
+// What bounds it on an H100 (PERF.md, Findings): with the output write cut out it still takes some
+// 90% of its time, so the tap arithmetic and its latency (one block of 1024 threads per SM at
+// 64x64x64) set the pace, not the write; a few taps outside the band (4-5% on flows that send a
+// tenth of the samples far away) cost a quarter more, as each stalls its warp on L2. Any tiling is exact: where
+// P != h*w (grid_sample) the band is placed as if the pixel index were row-major in the image, and
+// where not even one row of one vector fits in shared memory every tap reads global memory.
 //
 // Backward: the scatter of g * weight into d_img is what costs (4*c f32 adds per sample, 436 M at
 // 64x64x64, b=32, L=13). The TPU's band kernels (_make_band_dimg_kernel) add each output tile's
@@ -70,48 +89,286 @@ namespace {
 
 using namespace warpk;
 
-constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 16;  // cap of the grid-stride launch
-
 template <typename T, int V> struct alignas(sizeof(T) * V) Vec { T v[V]; };
 
 struct Dims {
   int b, P, L, h, w, c;
 };
 
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The widest vector of channels (at most 16 bytes) that divides c and to which both tensors are
+// aligned.
+template <typename T>
+int vec_width(const Dims& d, const void* a, const void* b) {
+  int V = 16 / int(sizeof(T));
+  while (V > 1 && (d.c % V || reinterpret_cast<uintptr_t>(a) % (V * sizeof(T)) ||
+                   reinterpret_cast<uintptr_t>(b) % (V * sizeof(T))))
+    V /= 2;
+  return V;
+}
+
+cudaError_t device_limits(int* sms, int* smem_max, int* smem_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  return err;
+}
+
+// ---- forward -------------------------------------------------------------------------------
+
+constexpr int FWD_TILE_ROWS = 8;     // output rows of a tile, halved while the grid has fewer blocks than SMs
+constexpr bool STREAM_STORES = true;  // the output as st.global.cs
+constexpr int VPL_MAX = 2;            // vectors of a sample per lane, at most
+
+// One launch's tiling (fwd_geometry).
+struct FwdGeom {
+  int tile_px;  // output pixels of a tile (out_rows * w, at most P)
+  int tiles;    // tiles of one batch item
+  int R;        // band radius in rows
+  int rows;     // band rows (0: no band, every tap reads global memory)
+  int cw;       // channels of a pass, a multiple of V (the last pass may be narrower)
+  int passes;   // channel passes, the grid's second dimension
+  int vpl;      // vectors of a sample per lane (a power of two that divides every pass's vectors)
+  int threads;  // threads per block: 1024 where the band leaves room for one block per SM, else 512
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// BYTES bytes from global memory into shared memory: by cp.async where BYTES allows (4, 8 or 16;
+// 16 past L1), to be waited for with cp_async_wait_all; else by a plain load and store.
+template <int BYTES>
+__device__ __forceinline__ void copy_to_shared(void* dst, const void* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  else if constexpr (BYTES == 8 || BYTES == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(BYTES)
+                 : "memory");
+  else
+    *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// *p = v, as a streaming store (st.global.cs: evict first) when STREAM_STORES is set. Nothing in
+// the kernel reads the output, so the stores need no memory clobber.
+template <typename VT>
+__device__ __forceinline__ void store_out(VT* p, const VT& v) {
+  static_assert(sizeof(VT) == 16 || sizeof(VT) == 8 || sizeof(VT) == 4 || sizeof(VT) == 2);
+  if constexpr (!STREAM_STORES) {
+    *p = v;
+  } else if constexpr (sizeof(VT) == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(&v);
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(u.x), "r"(u.y),
+                 "r"(u.z), "r"(u.w));
+  } else if constexpr (sizeof(VT) == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(&v);
+    asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};\n" ::"l"(p), "r"(u.x), "r"(u.y));
+  } else if constexpr (sizeof(VT) == 4) {
+    asm volatile("st.global.cs.u32 [%0], %1;\n" ::"l"(p), "r"(*reinterpret_cast<const unsigned*>(&v)));
+  } else {
+    asm volatile("st.global.cs.u16 [%0], %1;\n" ::"l"(p), "h"(*reinterpret_cast<const unsigned short*>(&v)));
+  }
+}
+
+// The forward of one (batch item, tile of output pixels, channel pass) block, NT threads. The band
+// holds image rows [row0, row0 + rows) at the full width for the pass's channels [c0, c0 + cw), in
+// img's type, channel-contiguous per pixel with a pitch of cw. A sample's nv vectors of V channels
+// go to G = nv / VPL lanes, VPL vectors each (lane j: vectors j, j + G, ..., the order rotated by
+// the sample's parity, so that two samples in one quarter-warp read different banks where nv = 2G
+// and G = 4), which share the sample's taps. The block's n_samp samples times G lanes are taken in
+// order, NT at a time: thread t takes item t, t + NT, ..., item i being lane i % G of sample i / G
+// (stepped without a division in the loop), each loading its next item's indices ahead.
+template <typename T, int V, int VPL, int NT>
+__global__ void __launch_bounds__(NT)
     warp_fwd_kernel(const float* __restrict__ iy, const float* __restrict__ ix,
-                    const T* __restrict__ img, T* __restrict__ out, Dims d) {
-  const int chunks = d.c / V;
-  const int64_t per_item = int64_t(d.P) * d.L;
-  const int64_t img_item = int64_t(d.h) * d.w * d.c;
-  const int64_t n = int64_t(d.b) * per_item * chunks;
-  for (int64_t i = int64_t(blockIdx.x) * THREADS + threadIdx.x; i < n;
-       i += int64_t(gridDim.x) * THREADS) {
-    const int64_t s = i / chunks;
-    const int ch = int(i - s * chunks) * V;
-    const Taps t = make_taps(__ldg(iy + s), __ldg(ix + s), d.h, d.w);
-    const T* src = img + (s / per_item) * img_item + ch;
-    float acc[V];
+                    const T* __restrict__ img, T* __restrict__ out, Dims d, FwdGeom q) {
+  using VT = Vec<T, V>;
+  extern __shared__ float4 smem4[];
+  T* band = reinterpret_cast<T*>(smem4);  // [rows * w pixels][cw channels]
+  const int bi = blockIdx.x / q.tiles;
+  const int p0 = (blockIdx.x - bi * q.tiles) * q.tile_px;
+  const int c0 = blockIdx.y * q.cw;
+  const int nv = min(q.cw, d.c - c0) / V;  // c % V == 0, so every vector is whole
+  const int G = nv / VPL;                  // the geometry makes nv a multiple of VPL
+  const int n_samp = min(q.tile_px, d.P - p0) * d.L;
+  // the band: rows [row0, row0 + rows), the tile's rows p0 / w .. and R above, clamped
+  const int row0 = max(0, min(p0 / d.w - q.R, d.h - q.rows));
+  const int band_off = row0 * d.w, band_px = q.rows * d.w;
+  const T* src = img + int64_t(bi) * d.h * d.w * d.c + c0;
+
+  {
+    const T* from = src + int64_t(row0) * d.w * d.c;
+    const int units = band_px * nv;
+    for (int u = threadIdx.x; u < units; u += NT) {
+      const int px = u / nv, j = u - px * nv;
+      copy_to_shared<sizeof(VT)>(band + px * q.cw + j * V, from + int64_t(px) * d.c + j * V);
+    }
+    cp_async_wait_all();  // this thread's copies have landed
+    __syncthreads();      // and every other thread's
+  }
+
+  const int64_t s0 = (int64_t(bi) * d.P + p0) * d.L;  // the tile's first sample
+  const float* ty = iy + s0;
+  const float* tx = ix + s0;
+  T* dst = out + s0 * d.c + c0;
+  const int ds = NT / G, dj = NT - ds * G;
+  int s = threadIdx.x / G, j = threadIdx.x - s * G;
+  float ny = 0.0f, nx = 0.0f;
+  if (s < n_samp) {
+    ny = __ldg(ty + s);
+    nx = __ldg(tx + s);
+  }
+  while (s < n_samp) {
+    const float cy = ny, cx = nx;
+    const int cs = s;
+    int ch[VPL];  // the lane's channels in the pass
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    for (int u = 0; u < VPL; ++u) ch[u] = (((u + cs) & (VPL - 1)) * G + j) * V;
+    s += ds;
+    j += dj;
+    if (j >= G) {
+      j -= G;
+      ++s;
+    }
+    if (s < n_samp) {  // the next sample's indices, loaded while this one is summed
+      ny = __ldg(ty + s);
+      nx = __ldg(tx + s);
+    }
+    const Taps t = make_taps(cy, cx, d.h, d.w);
+    float acc[VPL][V];
+#pragma unroll
+    for (int u = 0; u < VPL; ++u)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[u][v] = 0.0f;
+    // acc += wt * the lane's vectors of the tap at p (in the band or in global memory)
+    auto add = [&](const T* p, float wt) {
+      VT val[VPL];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) val[u] = *reinterpret_cast<const VT*>(p + ch[u]);
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[u][v] = fmaf(wt, to_f(val[u].v[v]), acc[u][v]);
+    };
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      Vec<T, V> val;
-      if (t.valid[k]) {
-        val = *reinterpret_cast<const Vec<T, V>*>(src + int64_t(t.off[k]) * d.c);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v) val.v[v] = from_f<T>(0.0f);
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = fmaf(t.wt[k], to_f(val.v[v]), acc[v]);
+      if (!t.valid[k]) continue;  // a tap outside the image reads zero
+      const int px = t.off[k] - band_off;
+      if (unsigned(px) < unsigned(band_px))  // in the band: shared memory
+        add(band + px * q.cw, t.wt[k]);
+      else  // out of the band: global memory
+        add(src + int64_t(t.off[k]) * d.c, t.wt[k]);
     }
-    Vec<T, V> res;
 #pragma unroll
-    for (int v = 0; v < V; ++v) res.v[v] = from_f<T>(acc[v]);
-    *reinterpret_cast<Vec<T, V>*>(out + s * d.c + ch) = res;
+    for (int u = 0; u < VPL; ++u) {
+      VT res;
+#pragma unroll
+      for (int v = 0; v < V; ++v) res.v[v] = from_f<T>(acc[u][v]);
+      store_out(reinterpret_cast<VT*>(dst + int64_t(cs) * d.c + ch[u]), res);
+    }
+  }
+}
+
+// The forward's tiling on the current device, for elements of esize bytes and vectors of V. R: 6
+// rows at w >= 48, else 4 (the backward's). Tiles of FWD_TILE_ROWS rows, halved while b * tiles falls
+// short of one block per SM. The band, the tile's rows plus R above and below clamped to h, at the
+// full width: all c channels where it fits in shared memory, else the fewest channel passes (each
+// a multiple of V) that fit; then R shrinks to 4, then the tiles, then the band itself (to none at
+// all). Vectors per lane: the most, up to VPL_MAX, that divides every pass's vectors. Threads: 1024
+// where the band leaves room for only one block per SM, else 512.
+cudaError_t fwd_geometry(const Dims& d, int V, int esize, FwdGeom* g, size_t* smem) {
+  int sms = 0, smem_max = 0, smem_sm = 0;
+  const cudaError_t err = device_limits(&sms, &smem_max, &smem_sm);
+  if (err != cudaSuccess) return err;
+  g->R = d.w >= 48 ? 6 : 4;
+  auto tile_px = [&](int out_rows) { return std::min<int64_t>(int64_t(out_rows) * d.w, d.P); };
+  auto tiles = [&](int out_rows) { return (d.P + tile_px(out_rows) - 1) / tile_px(out_rows); };
+  auto band_bytes = [&](int rows, int cw) {
+    return int64_t(std::min(rows, d.h)) * d.w * cw * esize;
+  };
+  auto pass_cw = [&](int n) { return (d.c + n * V - 1) / (n * V) * V; };  // c / n, rounded up to V
+  int out_rows = FWD_TILE_ROWS;
+  while (out_rows > 1 && d.b * tiles(out_rows) < sms) out_rows /= 2;
+  int passes = 1;
+  while (band_bytes(out_rows + 2 * g->R, pass_cw(passes)) > smem_max && pass_cw(passes) > V) ++passes;
+  g->cw = pass_cw(passes);
+  while (band_bytes(out_rows + 2 * g->R, g->cw) > smem_max && (g->R > 4 || out_rows > 1)) {
+    if (g->R > 4)
+      --g->R;
+    else
+      out_rows /= 2;
+  }
+  g->tile_px = int(tile_px(out_rows));
+  g->tiles = int(tiles(out_rows));
+  int rows = std::min(d.h, out_rows + 2 * g->R);
+  while (rows > 0 && band_bytes(rows, g->cw) > smem_max) --rows;
+  g->rows = rows;
+  g->passes = (d.c + g->cw - 1) / g->cw;
+  const int nv_full = g->cw / V, nv_last = (d.c - (g->passes - 1) * g->cw) / V;
+  g->vpl = VPL_MAX;
+  while (g->vpl > 1 && (nv_full % g->vpl || nv_last % g->vpl)) g->vpl /= 2;
+  *smem = size_t(rows) * g->cw * d.w * esize;
+  g->threads = 2 * (*smem + 1024) > size_t(smem_sm) ? 1024 : 512;
+  return int64_t(d.b) * g->tiles > 0x7fffffff || g->passes > 65535 ? cudaErrorInvalidValue
+                                                                    : cudaSuccess;
+}
+
+template <typename T, int V, int VPL, int NT>
+cudaError_t launch_fwd_k(const float* iy, const float* ix, const void* img, void* out, Dims d,
+                         const FwdGeom& q, size_t smem, cudaStream_t stream) {
+  auto kernel = warp_fwd_kernel<T, V, VPL, NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(unsigned(int64_t(d.b) * q.tiles), unsigned(q.passes)), NT, smem, stream>>>(
+      iy, ix, static_cast<const T*>(img), static_cast<T*>(out), d, q);
+  return cudaGetLastError();
+}
+
+template <typename T, int V, int VPL>
+cudaError_t launch_fwd_p(const float* iy, const float* ix, const void* img, void* out, Dims d,
+                         const FwdGeom& q, size_t smem, cudaStream_t stream) {
+  return q.threads == 1024 ? launch_fwd_k<T, V, VPL, 1024>(iy, ix, img, out, d, q, smem, stream)
+                           : launch_fwd_k<T, V, VPL, 512>(iy, ix, img, out, d, q, smem, stream);
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd_v(const float* iy, const float* ix, const void* img, void* out, Dims d,
+                         cudaStream_t stream) {
+  FwdGeom q;
+  size_t smem = 0;
+  cudaError_t err = fwd_geometry(d, V, int(sizeof(T)), &q, &smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (VPL_MAX >= 4)
+    if (q.vpl == 4) return launch_fwd_p<T, V, 4>(iy, ix, img, out, d, q, smem, stream);
+  return q.vpl == 2 ? launch_fwd_p<T, V, 2>(iy, ix, img, out, d, q, smem, stream)
+                    : launch_fwd_p<T, V, 1>(iy, ix, img, out, d, q, smem, stream);
+}
+
+template <typename T>
+cudaError_t launch_fwd(const float* iy, const float* ix, const void* img, void* out, Dims d,
+                       cudaStream_t stream) {
+  switch (vec_width<T>(d, img, out)) {
+    case 8:
+      if constexpr (sizeof(T) == 2) return launch_fwd_v<T, 8>(iy, ix, img, out, d, stream);
+      return cudaErrorInvalidValue;
+    case 4:
+      return launch_fwd_v<T, 4>(iy, ix, img, out, d, stream);
+    case 2:
+      return launch_fwd_v<T, 2>(iy, ix, img, out, d, stream);
+    default:
+      return launch_fwd_v<T, 1>(iy, ix, img, out, d, stream);
   }
 }
 
@@ -316,47 +573,6 @@ bool valid_dims(const Dims& d) {
          int64_t(d.h) * d.w * d.c < (int64_t(1) << 31);  // tap offsets within an item are int
 }
 
-cudaError_t grid_for(int64_t threads, int* grid) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t need = (threads + THREADS - 1) / THREADS, cap = int64_t(sms) * BLOCKS_PER_SM;
-  *grid = int(need < cap ? need : cap);
-  return cudaSuccess;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-template <typename T>
-cudaError_t launch_fwd(const float* iy, const float* ix, const void* img, void* out, Dims d,
-                       cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = d.c % V == 0 && aligned16(img) && aligned16(out);
-  int grid = 0;
-  cudaError_t err = grid_for(int64_t(d.b) * d.P * d.L * (vec ? d.c / V : d.c), &grid);
-  if (err != cudaSuccess) return err;
-  if (vec)
-    warp_fwd_kernel<T, V><<<grid, THREADS, 0, stream>>>(iy, ix, static_cast<const T*>(img),
-                                                       static_cast<T*>(out), d);
-  else
-    warp_fwd_kernel<T, 1><<<grid, THREADS, 0, stream>>>(iy, ix, static_cast<const T*>(img),
-                                                       static_cast<T*>(out), d);
-  return cudaGetLastError();
-}
-
-// The vector width of the backward: the widest V (at most 16 bytes) that divides c and to which img
-// and g are aligned.
-template <typename T>
-int bwd_vec(const Dims& d, const void* img, const void* g) {
-  int V = 16 / int(sizeof(T));
-  while (V > 1 && (d.c % V || reinterpret_cast<uintptr_t>(img) % (V * sizeof(T)) ||
-                   reinterpret_cast<uintptr_t>(g) % (V * sizeof(T))))
-    V /= 2;
-  return V;
-}
-
 // The backward's tiling on the current device. Channels per pass, cw = G * V with G a power of two
 // (at most 32):
 // the fewest passes of at most CW_MAX channels, and passes of 32 where c is not a multiple of a wider
@@ -367,13 +583,8 @@ int bwd_vec(const Dims& d, const void* img, const void* g) {
 // Threads: 1024 (64 registers each, so one block per SM) where the window leaves room for only one
 // block per SM anyway, else 512, so that two or more blocks share an SM.
 cudaError_t bwd_geometry(const Dims& d, int V, bool d_img_aligned16, BwdGeom* q, size_t* smem) {
-  int dev = 0, sms = 0, smem_max = 0, smem_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  int sms = 0, smem_max = 0, smem_sm = 0;
+  const cudaError_t err = device_limits(&sms, &smem_max, &smem_sm);
   if (err != cudaSuccess) return err;
   q->G = 1;
   while (q->G * V < d.c && 2 * q->G * V <= CW_MAX && 2 * q->G <= 32) q->G *= 2;  // a group fits a warp
@@ -432,7 +643,7 @@ cudaError_t launch_bwd_v(const float* iy, const float* ix, const void* img, cons
 template <typename T>
 cudaError_t launch_bwd(const float* iy, const float* ix, const void* img, const void* g,
                        float* d_img, float* d_iy, float* d_ix, Dims d, cudaStream_t stream) {
-  switch (bwd_vec<T>(d, img, g)) {
+  switch (vec_width<T>(d, img, g)) {
     case 8:
       if constexpr (sizeof(T) == 2)
         return launch_bwd_v<T, 8>(iy, ix, img, g, d_img, d_iy, d_ix, d, stream);
@@ -489,6 +700,27 @@ int vp_warp_bwd_geometry(int is_bf16, int b, int P, int L, int h, int w, int c, 
   if (err != cudaSuccess) return finish(err);
   const int vals[9] = {q.tile_px, q.tiles, q.R, q.rows, q.G, q.cw, V, int(smem), q.threads};
   for (int k = 0; k < 9; ++k) out[k] = vals[k];
+  return 0;
+}
+
+// The forward's tiling for operands of these sizes on the current device, assuming vector-aligned
+// tensors: out[0..9] = {tile_px, tiles, R, rows, cw, passes, vpl, V, shared bytes, threads per
+// block}.
+// For reports of where the taps land (which share leaves the band); the kernel computes the same.
+// Returns a cudaError_t.
+int vp_warp_fwd_geometry(int is_bf16, int b, int P, int L, int h, int w, int c, int* out) {
+  const Dims d{b, P, L, h, w, c};
+  if (!valid_dims(d)) return cudaErrorInvalidValue;
+  const int esize = is_bf16 ? 2 : 4;
+  int V = 16 / esize;
+  while (V > 1 && c % V) V /= 2;
+  FwdGeom q;
+  size_t smem = 0;
+  const cudaError_t err = fwd_geometry(d, V, esize, &q, &smem);
+  if (err != cudaSuccess) return finish(err);
+  const int vals[10] = {q.tile_px, q.tiles, q.R, q.rows, q.cw, q.passes, q.vpl, V, int(smem),
+                        q.threads};
+  for (int k = 0; k < 10; ++k) out[k] = vals[k];
   return 0;
 }
 
