@@ -70,7 +70,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
     forward; for K8, whose fused function no one call computes,
     ``warp_flow_ret`` itself, forward and backward through autograd, on the
-    same inputs), and times
+    same inputs; beside K9's backward call, as a comparison,
+    ``torch.autograd.grad`` through ``torch.einsum``), and times
     ``predict`` and the train step, with the warp forward's device time in
     EF-TrajGRU's ``predict`` and the warp forward's and backward's in its
     train step under the profiler.
@@ -1327,6 +1328,22 @@ def einsum_library(A, Bm, img):
         return None, str(e).splitlines()[0]
 
 
+def einsum_grad_comparison(A, Bm, img, g):
+    r"""``(ms, None)`` of ``torch.autograd.grad`` through
+    ``torch.einsum("blpy,blpx,byxc->blpc", ...)``, forward and backward, on
+    K9's backward inputs, or ``(None, reason)`` where it does not fit the card.
+    A comparison for K9's backward call, not one PyTorch call that computes
+    it: the row's ``library_ms`` stays null."""
+    import torch
+    leaves = [a.detach().requires_grad_() for a in (A, Bm, img)]
+    try:
+        return cuda_ms(lambda: torch.autograd.grad(
+            torch.einsum("blpy,blpx,byxc->blpc", *leaves), leaves, g), warmup=1, iters=3), None
+    except torch.cuda.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        return None, str(e).splitlines()[0]
+
+
 def time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs):
     r"""K8 and K9 per call at EF-TrajGRU's three layer shapes in bf16 (CUDA
     events over back-to-back calls; a forward call is one launch, a backward
@@ -1337,7 +1354,8 @@ def time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs):
     through autograd on the same image, flows, weights and bias, eager and
     replayed from a CUDA graph, since no one PyTorch call computes the fused
     function; for K9's forward,
-    ``torch.einsum``. Returns the kernels' JSON entries."""
+    ``torch.einsum``, and beside K9's backward call, as a comparison,
+    ``torch.autograd.grad`` through it. Returns the kernels' JSON entries."""
     import torch
     from vp_suite_tpu_torch.ops.grid_sample import warp_flow_ret
     from vp_suite_tpu_torch.ops.warp import (warp_contract_backward,
@@ -1377,13 +1395,14 @@ def time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs):
             print(f"[time] {kid} (K8) {side}x{side}x{ch} b={B} L={TRAJ_L} O={3 * ch} bf16: "
                   f"{ms:.3f} ms/call (plain {plain:.3f} ms, warp_flow_ret's "
                   f"{'backward' if kid.endswith('bwd') else 'forward'} {card:.3f} ms on the "
-                  f"card alone, {eager:.3f} ms eager, bound {bound:.3f} ms by {by}; "
-                  f"{ops / ms / 1e9:.1f} TFLOP/s)")
+                  f"card alone, {eager:.3f} ms eager, bound {bound:.3f} ms by {by}, "
+                  f"{bound / ms:.1%} of it; {ops / ms / 1e9:.1f} TFLOP/s)")
             rows[kid].append((1, ms, plain, nbytes, ops))
             unfused[kid][0] += eager
             unfused[kid][1] += card
     for (side, ch), (A, Bm, img, g) in contract_inputs.items():
         library, why = einsum_library(A, Bm, img)
+        grad_ms, grad_why = einsum_grad_comparison(A, Bm, img, g)
         for kid, fn, ref in (
                 ("warp_contract_fwd", lambda: warp_contract_forward(A, Bm, img),
                  lambda: warp_contract_reference(A, Bm, img)),
@@ -1394,13 +1413,21 @@ def time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs):
             nbytes, ops = contract_cost(side, ch, 2, backward=kid.endswith("bwd"))
             bound, by = bound_ms(nbytes, ops, BF16_TENSOR_FLOPS)
             lib = library if kid.endswith("fwd") else None
-            yard = "" if kid.endswith("bwd") else \
-                f", torch.einsum {library:.3f} ms" if lib is not None else f", torch.einsum: {why}"
+            if kid.endswith("bwd"):
+                yard = (f", for comparison (not one call) autograd.grad through torch.einsum "
+                        f"{grad_ms:.3f} ms" if grad_ms is not None
+                        else f", autograd.grad through torch.einsum: {grad_why}")
+            else:
+                yard = f", torch.einsum {library:.3f} ms" if lib is not None \
+                    else f", torch.einsum: {why}"
             print(f"[time] {kid} (K9) {side}x{side}x{ch} b={B} L={TRAJ_L} bf16: {ms:.3f} ms/call "
-                  f"(plain {plain:.3f} ms{yard}, bound {bound:.3f} ms by {by}; "
-                  f"{ops / ms / 1e9:.1f} TFLOP/s)")
+                  f"(plain {plain:.3f} ms{yard}, bound {bound:.3f} ms by {by}, "
+                  f"{bound / ms:.1%} of it; {ops / ms / 1e9:.1f} TFLOP/s)")
             rows[kid].append((1, ms, plain, nbytes, ops) + (() if lib is None else (lib,)))
     t = {kid: summed(r, BF16_TENSOR_FLOPS) for kid, r in rows.items()}
+    for kid in ("warp_contract_fwd", "warp_contract_bwd"):
+        print(f"[time] {kid} (K9) over the three shapes: {t[kid]['ms']:.3f} ms, bound "
+              f"{t[kid]['bound_ms']:.3f} ms ({t[kid]['bound_ms'] / t[kid]['ms']:.1%} of it)")
     print(f"[time] K8 over the three shapes: warp_ret forward {t['warp_ret_fwd']['ms']:.3f} ms "
           f"against warp_flow_ret's {unfused['warp_ret_fwd'][1]:.3f} ms on the card alone "
           f"({unfused['warp_ret_fwd'][0]:.3f} ms eager), backward {t['warp_ret_bwd']['ms']:.3f} "

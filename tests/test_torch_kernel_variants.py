@@ -1,12 +1,13 @@
 r"""The named variants of the scan kernels (``kernels/k3_variants.py`` for K3/K3s,
-``kernels/k4_variants.py`` for K4) and of the warp backward and forward
-(``kernels/warp_bwd_variants.py``, ``kernels/warp_fwd_variants.py``) still
-apply to the sources as they stand.
+``kernels/k4_variants.py`` for K4), of the warp backward and forward
+(``kernels/warp_bwd_variants.py``, ``kernels/warp_fwd_variants.py``) and of K9's
+bf16 kernels (``kernels/k9_variants.py``) still apply to the sources as they stand.
 
 Each variant is a set of text replacements in a kernel's source; an edit whose
 text no longer occurs exactly once would build a variant that is not the one
 its name says. These tests need no card: they only read the sources (and count, on the CPU,
-where the warp's taps land under a given tiling, and which tiling the forward takes on an H100).
+where the warp's taps land under a given tiling, which tiling the forward takes on an H100,
+and which plan K9's bf16 kernels take).
 """
 import itertools
 import math
@@ -15,14 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from vp_suite_tpu_torch.kernels import k3_variants, k4_variants, warp_bwd_variants, warp_fwd_variants
+from vp_suite_tpu_torch.kernels import (k3_variants, k4_variants, k9_variants, warp_bwd_variants,
+                                        warp_fwd_variants)
+from vp_suite_tpu_torch.ops.warp import _bf16_contract_operands
 
 CASES = [pytest.param(k3_variants, "convlstm_scan.cu", name, id=f"K3-{name}") for name in k3_variants.EDITS] \
     + [pytest.param(k4_variants, "convlstm_scan_bwd.cu", name, id=f"K4-{name}") for name in k4_variants.EDITS] \
     + [pytest.param(warp_bwd_variants, "warp_sample.cu", name, id=f"warp_bwd-{name}")
        for name in warp_bwd_variants.EDITS] \
     + [pytest.param(warp_fwd_variants, "warp_sample.cu", name, id=f"warp_fwd-{name}")
-       for name in warp_fwd_variants.EDITS]
+       for name in warp_fwd_variants.EDITS] \
+    + [pytest.param(k9_variants, "warp_contract.cu", name, id=f"K9-{name}") for name in k9_variants.EDITS]
 
 
 @pytest.mark.parametrize("tool,source,name", CASES)
@@ -52,6 +56,88 @@ def test_warp_fwd_faults_are_named_variants():
                                              "band_short"}
     assert set(warp_fwd_variants.RACES) == {"no_copy_wait"}
     assert set(warp_fwd_variants.FAULTS + warp_fwd_variants.RACES) <= set(warp_fwd_variants.EDITS)
+
+
+def test_k9_faults_are_named_variants():
+    assert set(k9_variants.FAULTS) == {"frag_column_off_by_one", "bm_group_off",
+                                       "last_slab_not_zero_filled"}
+    assert set(k9_variants.RACES) == {"ring_no_wait"}
+    assert set(k9_variants.FAULTS + k9_variants.RACES) <= set(k9_variants.EDITS)
+
+
+#: (b, L, P, h, w, c) -> the plan of K9's bf16 kernels: at EF-TrajGRU's three layer shapes
+#: 256-row blocks (two m64 tiles a warpgroup), Bm in registers and staged d_img slabs, one
+#: channel pass and chunk, 6656 / 1664 / 416 forward blocks; c = 24 and c = 20 (padded to 24
+#: by the wrapper) one pass of 32; the ragged image every fragment gathered; h % 8 != 0 d_img
+#: gathered, the forward still in registers; c = 136 two passes of 128 in 128-row blocks and two
+#: chunks; w = 200 too wide for d_A / d_Bm.
+K9_PLANS = {
+    "64x64x64": ((32, 13, 4096, 64, 64, 64),
+               dict(np=64, passes=1, mt=2, fwd_w=64, dimg_w=64, ny=4, hs=66, dab_n=64, kch=64,
+                    chunks=1, cs=72, yr=2, fwd_smem=66560, dimg_smem=71680, dab_smem=100864,
+                    fwd_blocks=6656, dimg_blocks=512, dab_blocks=13312, fits=1)),
+    "32x32x96": ((32, 13, 1024, 32, 32, 96),
+               dict(np=96, passes=1, mt=2, fwd_w=32, dimg_w=32, ny=8, hs=34, dab_n=32, kch=96,
+                    chunks=1, cs=104, yr=1, fwd_smem=66560, dimg_smem=73728, dab_smem=59904,
+                    fwd_blocks=1664, dimg_blocks=128, dab_blocks=3328, fits=1)),
+    "16x16x96": ((32, 13, 256, 16, 16, 96),
+               dict(np=96, passes=1, mt=2, fwd_w=16, dimg_w=16, ny=16, hs=18, dab_n=16, kch=96,
+                    chunks=1, cs=104, yr=1, fwd_smem=58368, dimg_smem=69632, dab_smem=43520,
+                    fwd_blocks=416, dimg_blocks=32, dab_blocks=832, fits=1)),
+    "c24": ((2, 3, 256, 16, 16, 24),
+               dict(np=32, passes=1, mt=2, fwd_w=16, dimg_w=16, ny=16, hs=18, dab_n=16, kch=32,
+                    chunks=1, cs=40, yr=1, fwd_smem=25600, dimg_smem=36864, dab_smem=18944,
+                    fwd_blocks=6, dimg_blocks=2, dab_blocks=12, fits=1)),
+    "ragged": ((2, 3, 50, 9, 11, 24),
+               dict(np=32, passes=1, mt=2, fwd_w=0, dimg_w=0, ny=0, hs=14, dab_n=16, kch=32,
+                    chunks=1, cs=40, yr=1, fwd_smem=23552, dimg_smem=16384, dab_smem=17920,
+                    fwd_blocks=2, dimg_blocks=2, dab_blocks=4, fits=1)),
+    "h6": ((2, 3, 96, 6, 16, 64),
+               dict(np=64, passes=1, mt=2, fwd_w=16, dimg_w=0, ny=0, hs=10, dab_n=16, kch=64,
+                    chunks=1, cs=72, yr=1, fwd_smem=37888, dimg_smem=32768, dab_smem=29184,
+                    fwd_blocks=4, dimg_blocks=2, dab_blocks=6, fits=1)),
+    "c136": ((2, 2, 200, 8, 32, 136),
+               dict(np=128, passes=2, mt=1, fwd_w=32, dimg_w=32, ny=4, hs=10, dab_n=32, kch=128,
+                    chunks=2, cs=152, yr=1, fwd_smem=68096, dimg_smem=88064, dab_smem=74240,
+                    fwd_blocks=16, dimg_blocks=8, dab_blocks=8, fits=1)),
+    "w200": ((1, 1, 400, 2, 200, 8),
+               dict(np=16, passes=1, mt=2, fwd_w=0, dimg_w=0, ny=0, hs=6, dab_n=128, kch=16,
+                    chunks=1, cs=24, yr=1, fwd_smem=11264, dimg_smem=8192, dab_smem=24064,
+                    fwd_blocks=2, dimg_blocks=2, dab_blocks=4, fits=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(K9_PLANS))
+def test_k9_plan(case):
+    args, want = K9_PLANS[case]
+    got = k9_variants.plan(*args)
+    assert got == want
+    b, L, P, h, w, c = args
+    assert got["np"] * got["passes"] >= c > got["np"] * (got["passes"] - 1)
+    assert got["kch"] * got["chunks"] >= c and got["dab_n"] >= min(w, 128)
+    if got["fits"]:
+        assert max(got["fwd_smem"], got["dimg_smem"], got["dab_smem"]) <= k9_variants.SMEM_MAX
+
+
+def test_k9_l2_bytes_at_64x64():
+    r"""PERF.md's count: 3.49 GB of image slabs (forward), 7.20 GB of g, Bm and A slabs
+    (d_img) and 6.98 GB of image rows (d_A / d_Bm) per call at b=32, L=13, 64x64x64."""
+    assert k9_variants.l2_bytes(32, 13, 4096, 64, 64, 64) == dict(
+        fwd=6656 * 64 * 64 * 64 * 2, dimg=512 * 832 * 64 * (64 + 64 + 4) * 2,
+        dab=13312 * 64 * 64 * 64 * 2)
+
+
+@pytest.mark.parametrize("c", [20, 24, 64])
+def test_bf16_contract_operands_pad_channels_and_align(c):
+    r"""The bf16 kernels read 16-byte vectors: channels padded with zeros to a
+    multiple of 8, a view that starts off a 16-byte boundary copied."""
+    base = torch.arange(2 * 3 * c + 1, dtype=torch.float32).bfloat16()
+    img = base[1:].view(2, 3, c)                  # 2 bytes past the storage's start
+    A = torch.ones(2, 5, dtype=torch.bfloat16)
+    A2, img2 = _bf16_contract_operands(A, img)
+    assert A2 is A
+    assert img2.data_ptr() % 16 == 0 and img2.shape == (2, 3, -(-c // 8) * 8)
+    assert torch.equal(img2[..., :c], img) and not img2[..., c:].any()
 
 
 #: (b, P, h, w, c, bf16) -> what the forward's tiling must hold on an H100: bands of

@@ -36,7 +36,7 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
-from vp_suite_tpu_torch.kernels import build, warp_fwd_variants
+from vp_suite_tpu_torch.kernels import build, k9_variants, warp_fwd_variants
 from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
 from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices, _onehot_factor, grid_sample
 from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
@@ -531,8 +531,18 @@ def test_warp_forward_geometry_matches_its_mirror(cuda):
                 == warp_fwd_variants.plan(b, P, h, w, c, bf16), (b, P, h, w, c, bf16)
 
 
-#: (h, w, P): a square image with P = h*w, and a ragged one with P != h*w.
-FACTOR_SHAPES = {"16x16": (16, 16, 256), "ragged": (9, 11, 50)}
+#: (h, w, P, c): a square image with P = h*w, and a ragged one with P != h*w (K8 takes
+#: h, w and P with f = 24); for K9's bf16 kernels also every branch: w = 64, 32 and 16 with
+#: c = 64 and 96 (Bm in registers, staged d_img slabs), rows L*P not a multiple of the tile,
+#: c = 24 and c = 20 (padded to 32 and 24 channels), h % 8 != 0 with a part-filled last slab
+#: (gathered d_img), two channel passes and chunks (c = 136), and the ragged image (every
+#: fragment gathered).
+FACTOR_SHAPES = {"16x16": (16, 16, 256, 24), "ragged": (9, 11, 50, 24),
+                 "64x64x64": (64, 64, 4096, 64), "64x64x96": (64, 64, 4096, 96),
+                 "32x32x64": (32, 32, 1024, 64), "32x32x96": (32, 32, 1024, 96),
+                 "16x16x64": (16, 16, 256, 64), "16x16x96": (16, 16, 256, 96),
+                 "P1000": (32, 32, 1000, 64), "c20": (16, 16, 256, 20),
+                 "h6": (6, 16, 96, 64), "c136": (8, 32, 200, 136)}
 
 
 @pytest.mark.parametrize("shape", list(FACTOR_SHAPES))
@@ -540,7 +550,7 @@ FACTOR_SHAPES = {"16x16": (16, 16, 256), "ragged": (9, 11, 50)}
 def test_warp_ret_kernels_match_the_plain_versions(cuda, dtype, shape):
     r"""f=24 and O=72 leave partial channel blocks in every tile of the kernels."""
     rng = np.random.default_rng(10)
-    h, w, P = FACTOR_SHAPES[shape]
+    h, w, P, _ = FACTOR_SHAPES[shape]
     b, L, f = 2, 3, 24
     idx = [torch.from_numpy((rng.random((b, P, L)) * (n + 4) - 2).astype(np.float32)).to(cuda)
            for n in (h, w)]
@@ -565,10 +575,11 @@ def test_warp_ret_kernels_match_the_plain_versions(cuda, dtype, shape):
 @pytest.mark.parametrize("shape", list(FACTOR_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_warp_contract_kernels_match_the_plain_versions(cuda, dtype, shape):
-    r"""Dense random factors; c=24 leaves a partial channel block."""
+    r"""Dense random factors; c=24 leaves a partial channel block of the f32
+    kernels, and the shapes take every branch of the bf16 kernels."""
     rng = np.random.default_rng(11)
-    h, w, P = FACTOR_SHAPES[shape]
-    b, L, c = 2, 3, 24
+    h, w, P, c = FACTOR_SHAPES[shape]
+    b, L = 2, 3
     args = [_randn(rng, b, L, P, h).to(cuda, dtype), _randn(rng, b, L, P, w).to(cuda, dtype),
             _randn(rng, b, h, w, c).to(cuda, dtype)]
     g = _randn(rng, b, L, P, c).to(cuda, dtype)
@@ -586,6 +597,33 @@ def test_warp_contract_kernels_match_the_plain_versions(cuda, dtype, shape):
     for a, w_ in zip(leaves, warp_contract_backward_reference(*args, g)):
         assert a.grad.dtype == dtype and a.grad.shape == w_.shape
         _close_to_largest(a.grad, w_, rel)
+
+
+@pytest.mark.parametrize("shape", ["64x64x64", "ragged", "c136"])
+def test_warp_contract_kernels_are_deterministic(cuda, shape):
+    r"""No atomics: two runs of the bf16 forward and backward give the same bits."""
+    rng = np.random.default_rng(13)
+    h, w, P, c = FACTOR_SHAPES[shape]
+    b, L = 2, 3
+    A, Bm = (_randn(rng, b, L, P, n, scale=n ** -0.5).to(cuda, torch.bfloat16) for n in (h, w))
+    img = _randn(rng, b, h, w, c).to(cuda, torch.bfloat16)
+    g = _randn(rng, b, L, P, c, scale=1e-2).to(cuda, torch.bfloat16)
+    first = (warp_contract_forward(A, Bm, img), *warp_contract_backward(A, Bm, img, g))
+    second = (warp_contract_forward(A, Bm, img), *warp_contract_backward(A, Bm, img, g))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_warp_contract_geometry_is_its_mirror(cuda):
+    r"""The bf16 kernels' plan (``vp_warp_contract_geometry``) is
+    :func:`k9_variants.plan` at EF-TrajGRU's three layer shapes and the shapes
+    of the tests above."""
+    lib = build.warp_contract_library()
+    shapes = [(32, 13, 4096, 64, 64, 64), (32, 13, 1024, 32, 32, 96), (32, 13, 256, 16, 16, 96)] \
+        + [(2, 3, P, h, w, -(-c // 8) * 8) for h, w, P, c in FACTOR_SHAPES.values()]
+    for shape in shapes:
+        assert k9_variants.geometry(lib, *shape) == k9_variants.plan(*shape), shape
 
 
 def test_onehot_warp_contract_is_the_warp(cuda):

@@ -472,25 +472,42 @@ def _check_contract_kernel_operands(name, *tensors):
         raise ValueError(f"{name} needs contiguous tensors")
 
 
+def _bf16_contract_operands(*tensors):
+    r"""What the bf16 kernels read in 16-byte vectors: each tensor 16-byte
+    aligned (copied where a view starts elsewhere) and the last tensor, the
+    image or g, padded with zero channels to a multiple of 8."""
+    out = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+    if out[-1].shape[-1] % 8:
+        out[-1] = torch.nn.functional.pad(out[-1], (0, -out[-1].shape[-1] % 8))
+    return out
+
+
 def warp_contract_forward(A, Bm, img):
     r""":func:`warp_contract`'s forward with no autograd: ``[b, L, P, c]`` in
     ``img.dtype``. On CPU tensors it computes
     :func:`warp_contract_reference`; on CUDA tensors it launches the forward
     kernel, which takes contiguous operands all f32 or all bf16 (it forms the
     factor product ``A[p, y] * Bm[p, x]`` in that dtype and sums in f32), and
-    raises on anything else."""
+    raises on anything else. The bf16 kernel takes ``w <= 128`` and shapes
+    whose tiles fit a block's shared memory (``h`` up to some 256); its
+    operands are padded to a multiple of 8 channels and copied to 16-byte
+    alignment where needed."""
     _check_contract(A, Bm, img)
     if img.device.type == "cpu":
         return warp_contract_reference(A, Bm, img)
     _check_contract_kernel_operands("warp_contract", A, Bm, img)
     b, L, P, h = A.shape
     _, _, w, c = img.shape
-    out = torch.empty((b, L, P, c), dtype=img.dtype, device=img.device)
+    bf16 = img.dtype == torch.bfloat16
+    if bf16:
+        A, Bm, img = _bf16_contract_operands(A, Bm, img)
+    cp = img.shape[-1]
+    out = torch.empty((b, L, P, cp), dtype=img.dtype, device=img.device)
     if out.numel():
         _launch("warp_contract", build.warp_contract_library(), "vp_warp_contract_fwd",
-                int(img.dtype == torch.bfloat16), A, Bm, img, out, b, L, P, h, w, c)
+                int(bf16), A, Bm, img, out, b, L, P, h, w, cp)
         warp_contract_forward.launches += 1
-    return out
+    return out if cp == c else out[..., :c].contiguous()
 
 
 def warp_contract_backward(A, Bm, img, g):
@@ -505,13 +522,19 @@ def warp_contract_backward(A, Bm, img, g):
     _check_contract_kernel_operands("warp_contract_backward", A, Bm, img, g)
     b, L, P, h = A.shape
     _, _, w, c = img.shape
-    d_A, d_Bm, d_img = torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(img)
+    d_A, d_Bm = torch.empty_like(A), torch.empty_like(Bm)
     if not g.numel():
-        return d_A.zero_(), d_Bm.zero_(), d_img.zero_()
+        return d_A.zero_(), d_Bm.zero_(), torch.zeros_like(img)
+    bf16 = img.dtype == torch.bfloat16
+    if bf16:
+        A, Bm, img = _bf16_contract_operands(A, Bm, img)
+        g, = _bf16_contract_operands(g)
+    cp = img.shape[-1]
+    d_img = torch.empty_like(img)
     _launch("warp_contract_backward", build.warp_contract_library(), "vp_warp_contract_bwd",
-            int(img.dtype == torch.bfloat16), A, Bm, img, g, d_A, d_Bm, d_img, b, L, P, h, w, c)
+            int(bf16), A, Bm, img, g, d_A, d_Bm, d_img, b, L, P, h, w, cp)
     warp_contract_backward.launches += 2
-    return d_A, d_Bm, d_img
+    return d_A, d_Bm, d_img if cp == c else d_img[..., :c].contiguous()
 
 
 class WarpContractFunction(torch.autograd.Function):
