@@ -8,7 +8,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions,
    and checks that ``-Xptxas -v`` reports no spilled bytes for any
-   instantiation of the scan kernels (``csrc/convlstm_scan{,_bwd}.cu``);
+   instantiation of the scan kernels (``csrc/convlstm_scan{,_bwd}.cu``), of
+   K8's bf16 kernels (``csrc/warp_ret.cu``) and of K9's bf16 forward and
+   general d_A / d_Bm kernel (``csrc/warp_contract.cu``);
 2. holds K1, the ConvLSTM gate kernel, and K2, its backward (both Triton),
    against ``convlstm_gate_reference`` and ``convlstm_gate_backward_reference``
    at EF-ConvLSTM's three cell shapes, b=32;
@@ -33,7 +35,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    at each shape (read from global memory in the forward, sent to global
    atomics in the backward);
 6. holds K8, the warp fused with TrajGRU's 1x1 ``ret`` conv (``warp_ret``;
-   CUDA C++ forward and backward), against ``warp_ret_reference`` and
+   CUDA C++ forward and backward; in bf16 wgmma kernels on the image's band of
+   rows, whose plan it prints beside its Python mirror), against ``warp_ret_reference`` and
    ``warp_ret_backward_reference`` at the same three shapes (O = 3f) in f32
    and bf16, its five gradients through ``WarpRetFunction`` against autograd
    of the plain forward, and ``warp_ret`` against ``warp_flow_ret`` (the warp
@@ -45,7 +48,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    three shapes in f32 and bf16, its three gradients through
    ``WarpContractFunction`` against autograd of the plain forward, and
    ``warp_contract`` on one-hot factors (``_onehot_factor``) against
-   ``warp_sample`` in f32;
+   ``warp_sample`` in f32; and in bf16 at two shapes beyond the layer shapes,
+   w = 200 (d_A / d_Bm in column chunks) and h = 512 (the forward's A tile
+   in parts);
 8. drives K8's and K9's path, ``warp_ret`` and ``warp_contract`` with their
    gradients once at each shape in bf16, with the launch counts set to 0 just
    before and held exactly just after (three calls of each: 3 launches of
@@ -207,6 +212,10 @@ FLOW_RET_REL_F32 = 1e-5
 #: in bf16: warp_flow_ret also rounds the bias to bf16 and computes d_w and
 #: d_bias in bf16 (each rounded once), where warp_ret keeps them in f32.
 FLOW_RET_REL_BF16 = 2 ** -5
+#: bf16 warp_contract beyond the layer shapes, (b, L, P, h, w, c): w = 200, whose
+#: d_A / d_Bm run in two column chunks of 128 with f32 scratch, and h = 512, whose
+#: forward stages its A tile in two parts.
+CONTRACT_EXTRA = ((1, 1, 400, 2, 200, 8), (1, 1, 128, 512, 16, 8))
 #: the one-hot warp_contract against warp_sample in f32: at most four non-zero
 #: products per output, summed in another order, on values of order 1.
 ONEHOT_ATOL_F32 = 1e-5
@@ -439,8 +448,15 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+#: the kernels whose every instantiation must build without spilling: the scan
+#: kernels, K8's bf16 kernels, and K9's bf16 forward and general d_A / d_Bm kernel
+SPILL_CHECKED = (r"scan_(fwd|bwd)_(bf16|f32)_kernel(I[LiE\d]+E)?",
+                 r"warp_ret_(fwd|bwd_img|bwd_dw)_bf16_kernelI[LiE\d]+E",
+                 r"contract_(fwd|dab_general)_bf16_kernelI[LiE\d]+E")
+
+
 def check_no_spills(log):
-    r"""Every instantiation of the scan kernels builds without spilling
+    r"""Every instantiation of :data:`SPILL_CHECKED` builds without spilling
     registers, as ptxas's ``-v`` report in ``log`` says: they keep their
     accumulators (and the bf16 kernels their A fragments) in registers."""
     spilled, name = {}, None
@@ -451,16 +467,18 @@ def check_no_spills(log):
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
-            kernel = re.search(r"scan_(fwd|bwd)_(bf16|f32)_kernel(ILi\d+E)?", name)
-            if kernel:
-                spilled[kernel.group(0)] = int(spill.group(1)) + int(spill.group(2))
+            for pattern in SPILL_CHECKED:
+                kernel = re.search(pattern, name)
+                if kernel:
+                    spilled[kernel.group(0)] = int(spill.group(1)) + int(spill.group(2))
             name = None
-    print("[build] scan kernels, bytes spilled: "
-          + ", ".join(f"{k} {v}" for k, v in sorted(spilled.items())))
-    check(any(k.startswith("scan_fwd_bf16") for k in spilled)
-          and any(k.startswith("scan_bwd_bf16") for k in spilled),
-          "no -Xptxas -v report of the scan kernels in the build's output")
-    check(not any(spilled.values()), f"scan kernels spill registers: {spilled}")
+    print("[build] bytes spilled: " + ", ".join(f"{k} {v}" for k, v in sorted(spilled.items())))
+    for prefix in ("scan_fwd_bf16", "scan_bwd_bf16", "warp_ret_fwd_bf16", "warp_ret_bwd_img_bf16",
+                   "warp_ret_bwd_dw_bf16", "contract_fwd_bf16", "contract_dab_general_bf16"):
+        check(any(k.startswith(prefix) for k in spilled),
+              f"no -Xptxas -v report of {prefix}_kernel in the build's output")
+    check(not any(spilled.values()),
+          f"kernels spill registers: {({k: v for k, v in spilled.items() if v})}")
 
 
 def check_gate_kernels(rnd, errs):
@@ -783,10 +801,19 @@ def check_warp_ret(rnd, errs):
     from vp_suite_tpu_torch.ops.warp import (warp_ret, warp_ret_backward,
                                              warp_ret_backward_reference, warp_ret_forward,
                                              warp_ret_reference)
+    from vp_suite_tpu_torch.kernels import build, k8_variants
     errs["warp_ret_fwd"] = errs["warp_ret_bwd"] = 0.0
     names = ("d_iy", "d_ix", "d_img", "d_w", "d_bias")
     inputs = {}
+    props = torch.cuda.get_device_properties(0)
+    limits = (props.multi_processor_count,
+              getattr(props, "shared_memory_per_block_optin", k8_variants.H100_LIMITS[1]))
     for side, ch in CELLS:
+        got = k8_variants.geometry(build.warp_ret_library(), B, side * side, TRAJ_L, side, side, ch,
+                                   3 * ch)
+        want = k8_variants.plan(B, side * side, TRAJ_L, side, side, ch, 3 * ch, limits=limits)
+        print(f"[K8] {side}x{side}x{ch} b={B} L={TRAJ_L} O={3 * ch}: the bf16 kernels' plan {got}")
+        check(got == want, f"K8's plan at {side}x{side}x{ch} is not its Python mirror {want}")
         flows, img0, w, bias, g0 = ret_args(rnd, side, ch)
         iy, ix = _flow_to_indices(img0, flows)
         for dt in (torch.float32, torch.bfloat16):
@@ -906,6 +933,22 @@ def check_warp_contract(rnd, errs):
                    ok)
             check(ok, f"warp_contract disagrees at {side}x{side}x{ch} {dt} (errors relative to "
                       f"the largest of each kind)")
+    # beyond the layer shapes, bf16: a wide image and a tall one
+    for b, Lf, P, h, w, c in CONTRACT_EXTRA:
+        A, Bm = rnd(b, Lf, P, h, scale=h ** -0.5, dtype=torch.bfloat16), \
+            rnd(b, Lf, P, w, scale=w ** -0.5, dtype=torch.bfloat16)
+        img, g = rnd(b, h, w, c, dtype=torch.bfloat16), rnd(b, Lf, P, c, scale=1e-2,
+                                                            dtype=torch.bfloat16)
+        got = [warp_contract_forward(A, Bm, img), *warp_contract_backward(A, Bm, img, g)]
+        torch.cuda.synchronize()
+        want = [warp_contract_reference(A, Bm, img), *warp_contract_backward_reference(A, Bm, img, g)]
+        e_k = {n: rel_err(q, r) for n, q, r in zip(("out",) + names, got, want)}
+        ok = max(e_k.values()) <= FACTOR_REL_BF16 and all(q.dtype == torch.bfloat16
+                                                          and q.shape == r.shape
+                                                          for q, r in zip(got, want))
+        report(f"K9 warp_contract b={b} L={Lf} P={P} {h}x{w}x{c} bf16",
+               [("kernels against the plain versions", e_k, FACTOR_REL_BF16)], ok)
+        check(ok, f"bf16 warp_contract disagrees at b={b} L={Lf} P={P} {h}x{w}x{c}")
     return inputs
 
 

@@ -36,7 +36,7 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
-from vp_suite_tpu_torch.kernels import build, k9_variants, warp_fwd_variants
+from vp_suite_tpu_torch.kernels import build, k8_variants, k9_variants, warp_fwd_variants
 from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
 from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices, _onehot_factor, grid_sample
 from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
@@ -535,28 +535,60 @@ def test_warp_forward_geometry_matches_its_mirror(cuda):
 #: h, w and P with f = 24); for K9's bf16 kernels also every branch: w = 64, 32 and 16 with
 #: c = 64 and 96 (Bm in registers, staged d_img slabs), rows L*P not a multiple of the tile,
 #: c = 24 and c = 20 (padded to 32 and 24 channels), h % 8 != 0 with a part-filled last slab
-#: (gathered d_img), two channel passes and chunks (c = 136), and the ragged image (every
-#: fragment gathered).
+#: (gathered d_img), two channel passes and chunks (c = 136), the ragged image (every
+#: fragment gathered), w = 200 (d_A / d_Bm in two column chunks, with scratch), h = 512 (the
+#: forward's A tile in two parts) and h = 1024 (in three; d_A / d_Bm by the general kernel).
 FACTOR_SHAPES = {"16x16": (16, 16, 256, 24), "ragged": (9, 11, 50, 24),
                  "64x64x64": (64, 64, 4096, 64), "64x64x96": (64, 64, 4096, 96),
                  "32x32x64": (32, 32, 1024, 64), "32x32x96": (32, 32, 1024, 96),
                  "16x16x64": (16, 16, 256, 64), "16x16x96": (16, 16, 256, 96),
                  "P1000": (32, 32, 1000, 64), "c20": (16, 16, 256, 20),
-                 "h6": (6, 16, 96, 64), "c136": (8, 32, 200, 136)}
+                 "h6": (6, 16, 96, 64), "c136": (8, 32, 200, 136),
+                 "w200": (2, 200, 400, 8), "tall": (512, 16, 128, 8), "h1024": (1024, 16, 64, 8)}
 
 
 @pytest.mark.parametrize("shape", list(FACTOR_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_warp_ret_kernels_match_the_plain_versions(cuda, dtype, shape):
     r"""f=24 and O=72 leave partial channel blocks in every tile of the kernels."""
+    _check_warp_ret(cuda, dtype, shape, 24)
+
+
+@pytest.mark.parametrize("f", [64, 96])
+@pytest.mark.parametrize("shape", ["16x16", "ragged", "P1000", "w200", "tall"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_ret_kernels_match_at_the_layer_widths(cuda, dtype, shape, f):
+    r"""EF-TrajGRU's widths, f=64 with O=192 and f=96 with O=288, which take the
+    bf16 kernels' two- and three-product forward and pass 2's m64 tiles of O,
+    at small P."""
+    _check_warp_ret(cuda, dtype, shape, f)
+
+
+#: (shape, b, L, f, O) past EF-TrajGRU's widths, which take the bf16 pass 1's chunks of O and
+#: pass 2's channel and O passes: f=192, O=576 at more pixel tiles than SMs (two warpgroups, the g
+#: tile staged whole, two chunks); f=384, O=1152 (one warpgroup, four chunks); f=32, O=1536 (g
+#: streamed in chunks beside W^T); L=480 (the indices read from global memory). The f32 kernels
+#: take them in blocks of 64 channels.
+WIDE_RET = {"O576": ("64x64x64", 5, 3, 192, 576), "O1152": ("16x16", 2, 3, 384, 1152),
+            "O1536": ("16x16", 2, 3, 32, 1536), "L480": ("ragged", 2, 480, 8, 16)}
+
+
+@pytest.mark.parametrize("case", list(WIDE_RET))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_ret_kernels_match_past_the_layer_widths(cuda, dtype, case):
+    shape, b, L, f, O = WIDE_RET[case]
+    _check_warp_ret(cuda, dtype, shape, f, O=O, b=b, L=L)
+
+
+def _check_warp_ret(cuda, dtype, shape, f, O=None, b=2, L=3):
     rng = np.random.default_rng(10)
     h, w, P, _ = FACTOR_SHAPES[shape]
-    b, L, f = 2, 3, 24
+    O = O or 3 * f
     idx = [torch.from_numpy((rng.random((b, P, L)) * (n + 4) - 2).astype(np.float32)).to(cuda)
            for n in (h, w)]
     args = idx + [_randn(rng, b, h, w, f).to(cuda, dtype),
-                  _randn(rng, L, f, 3 * f, scale=0.2).to(cuda), _randn(rng, 3 * f).to(cuda)]
-    g = _randn(rng, b, P, 3 * f).to(cuda, dtype)
+                  _randn(rng, L, f, O, scale=0.2).to(cuda), _randn(rng, O).to(cuda)]
+    g = _randn(rng, b, P, O).to(cuda, dtype)
     before = (warp_ret_forward.launches, warp_ret_backward.launches)
     leaves = [a.clone().requires_grad_() for a in args]
     out = warp_ret(*leaves)
@@ -565,7 +597,7 @@ def test_warp_ret_kernels_match_the_plain_versions(cuda, dtype, shape):
     assert (warp_ret_forward.launches, warp_ret_backward.launches) == (before[0] + 1, before[1] + 3)
     rel = 1e-5 if dtype == torch.float32 else 2 ** -6
     want = warp_ret_reference(*args)
-    assert out.dtype == dtype and out.shape == want.shape == (b, P, 3 * f)
+    assert out.dtype == dtype and out.shape == want.shape == (b, P, O)
     _close_to_largest(out, want, rel)
     for a, w_ in zip(leaves, warp_ret_backward_reference(*args, g)):
         assert a.grad.dtype == w_.dtype and a.grad.shape == w_.shape
@@ -599,7 +631,7 @@ def test_warp_contract_kernels_match_the_plain_versions(cuda, dtype, shape):
         _close_to_largest(a.grad, w_, rel)
 
 
-@pytest.mark.parametrize("shape", ["64x64x64", "ragged", "c136"])
+@pytest.mark.parametrize("shape", ["64x64x64", "ragged", "c136", "w200"])
 def test_warp_contract_kernels_are_deterministic(cuda, shape):
     r"""No atomics: two runs of the bf16 forward and backward give the same bits."""
     rng = np.random.default_rng(13)
@@ -613,6 +645,21 @@ def test_warp_contract_kernels_are_deterministic(cuda, shape):
     torch.cuda.synchronize()
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+def test_warp_ret_geometry_is_its_mirror(cuda):
+    r"""K8's bf16 plan (``vp_warp_ret_geometry``) is :func:`k8_variants.plan` on
+    this card at EF-TrajGRU's three layer shapes and the shapes of the tests
+    above."""
+    lib = build.warp_ret_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(32, s * s, 13, s, s, c, 3 * c) for s, c in ((64, 64), (32, 96), (16, 96))] \
+        + [(2, P, 3, h, w, f, 3 * f) for h, w, P, _ in FACTOR_SHAPES.values() for f in (24, 64, 96)] \
+        + [(b, FACTOR_SHAPES[s][2], L, *FACTOR_SHAPES[s][:2], f, O) for s, b, L, f, O in WIDE_RET.values()] \
+        + [(32, 4096, 13, 64, 64, 192, 576), (32, 4096, 13, 64, 64, 384, 1152)]
+    for shape in shapes:
+        assert k8_variants.geometry(lib, *shape) \
+            == k8_variants.plan(*shape, limits=(sms, k8_variants.H100_LIMITS[1])), shape
 
 
 def test_warp_contract_geometry_is_its_mirror(cuda):

@@ -1,15 +1,12 @@
 // Pieces shared by the warp kernels (warp_sample.cu, warp_ret.cu, warp_contract.cu): type
-// conversions, the four bilinear taps of a sample, and one block's product into a 64x64 f32 tile,
-// on the tensor cores (bf16, WMMA 16x16x16 with f32 accumulation) or on FMAs (f32).
+// conversions, the four bilinear taps of a sample, the f32 bodies' product into a 64x64 f32 tile on
+// FMAs, and the device's limits.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace warpk {
 
@@ -58,21 +55,19 @@ __device__ __forceinline__ Taps make_taps(float iy, float ix, int h, int w) {
   return t;
 }
 
-// ---- the 64x64 tile product -------------------------------------------------------------------
+// ---- the 64x64 tile product of the f32 bodies (warp_ret.cu, warp_contract.cu) ----------------
 //
 // C[i, j] += sum_k A(i, k) * B(k, j) for i, j < 64, with the operands in shared memory: A(i, k) is
 // sA[i*lda + k] (A_COL false) or sA[k*lda + i] (A_COL true), B(k, j) is sB[k*ldb + j] (B_COL false)
-// or sB[j*ldb + k] (B_COL true). K is a multiple of 16 (the caller pads with zeros), the leading
-// dimensions are multiples of 8 elements and the arrays start 128-byte aligned, as WMMA requires.
-// The sum stays in registers across calls; tile_store writes it to shared memory.
+// or sB[j*ldb + k] (B_COL true), the arrays 128-byte aligned. The sum stays in registers across
+// calls; tile_store writes it to shared memory. (The bf16 kernels are wgmma kernels of their own.)
 
 constexpr int TILE = 64;
 constexpr int TILE_THREADS = 256;
 constexpr int LDC = TILE + 4;  // row stride of the f32 tile in shared memory
 
 template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int value = 4; };          // rows 16-byte aligned
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };  // leading dims % 8
+template <> struct Pad<float> { static constexpr int value = 4; };  // rows 16-byte aligned
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
@@ -80,20 +75,11 @@ __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~si
 template <typename T> struct TileAcc;
 // f32: thread (r, cc) = (tid / 16, tid % 16) holds rows r + 16m and columns cc + 16q.
 template <> struct TileAcc<float> { float v[4][4]; };
-// bf16: warp wi holds rows 16*(wi/2) .. +16 and the column blocks 2*(wi%2) and 2*(wi%2) + 1.
-template <> struct TileAcc<__nv_bfloat16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[2];
-};
-
 __device__ __forceinline__ void tile_zero(TileAcc<float>& acc) {
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc.v[m][q] = 0.0f;
-}
-__device__ __forceinline__ void tile_zero(TileAcc<__nv_bfloat16>& acc) {
-  nvcuda::wmma::fill_fragment(acc.f[0], 0.0f);
-  nvcuda::wmma::fill_fragment(acc.f[1], 0.0f);
 }
 
 template <bool A_COL, bool B_COL>
@@ -113,27 +99,6 @@ __device__ __forceinline__ void tile_mma(const float* sA, int lda, const float* 
   }
 }
 
-template <bool A_COL, bool B_COL>
-__device__ __forceinline__ void tile_mma(const __nv_bfloat16* sA, int lda, const __nv_bfloat16* sB,
-                                         int ldb, int K, TileAcc<__nv_bfloat16>& acc) {
-  using namespace nvcuda;
-  using LayoutA = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-  const int wi = threadIdx.x / 32;
-  const int i0 = (wi >> 1) * 16, jb = (wi & 1) * 2;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> a;
-    wmma::load_matrix_sync(a, A_COL ? sA + k0 * lda + i0 : sA + i0 * lda + k0, lda);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int j0 = (jb + q) * 16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> b;
-      wmma::load_matrix_sync(b, B_COL ? sB + j0 * ldb + k0 : sB + k0 * ldb + j0, ldb);
-      wmma::mma_sync(acc.f[q], a, b, acc.f[q]);
-    }
-  }
-}
-
 // Writes the tile to sC [64][LDC] f32. The caller synchronises before reading it.
 __device__ __forceinline__ void tile_store(const TileAcc<float>& acc, float* sC) {
   const int r = threadIdx.x / 16, cc = threadIdx.x % 16;
@@ -141,14 +106,6 @@ __device__ __forceinline__ void tile_store(const TileAcc<float>& acc, float* sC)
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int q = 0; q < 4; ++q) sC[(r + 16 * m) * LDC + cc + 16 * q] = acc.v[m][q];
-}
-__device__ __forceinline__ void tile_store(const TileAcc<__nv_bfloat16>& acc, float* sC) {
-  const int wi = threadIdx.x / 32;
-  const int i0 = (wi >> 1) * 16, jb = (wi & 1) * 2;
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    nvcuda::wmma::store_matrix_sync(sC + i0 * LDC + (jb + q) * 16, acc.f[q], LDC,
-                                    nvcuda::wmma::mem_row_major);
 }
 
 // Allows `bytes` of dynamic shared memory for `kernel` and launches it on `grid` blocks; returns the
@@ -162,6 +119,18 @@ cudaError_t launch_tiles(void (*kernel)(KernelArgs...), int64_t grid, size_t byt
   if (err != cudaSuccess) return err;
   kernel<<<unsigned(grid), TILE_THREADS, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The current device's SM count, the shared memory a block may opt into and an SM's shared memory.
+inline cudaError_t device_limits(int* sms, int* smem_max, int* smem_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  return err;
 }
 
 inline int finish(cudaError_t err) {

@@ -57,10 +57,14 @@
 //   reduction by two shuffles, stored into the A tile in place of the A value it replaces and
 //   written out once at the end. 7.0 GB of image rows from L2 per call at 64x64x64.
 // On an H100 the ring's copies, not the products, set the pace of all three (PERF.md, Findings).
-// The bf16 kernels take w <= 128 and shapes whose tiles fit a block's shared memory (h up to some
-// 256; how large c may be depends on w), with c a multiple of 8 and 16-byte-aligned operands (the
-// wrappers pad c and copy unaligned operands); the entry points return cudaErrorInvalidValue on
-// anything else.
+// Every shape has a plan (c a multiple of 8 and 16-byte-aligned operands: the wrappers pad c and
+// copy unaligned operands). Where h is too tall for the forward's A tile beside its ring (some
+// 436 rows at 256-row blocks), the block stages the tile in parts of yc columns and walks each
+// part's slabs; where w > 128, or d_A / d_Bm's g or A tile does not fit (c or h too large),
+// d_A / d_Bm take the general kernel (contract_dab_general_bf16_kernel: column chunks of 128,
+// channel chunks of g staged one at a time, A read from global memory), whose sums of several
+// parts go through f32 scratch that the wrapper allocates. The layer shapes keep the tuned
+// branches above.
 //
 // f32 keeps the first port's FMA bodies: a 64x64 f32 tile per block built in shared memory from the
 // factors, 64 rows at a time (warp_common.cuh). wgmma has no f32 x f32 form, only tf32, whose
@@ -306,17 +310,23 @@ struct Plan {
   int np;          // wgmma N of the forward and d_img: channels of a pass, padded to 16/32/64/96/128
   int passes;      // channel passes (c > 128 only)
   int mt;          // m64 tiles per warpgroup in the forward and d_img: 2, or 1 at np = 128
-  int fwd_w;       // the forward's Bm branch: w (16, 32, 64: Bm in registers) or 0 (gathered)
+  int fwd_w;       // the forward's Bm branch: w (16, 32, 64: Bm in registers) or 0 (gathered; and
+                   // wherever the A tile is staged in parts)
   int dimg_w;      // d_img's branch: w (16, 32, 64 with h % 8 == 0: staged slabs) or 0 (gathered)
   int ny;          // d_img: A columns of a block's image rows (128 * mt / w; 0 when gathered)
-  int hs;          // row stride of the A tiles in shared memory: h rounded up to 4, plus 2
-  int dab_n;       // d_A / d_Bm: wgmma N, w padded to 16/32/64/96/128 (w <= 128)
+  int hs;          // row stride of d_A / d_Bm's A tile in shared memory: h rounded up to 4, plus 2
+  int yc;          // the forward's A tile: columns of one part (a multiple of 4; its row stride yc + 2)
+  int yparts;      // the forward's A tile: parts of yc columns (1 where the whole tile fits)
+  int dab_n;       // d_A / d_Bm: wgmma N, w padded to 16/32/64/96/128, at most 128
   int kch;         // d_A / d_Bm: channels of a product chunk, c padded to 16, at most KCH
   int chunks;      // d_A / d_Bm: channel chunks
   int cs;          // row stride of d_A / d_Bm's g tile: c padded to 16, plus 8
   int yr;          // d_A / d_Bm: image rows of a ring stage (2 at N = 64, else 1)
+  int dab_general; // d_A / d_Bm take the kernel for any shape (w > 128, or tiles too large)
+  int xchunks;     // d_A / d_Bm: column chunks of dab_n (w > 128 only)
   size_t fwd_smem, dimg_smem, dab_smem;
   int64_t fwd_blocks, dimg_blocks, dab_blocks;
+  int64_t scratch; // f32 elements the backward's general d_A / d_Bm kernel accumulates in (or 0)
 };
 
 __host__ __device__ constexpr int pad_n(int n) {
@@ -331,6 +341,8 @@ __host__ __device__ constexpr int yr_for(int n) { return n == 64 ? 2 : 1; }
 // Warpgroups of a d_A / d_Bm block, one m64 tile of rows each.
 constexpr int DAB_WG = 2;
 constexpr int DAB_ROWS = 64 * DAB_WG, DAB_THREADS = 128 * DAB_WG;
+// Shared memory a block may opt into on an H100.
+constexpr size_t SMEM_MAX = 232448;
 
 Plan make_plan(const FacDims& d) {
   Plan p;
@@ -339,26 +351,41 @@ Plan make_plan(const FacDims& d) {
   p.passes = (d.c + p.np - 1) / p.np;
   p.mt = mt_for(p.np);
   const bool w_reg = d.w == 16 || d.w == 32 || d.w == 64;
-  p.fwd_w = w_reg ? d.w : 0;
   p.dimg_w = w_reg && d.h % 8 == 0 ? d.w : 0;
   p.ny = p.dimg_w ? 128 * p.mt / d.w : 0;
   p.hs = round_up(d.h, 4) + 2;
-  p.dab_n = pad_n(d.w);
+  p.dab_n = pad_n(std::min(d.w, 128));
   p.kch = std::min(round_up(d.c, 16), KCH);
   p.chunks = (d.c + p.kch - 1) / p.kch;
   p.cs = round_up(d.c, 16) + 8;
-  p.yr = yr_for(p.dab_n);
   const int rb = 128 * p.mt;
   const size_t slab = size_t(SLAB) * p.np * 2;
-  p.fwd_smem = STAGES * slab + align128(size_t(rb) * p.hs * 2);
+  // the forward's A tile: all h columns where they fit beside the ring, else parts of the most
+  // columns that fit (a multiple of 4, so that a part starts on a slab at w = 16, 32 and 64)
+  const int yc_max = int((SMEM_MAX - STAGES * slab) / (size_t(rb) * 2) - 2) / 4 * 4;
+  p.yc = std::min(round_up(d.h, 4), yc_max);
+  p.yparts = (d.h + p.yc - 1) / p.yc;
+  p.fwd_w = w_reg && p.yparts == 1 ? d.w : 0;
+  p.fwd_smem = STAGES * slab + align128(size_t(rb) * (p.yc + 2) * 2);
   p.dimg_smem = STAGES * (slab + (p.dimg_w ? align128(size_t(SLAB) * (d.w + 8) * 2) +
                                                  align128(size_t(SLAB) * p.ny * 2)
                                            : 0));
+  // d_A / d_Bm: the kernel above where w <= 128 and its g and A tiles fit, else the general one
+  // (one image row a stage, g's channels one chunk at a time, no A tile)
+  p.yr = yr_for(p.dab_n);
   p.dab_smem = STAGES * align128(size_t(p.yr) * p.dab_n * p.kch * 2) +
                align128(size_t(DAB_ROWS) * p.cs * 2) + align128(size_t(DAB_ROWS) * p.hs * 2);
+  p.dab_general = d.w > 128 || p.dab_smem > SMEM_MAX;
+  p.xchunks = (d.w + p.dab_n - 1) / p.dab_n;
+  if (p.dab_general) {
+    p.yr = 1;
+    p.dab_smem = STAGES * align128(size_t(p.dab_n) * p.kch * 2) +
+                 align128(size_t(DAB_ROWS) * (p.kch + 8) * 2);
+  }
   p.fwd_blocks = d.b * p.passes * ((rows + rb - 1) / rb);
   p.dimg_blocks = d.b * p.passes * ((hw + rb - 1) / rb);
   p.dab_blocks = d.b * ((rows + DAB_ROWS - 1) / DAB_ROWS);
+  p.scratch = p.dab_general && (p.xchunks > 1 || p.chunks > 1) ? d.b * rows * (d.h + d.w) : 0;
   return p;
 }
 
@@ -387,13 +414,32 @@ __device__ __forceinline__ void load_slab_mn(bf16* stage, const bf16* src, int l
   }
 }
 
-// Rows r0 .. r0+rb-1 of a row-major [rows, h] factor (one contiguous range) into sA [rb][hs],
-// zeros past the last row; plain loads, once per block, BATCH of them in flight per thread: 16-byte
-// vectors where a row is whole vectors (h % 8 == 0; hs = h + 2 keeps 4-byte stores aligned),
-// else single elements.
+// Columns y0 .. y0+yn-1 of rows r0 .. r0+rb-1 of a row-major [rows, h] factor into sA [rb][hs],
+// zeros past the last row; plain loads, BATCH of them in flight per thread: 16-byte vectors where
+// the tile is whole rows of whole vectors (y0 = 0, yn = h, h % 8 == 0; hs = h + 2 keeps 4-byte
+// stores aligned), else single elements.
 __device__ __forceinline__ void load_factor_tile(bf16* sA, const bf16* src, int r0, int rows,
-                                                 int rb, int h, int hs) {
+                                                 int rb, int h, int hs, int y0 = 0, int yn = -1) {
   constexpr int BATCH = 8;
+  if (yn >= 0 && !(y0 == 0 && yn == h)) {
+    const int nr = max(0, min(rb, rows - r0));
+    src += size_t(r0) * h + y0;
+    for (int i0 = threadIdx.x; i0 < rb * yn; i0 += BATCH * blockDim.x) {
+      bf16 val[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int idx = i0 + i * blockDim.x, r = idx / yn;
+        val[i] = r < nr ? src[size_t(r) * h + idx - r * yn] : __float2bfloat16(0.0f);
+      }
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int idx = i0 + i * blockDim.x;
+        if (idx >= rb * yn) break;
+        sA[(idx / yn) * hs + idx % yn] = val[i];
+      }
+    }
+    return;
+  }
   const int n = max(0, min(rb, rows - r0)) * h;
   src += size_t(r0) * h;
   if (h % 8 == 0) {
@@ -538,14 +584,19 @@ __device__ __forceinline__ void store_acc(float (&acc)[MT][NP / 2], bf16* dst, i
 // K9a: out[r, c] = sum_q M[r, q] img[q, c] for one batch item, a block per (tile of 128*MT rows,
 // channel pass); q walks the image in slabs of 64 consecutive pixels through the ring. W > 0:
 // w == W divides 64, so a thread's fragment columns k keep their image column x from slab to
-// slab and its Bm pairs stay in registers; W == 0: any w, M gathered element by element.
-template <int NP, int MT, int W>
+// slab and its Bm pairs stay in registers; W == 0: any w, M gathered element by element. PARTS
+// (W == 0 only): where h is too tall for the block's A tile, the tile holds yc columns of A (image
+// rows ya .. ya+yc-1) at a time and the block walks the parts, each over the slabs its rows cover
+// (a slab that straddles two parts is taken by both, each with the other's columns zeroed).
+template <int NP, int MT, int W, bool PARTS = false>
 __global__ void __launch_bounds__(BF_THREADS, 1)
     contract_fwd_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-                             const bf16* __restrict__ img, bf16* __restrict__ out, FacDims d, int hs) {
+                             const bf16* __restrict__ img, bf16* __restrict__ out, FacDims d, int yc) {
+  static_assert(!PARTS || W == 0, "the A tile in parts takes the gathered branch");
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int RB = 128 * MT, STAGE_BYTES = SLAB * NP * 2, XG = W > 0 ? W / 16 : 1;
-  bf16* sA = reinterpret_cast<bf16*>(smem + STAGES * STAGE_BYTES);  // [RB][hs]: the block's rows of A
+  const int hs = yc + 2;
+  bf16* sA = reinterpret_cast<bf16*>(smem + STAGES * STAGE_BYTES);  // [RB][hs]: a part of the block's rows of A
 
   const int rows = d.L * d.P, hw = d.h * d.w;
   const int n_rt = (rows + RB - 1) / RB, passes = (d.c + NP - 1) / NP;
@@ -556,38 +607,42 @@ __global__ void __launch_bounds__(BF_THREADS, 1)
   const bf16* img_b = img + size_t(bi) * hw * d.c;
   const size_t row_base = size_t(bi) * rows;
   const int lane = threadIdx.x % 32, t = lane % 4;
-  const int n_slabs = (hw + SLAB - 1) / SLAB;
+  int s_base = 0, ya = 0, yn = d.h;  // PARTS: the current part's first slab and image rows
 
   auto fetch = [&](int s, unsigned char* stage) {
-    load_slab_mn<NP>(reinterpret_cast<bf16*>(stage), img_b, d.c, s * SLAB, hw, c0);
+    load_slab_mn<NP>(reinterpret_cast<bf16*>(stage), img_b, d.c, (s_base + s) * SLAB, hw, c0);
   };
-  slab_prologue(n_slabs, smem, STAGE_BYTES, fetch);
-  load_factor_tile(sA, A + row_base * d.h, r0, rows, RB, d.h, hs);
 
-  // W > 0: Bm pairs at the thread's rows (half 0: g, 1: g + 8), x = 16 xg + 2t (+8 for e = 1)
+  // W > 0: Bm pairs at the thread's rows (half 0: g, 1: g + 8), x = 16 xg + 2t (+8 for e = 1),
+  // loaded once the first copies are under way
   uint32_t bm[MT][2][XG][2];
   int lr[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      lr[mt][half] = frag_row<MT>(mt, half);
-      if constexpr (W > 0) {
-        const int r = r0 + lr[mt][half];
-        const bf16* src = Bm + (row_base + r) * W + 2 * t;
+    for (int half = 0; half < 2; ++half) lr[mt][half] = frag_row<MT>(mt, half);
+  auto load_bm = [&]() {
 #pragma unroll
-        for (int xg = 0; xg < XG; ++xg)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            bm[mt][half][xg][e] = r < rows ? *reinterpret_cast<const uint32_t*>(src + 16 * xg + 8 * e) : 0u;
+      for (int half = 0; half < 2; ++half) {
+        if constexpr (W > 0) {
+          const int r = r0 + lr[mt][half];
+          const bf16* src = Bm + (row_base + r) * W + 2 * t;
+#pragma unroll
+          for (int xg = 0; xg < XG; ++xg)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              bm[mt][half][xg][e] = r < rows ? *reinterpret_cast<const uint32_t*>(src + 16 * xg + 8 * e) : 0u;
+        }
       }
-    }
+  };
 
   // M's fragments of slab s: a[j][mt] = (rows lr, columns q = 64s + 16j + 2t, +1 | +8, +9)
   auto build = [&](uint32_t (&a)[4][MT][4], int s, const unsigned char*) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int q0 = s * SLAB + 16 * j;
+      const int q0 = (s_base + s) * SLAB + 16 * j;
       if constexpr (W > 0) {
         // all 16 columns of the step lie on image row q0 / W; past the image (the zero-filled end
         // of the last slab) any row of A will do
@@ -602,13 +657,19 @@ __global__ void __launch_bounds__(BF_THREADS, 1)
           a[j][mt][3] = mul2(bm[mt][1][xg][1], hi);
         }
       } else {
-        int yq[4], xq[4];  // columns 2t, 2t+1, 2t+8, 2t+9, clamped into the image
+        // columns 2t, 2t+1, 2t+8, 2t+9, clamped into the image; with PARTS a column on another
+        // part's image row reads zero
+        int yq[4], xq[4];
+        bool in[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int q = min(q0 + 2 * t + (k & 1) + 8 * (k >> 1), hw - 1);
           yq[k] = q / d.w;
           xq[k] = q - yq[k] * d.w;
+          in[k] = !PARTS || unsigned(yq[k] - ya) < unsigned(yn);
+          if constexpr (PARTS) yq[k] = in[k] ? yq[k] - ya : 0;
         }
+        const bf16 zero = __float2bfloat16(0.0f);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -618,17 +679,35 @@ __global__ void __launch_bounds__(BF_THREADS, 1)
             const bf16* brow = Bm + (row_base + r) * d.w;
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              a[j][mt][half + 2 * e] =
-                  as_u32(__hmul2(__halves2bfloat162(arow[yq[2 * e]], arow[yq[2 * e + 1]]),
-                                 __halves2bfloat162(brow[xq[2 * e]], brow[xq[2 * e + 1]])));
+              a[j][mt][half + 2 * e] = as_u32(__hmul2(
+                  __halves2bfloat162(in[2 * e] ? arow[yq[2 * e]] : zero,
+                                     in[2 * e + 1] ? arow[yq[2 * e + 1]] : zero),
+                  __halves2bfloat162(brow[xq[2 * e]], brow[xq[2 * e + 1]])));
           }
       }
     }
   };
 
   float acc[MT][NP / 2];
-  zero_acc<NP, MT>(acc);
-  slab_loop<NP, MT>(acc, n_slabs, smem, STAGE_BYTES, fetch, build);
+  if constexpr (PARTS) {
+    zero_acc<NP, MT>(acc);
+    for (ya = 0; ya < d.h; ya += yc) {
+      yn = min(yc, d.h - ya);
+      s_base = ya * d.w / SLAB;
+      const int s_end = ((ya + yn) * d.w + SLAB - 1) / SLAB;
+      if (ya > 0) __syncthreads();  // every warp is done with the last part's A tile and stages
+      slab_prologue(s_end - s_base, smem, STAGE_BYTES, fetch);
+      load_factor_tile(sA, A + row_base * d.h, r0, rows, RB, d.h, hs, ya, yn);
+      slab_loop<NP, MT>(acc, s_end - s_base, smem, STAGE_BYTES, fetch, build);
+    }
+  } else {
+    const int n_slabs = (hw + SLAB - 1) / SLAB;
+    slab_prologue(n_slabs, smem, STAGE_BYTES, fetch);
+    load_factor_tile(sA, A + row_base * d.h, r0, rows, RB, d.h, hs);
+    load_bm();
+    zero_acc<NP, MT>(acc);
+    slab_loop<NP, MT>(acc, n_slabs, smem, STAGE_BYTES, fetch, build);
+  }
   store_acc<NP, MT>(acc, out + row_base * d.c, r0, rows, d.c, c0);
 }
 
@@ -936,26 +1015,187 @@ __global__ void __launch_bounds__(DAB_THREADS, DAB_WG == 1 ? 2 : 1)
   }
 }
 
-bool valid_dims(const FacDims& d) {
-  return d.b > 0 && d.L > 0 && d.P > 0 && d.h > 0 && d.w > 0 && d.c > 0 &&
-         int64_t(d.h) * d.w < (int64_t(1) << 31) && int64_t(d.L) * d.P < (int64_t(1) << 31);
+// K9c for any w, h and c (the plan's dab_general: w > 128, or g's or A's tile too large for the
+// kernel above): a block per (item, 128 rows r), one warpgroup per m64 tile, as above; it walks
+// g's channel chunks, in each the column chunks of N image columns, in each all image rows y,
+// one image row (N columns, kch channels, K-major) a ring stage. g's chunk is staged in shared
+// memory once per chunk and its fragments held in registers; A's values are read from global
+// memory as the epilogue needs them. The epilogue of a (chunk, column chunk, y) adds its part of
+// d_A[r, y] (a quad reduction) and of d_Bm[r, x] (in registers over y): where a sum has several
+// parts (column or channel chunks), the thread that owns the element keeps it in f32 in `scratch`
+// ([b*L*P][h] for d_A, then [b*L*P][w] for d_Bm) and rounds it into d_A / d_Bm at its last part.
+template <int N>
+__global__ void __launch_bounds__(DAB_THREADS, 1)
+    contract_dab_general_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+                                     const bf16* __restrict__ img, const bf16* __restrict__ g,
+                                     bf16* __restrict__ d_A, bf16* __restrict__ d_Bm,
+                                     float* __restrict__ scratch, FacDims d, int kch) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int RB = DAB_ROWS, NX = N / 8;
+  const int kq_n = kch / 8, gs = kch + 8;
+  const size_t stage_elems = align128(size_t(N) * kch * 2) / 2;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* sG = ring + STAGES * stage_elems;  // [RB][gs]: g's rows, the current chunk's channels
+
+  const int rows = d.L * d.P, hw = d.h * d.w;
+  const int n_rt = (rows + RB - 1) / RB;
+  const int r0 = (blockIdx.x % n_rt) * RB, bi = blockIdx.x / n_rt;
+  const size_t row_base = size_t(bi) * rows;
+  const bf16* img_b = img + size_t(bi) * hw * d.c;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int cpad = round_up(d.c, 16), chunks = (d.c + kch - 1) / kch;
+  const int xchunks = (d.w + N - 1) / N, n_items = chunks * xchunks * d.h;
+  float* acc_A = scratch;
+  float* acc_Bm = scratch + size_t(d.b) * rows * d.h;
+
+  // item it = ((chunk * xchunks + xc) * h + y): image row y, the chunk's kch channels, the
+  // column chunk's N columns, in the layout of the kernel above (zeros past w and past c)
+  auto fetch = [&](int it) {
+    constexpr int SLICE = 16 * NX;
+    bf16* stage = ring + (it % STAGES) * stage_elems;
+    const int y = it % d.h, x0 = (it / d.h) % xchunks * N, ch0 = it / (d.h * xchunks) * kch;
+    const bf16* row = img_b + size_t(y) * d.w * d.c;
+    for (int idx = threadIdx.x; idx < kq_n / 2 * SLICE; idx += DAB_THREADS) {
+      const int e = idx % SLICE, xg = e / 16, x = x0 + xg * 8 + (e / 2) % 8;
+      const int kq = (idx / SLICE) * 2 + e % 2, ch = ch0 + kq * 8;
+      const bool in = x < d.w && ch < d.c;
+      cp_async16(stage + ((kq * NX + xg) * 8 + x % 8) * 8, in ? row + size_t(x) * d.c + ch : img_b,
+                 in);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_items) fetch(s);
+    cp_async_commit();
+  }
+
+  const int lr[2] = {frag_row<1>(0, 0), frag_row<1>(0, 1)};
+  uint32_t gf[KCH / 16][4];
+  uint32_t bmv[NX][2];
+  float acc[N / 2], dbm[N / 2];
+  int it = 0;
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    const int ch0 = chunk * kch, ks = min(kch, cpad - ch0) / 16;
+    const bool last_chunk = chunk == chunks - 1;
+    __syncthreads();  // every warp holds the last chunk's g fragments
+    for (int idx = threadIdx.x; idx < RB * kq_n; idx += DAB_THREADS) {
+      const int r = idx / kq_n, ch = ch0 + (idx % kq_n) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < rows && ch < d.c)
+        v = *reinterpret_cast<const uint4*>(g + (row_base + r0 + r) * d.c + ch);
+      *reinterpret_cast<uint4*>(sG + r * gs + ch - ch0) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < KCH / 16; ++k)
+      if (k < ks) ldmatrix_x4(gf[k], sG + (lr[0] - lane / 4 + lane % 16) * gs + 16 * k + (lane / 16) * 8);
+
+    for (int xc = 0; xc < xchunks; ++xc) {
+      const int x0 = xc * N;
+      const bool last = last_chunk && xc == xchunks - 1;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + lr[half];
+        const bf16* src = Bm + (row_base + min(r, rows - 1)) * d.w;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          const int x = x0 + 8 * j + 2 * t;
+          const bf16 zero = __float2bfloat16(0.0f);
+          bmv[j][half] = pack2(r < rows && x < d.w ? src[x] : zero, r < rows && x + 1 < d.w ? src[x + 1] : zero);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) dbm[i] = 0.0f;
+
+      for (int y = 0; y < d.h; ++y, ++it) {
+        cp_async_wait<STAGES - 2>();
+        fence_proxy_async();
+        __syncthreads();
+        if (it + (STAGES - 1) < n_items) fetch(it + (STAGES - 1));
+        cp_async_commit();
+        const bf16* stage = ring + (it % STAGES) * stage_elems;
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < KCH / 16; ++k)
+          if (k < ks) Wgmma<N>::mma(acc, gf[k], wgmma_desc(stage + k * 16 * N, N * 16, 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        float av[2], da[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + lr[half];
+          av[half] = r < rows ? __bfloat162float(A[(row_base + r) * d.h + y]) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 b = __bfloat1622float2(as_bf2(bmv[j][half]));
+            const float t0 = acc[4 * j + 2 * half], t1 = acc[4 * j + 2 * half + 1];
+            da[half] = fmaf(b.x, t0, fmaf(b.y, t1, da[half]));
+            dbm[4 * j + 2 * half] = fmaf(av[half], t0, dbm[4 * j + 2 * half]);
+            dbm[4 * j + 2 * half + 1] = fmaf(av[half], t1, dbm[4 * j + 2 * half + 1]);
+          }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          da[half] += __shfl_xor_sync(0xffffffffu, da[half], 1);
+          da[half] += __shfl_xor_sync(0xffffffffu, da[half], 2);
+          const int r = r0 + lr[half];
+          if (t == 0 && r < rows) {
+            const size_t i = (row_base + r) * d.h + y;
+            const float v = chunk > 0 || xc > 0 ? acc_A[i] + da[half] : da[half];
+            if (last)
+              d_A[i] = __float2bfloat16(v);
+            else
+              acc_A[i] = v;
+          }
+        }
+      }
+      // d_Bm of the column chunk
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + lr[half];
+        if (r >= rows) continue;
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = x0 + 8 * j + 2 * t + e;
+            if (x >= d.w) continue;
+            const size_t i = (row_base + r) * d.w + x;
+            const float v = chunk > 0 ? acc_Bm[i] + dbm[4 * j + 2 * half + e] : dbm[4 * j + 2 * half + e];
+            if (last_chunk)
+              d_Bm[i] = __float2bfloat16(v);
+            else
+              acc_Bm[i] = v;
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
-// What the bf16 kernels take: see the design note above.
-bool bf16_fits(const FacDims& d, const Plan& p) {
-  constexpr size_t SMEM_MAX = 232448;
-  return d.c % 8 == 0 && d.w <= 128 && p.fwd_smem <= SMEM_MAX && p.dimg_smem <= SMEM_MAX &&
-         p.dab_smem <= SMEM_MAX;
+// The bf16 kernels read 16-byte vectors of channels, so there c is a multiple of 8 (the wrappers
+// pad it).
+bool valid_dims(const FacDims& d, bool bf16) {
+  return d.b > 0 && d.L > 0 && d.P > 0 && d.h > 0 && d.w > 0 && d.c > 0 && (!bf16 || d.c % 8 == 0) &&
+         int64_t(d.h) * d.w < (int64_t(1) << 31) && int64_t(d.L) * d.P < (int64_t(1) << 31);
 }
 
 template <int NP, int MT>
 cudaError_t fwd_bf16(const Plan& p, const bf16* A, const bf16* Bm, const bf16* img, bf16* out,
                      FacDims d, cudaStream_t st) {
+  if (p.yparts > 1)
+    return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 0, true>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.yc);
   switch (p.fwd_w) {
-    case 16: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 16>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.hs);
-    case 32: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 32>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.hs);
-    case 64: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 64>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.hs);
-    default: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 0>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.hs);
+    case 16: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 16>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.yc);
+    case 32: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 32>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.yc);
+    case 64: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 64>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.yc);
+    default: return launch_tiles(contract_fwd_bf16_kernel<NP, MT, 0>, p.fwd_blocks, p.fwd_smem, st, A, Bm, img, out, d, p.yc);
   }
 }
 
@@ -972,9 +1212,18 @@ cudaError_t dimg_bf16(const Plan& p, const bf16* A, const bf16* Bm, const bf16* 
 
 template <int N>
 cudaError_t dab_bf16(const Plan& p, const bf16* A, const bf16* Bm, const bf16* img, const bf16* g,
-                     bf16* d_A, bf16* d_Bm, FacDims d, cudaStream_t st) {
+                     bf16* d_A, bf16* d_Bm, float* scratch, FacDims d, cudaStream_t st) {
+  if (p.dab_blocks > 0x7fffffff || (p.scratch > 0 && scratch == nullptr)) return cudaErrorInvalidValue;
+  if (p.dab_general) {
+    const auto kernel = contract_dab_general_bf16_kernel<N>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(p.dab_smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<unsigned(p.dab_blocks), DAB_THREADS, p.dab_smem, st>>>(A, Bm, img, g, d_A, d_Bm,
+                                                                    scratch, d, p.kch);
+    return cudaGetLastError();
+  }
   const auto kernel = contract_dab_bf16_kernel<N, yr_for(N)>;
-  if (p.dab_blocks > 0x7fffffff) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(p.dab_smem));
   if (err != cudaSuccess) return err;
@@ -1008,7 +1257,7 @@ cudaError_t launch_fwd(const void* A, const void* Bm, const void* img, void* out
 
 template <typename T>
 cudaError_t launch_bwd(const void* A, const void* Bm, const void* img, const void* g, void* d_A,
-                       void* d_Bm, void* d_img, FacDims d, cudaStream_t stream) {
+                       void* d_Bm, void* d_img, float*, FacDims d, cudaStream_t stream) {
   const int64_t hw = int64_t(d.h) * d.w;
   cudaError_t err = launch_tiles(
       contract_bwd_img_kernel<T>, int64_t(d.b) * ((hw + TILE - 1) / TILE) * ((d.c + TILE - 1) / TILE),
@@ -1025,22 +1274,21 @@ template <>
 cudaError_t launch_fwd<bf16>(const void* A, const void* Bm, const void* img, void* out, FacDims d,
                              cudaStream_t stream) {
   const Plan p = make_plan(d);
-  if (!bf16_fits(d, p)) return cudaErrorInvalidValue;
   return VP_BY_NP(fwd_bf16, p, static_cast<const bf16*>(A), static_cast<const bf16*>(Bm),
                   static_cast<const bf16*>(img), static_cast<bf16*>(out), d, stream);
 }
 
 template <>
 cudaError_t launch_bwd<bf16>(const void* A, const void* Bm, const void* img, const void* g,
-                             void* d_A, void* d_Bm, void* d_img, FacDims d, cudaStream_t stream) {
+                             void* d_A, void* d_Bm, void* d_img, float* scratch, FacDims d,
+                             cudaStream_t stream) {
   const Plan p = make_plan(d);
-  if (!bf16_fits(d, p)) return cudaErrorInvalidValue;
   const bf16 *a = static_cast<const bf16*>(A), *bm = static_cast<const bf16*>(Bm);
   cudaError_t err = VP_BY_NP(dimg_bf16, p, a, bm, static_cast<const bf16*>(g),
                              static_cast<bf16*>(d_img), d, stream);
   if (err != cudaSuccess) return err;
   return VP_BY_N(dab_bf16, p, a, bm, static_cast<const bf16*>(img), static_cast<const bf16*>(g),
-                 static_cast<bf16*>(d_A), static_cast<bf16*>(d_Bm), d, stream);
+                 static_cast<bf16*>(d_A), static_cast<bf16*>(d_Bm), scratch, d, stream);
 }
 
 }  // namespace
@@ -1052,36 +1300,38 @@ extern "C" {
 int vp_warp_contract_fwd(int is_bf16, const void* A, const void* Bm, const void* img, void* out,
                          int b, int L, int P, int h, int w, int c, void* stream) {
   const FacDims d{b, L, P, h, w, c};
-  if (!valid_dims(d)) return cudaErrorInvalidValue;
+  if (!valid_dims(d, is_bf16)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return finish(is_bf16 ? launch_fwd<__nv_bfloat16>(A, Bm, img, out, d, st)
                         : launch_fwd<float>(A, Bm, img, out, d, st));
 }
 
 // The backward on `stream`, two launches: d_img [b, h, w, c], d_A [b, L, P, h] and d_Bm [b, L, P, w]
-// from g [b, L, P, c], all in the inputs' type and contiguous. Returns a cudaError_t.
+// from g [b, L, P, c], all in the inputs' type and contiguous. In bf16, `scratch` holds the plan's
+// `scratch` f32 elements where that is not 0 (vp_warp_contract_geometry), else it may be null.
+// Returns a cudaError_t.
 int vp_warp_contract_bwd(int is_bf16, const void* A, const void* Bm, const void* img, const void* g,
-                         void* d_A, void* d_Bm, void* d_img, int b, int L, int P, int h, int w,
-                         int c, void* stream) {
+                         void* d_A, void* d_Bm, void* d_img, float* scratch, int b, int L, int P,
+                         int h, int w, int c, void* stream) {
   const FacDims d{b, L, P, h, w, c};
-  if (!valid_dims(d)) return cudaErrorInvalidValue;
+  if (!valid_dims(d, is_bf16)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return finish(is_bf16 ? launch_bwd<__nv_bfloat16>(A, Bm, img, g, d_A, d_Bm, d_img, d, st)
-                        : launch_bwd<float>(A, Bm, img, g, d_A, d_Bm, d_img, d, st));
+  return finish(is_bf16 ? launch_bwd<__nv_bfloat16>(A, Bm, img, g, d_A, d_Bm, d_img, scratch, d, st)
+                        : launch_bwd<float>(A, Bm, img, g, d_A, d_Bm, d_img, scratch, d, st));
 }
 
-// The bf16 kernels' plan for these dimensions into out[0..18]: np, passes, mt, fwd_w, dimg_w, ny,
-// hs, dab_n, kch, chunks, cs, yr, fwd_smem, dimg_smem, dab_smem, fwd_blocks, dimg_blocks, dab_blocks,
-// and whether the bf16 kernels take the shape (1) or not (0). Returns a cudaError_t.
-int vp_warp_contract_geometry(int b, int L, int P, int h, int w, int c, int* out) {
+// The bf16 kernels' plan for these dimensions (c a multiple of 8) into out[0..22]: np, passes, mt,
+// fwd_w, dimg_w, ny, hs, yc, yparts, dab_n, kch, chunks, cs, yr, dab_general, xchunks, fwd_smem,
+// dimg_smem, dab_smem, fwd_blocks, dimg_blocks, dab_blocks, scratch. Returns a cudaError_t.
+int vp_warp_contract_geometry(int b, int L, int P, int h, int w, int c, int64_t* out) {
   const FacDims d{b, L, P, h, w, c};
-  if (!valid_dims(d)) return cudaErrorInvalidValue;
+  if (!valid_dims(d, true)) return cudaErrorInvalidValue;
   const Plan p = make_plan(d);
-  const int64_t v[] = {p.np, p.passes, p.mt, p.fwd_w, p.dimg_w, p.ny, p.hs, p.dab_n, p.kch,
-                       p.chunks, p.cs, p.yr, int64_t(p.fwd_smem), int64_t(p.dimg_smem),
-                       int64_t(p.dab_smem), p.fwd_blocks, p.dimg_blocks, p.dab_blocks,
-                       bf16_fits(d, p)};
-  for (int i = 0; i < int(sizeof(v) / sizeof(v[0])); ++i) out[i] = int(v[i]);
+  const int64_t v[] = {p.np, p.passes, p.mt, p.fwd_w, p.dimg_w, p.ny, p.hs, p.yc, p.yparts,
+                       p.dab_n, p.kch, p.chunks, p.cs, p.yr, p.dab_general, p.xchunks,
+                       int64_t(p.fwd_smem), int64_t(p.dimg_smem), int64_t(p.dab_smem),
+                       p.fwd_blocks, p.dimg_blocks, p.dab_blocks, p.scratch};
+  for (int i = 0; i < int(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
   return 0;
 }
 

@@ -108,17 +108,6 @@ int vec_width(const Dims& d, const void* a, const void* b) {
   return V;
 }
 
-cudaError_t device_limits(int* sms, int* smem_max, int* smem_sm) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  return err;
-}
-
 // ---- forward -------------------------------------------------------------------------------
 
 constexpr int FWD_TILE_ROWS = 8;     // output rows of a tile, halved while the grid has fewer blocks than SMs

@@ -142,15 +142,22 @@ def warp_ret_library() -> ctypes.CDLL:
     r"""The fused warp + ``ret`` library (``csrc/warp_ret.cu``: K8's forward
     and backward), built on first call. ``int fn(int is_bf16, <pointers>,
     [int n_slices,] int b, int P, int L, int h, int w, int f, int O, void*
-    stream)``."""
-    return _load("warp_ret.cu", {"vp_warp_ret_fwd": [_INT] + [_VP] * 6 + [_INT] * 7 + [_VP],
-                                 "vp_warp_ret_bwd": [_INT] + [_VP] * 10 + [_INT] * 8 + [_VP]})
+    stream)``, and ``vp_warp_ret_geometry``, the bf16 kernels' plan."""
+    lib = _load("warp_ret.cu", {"vp_warp_ret_fwd": [_INT] + [_VP] * 6 + [_INT] * 7 + [_VP],
+                                "vp_warp_ret_bwd": [_INT] + [_VP] * 10 + [_INT] * 8 + [_VP]})
+    lib.vp_warp_ret_geometry.argtypes = [_INT] * 8 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.vp_warp_ret_geometry.restype = _INT
+    return lib
 
 
 @functools.cache
 def warp_contract_library() -> ctypes.CDLL:
     r"""The prebuilt-factor warp library (``csrc/warp_contract.cu``: K9's
     forward and backward), built on first call. ``int fn(int is_bf16,
-    <pointers>, int b, int L, int P, int h, int w, int c, void* stream)``."""
-    return _load("warp_contract.cu", {"vp_warp_contract_fwd": _warp_signature(4),
-                                      "vp_warp_contract_bwd": _warp_signature(7)})
+    <pointers>, int b, int L, int P, int h, int w, int c, void* stream)``, and
+    ``vp_warp_contract_geometry``, the bf16 kernels' plan."""
+    lib = _load("warp_contract.cu", {"vp_warp_contract_fwd": _warp_signature(4),
+                                     "vp_warp_contract_bwd": _warp_signature(8)})
+    lib.vp_warp_contract_geometry.argtypes = [_INT] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.vp_warp_contract_geometry.restype = _INT
+    return lib

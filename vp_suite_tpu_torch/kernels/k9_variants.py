@@ -22,7 +22,8 @@ timing-only variants (``no_build``, ``no_epilogue``, ``no_dimg``,
 ``no_dab``, ``no_slab_*``, ``no_row_*``) skip part of the work and are wrong by design; ``rows128``
 (128-row / 128-pixel blocks), ``yr1`` / ``yr4`` (one image row a stage
 in d_A / d_Bm, or four at N <= 32), ``rows_k_contiguous`` (its first layout of the image rows),
-``dab_wg1`` (its blocks of one warpgroup) and ``stages6`` / ``stages8``
+``dab_wg1`` (its blocks of one warpgroup), ``dab_general`` (the general d_A /
+d_Bm kernel, for w > 128 or tiles too large, at every shape) and ``stages6`` / ``stages8``
 (deeper rings) must pass the check; the faults (:data:`FAULTS`) must fail it; the
 race (:data:`RACES`) is reported. It also prints each shape's plan
 (:func:`plan`, :data:`GEOMETRY_KEYS`) and the bytes each kernel streams
@@ -108,6 +109,9 @@ EDITS = {
     # rings of 6 and 8 stages (4 and 6 slabs of copies in flight ahead of the products)
     "stages6": [("constexpr int STAGES = 4;        // ring depth", "constexpr int STAGES = 6;        // ring depth")],
     "stages8": [("constexpr int STAGES = 4;        // ring depth", "constexpr int STAGES = 8;        // ring depth")],
+    # d_A / d_Bm by the general kernel at every shape (the one for w > 128 or tiles too large:
+    # one image row a stage, g's channels a chunk at a time, no A tile)
+    "dab_general": [("  p.dab_general = d.w > 128 || p.dab_smem > SMEM_MAX;\n", "  p.dab_general = 1;\n")],
     # d_A / d_Bm in blocks of one warpgroup (64 rows), two blocks an SM
     "dab_wg1": [("constexpr int DAB_WG = 2;", "constexpr int DAB_WG = 1;")],
     # the pixel tile not kept: one m64 tile per warpgroup (128-row forward, 128-pixel d_img blocks)
@@ -140,9 +144,9 @@ SMALL = [(2, 3, 256, 16, 16, 24), (2, 3, 50, 9, 11, 24), (2, 3, 96, 6, 16, 64),
          (2, 2, 200, 8, 32, 136)]
 #: one H100 SXM: shared memory a block may opt into
 SMEM_MAX = 232448
-GEOMETRY_KEYS = ("np", "passes", "mt", "fwd_w", "dimg_w", "ny", "hs", "dab_n", "kch", "chunks",
-                 "cs", "yr", "fwd_smem", "dimg_smem", "dab_smem", "fwd_blocks", "dimg_blocks",
-                 "dab_blocks", "fits")
+GEOMETRY_KEYS = ("np", "passes", "mt", "fwd_w", "dimg_w", "ny", "hs", "yc", "yparts", "dab_n",
+                 "kch", "chunks", "cs", "yr", "dab_general", "xchunks", "fwd_smem", "dimg_smem",
+                 "dab_smem", "fwd_blocks", "dimg_blocks", "dab_blocks", "scratch")
 
 
 def variant_source(name: str) -> str:
@@ -150,9 +154,12 @@ def variant_source(name: str) -> str:
 
 
 def _declare(lib, text):
+    r"""Declares the entries; ``lib.takes_scratch`` says whether the backward's
+    entry has the scratch argument (an earlier commit's has not)."""
+    lib.takes_scratch = "float* scratch, int b" in text
     lib.vp_warp_contract_fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.vp_warp_contract_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+    lib.vp_warp_contract_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (7 + lib.takes_scratch) \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.vp_warp_contract_fwd.restype = lib.vp_warp_contract_bwd.restype = ctypes.c_int
     return lib
@@ -172,33 +179,44 @@ def _a128(n):
 
 def plan(b, L, P, h, w, c):
     r"""The plan that ``csrc/warp_contract.cu``'s ``make_plan`` computes for
-    the bf16 kernels, as :func:`geometry` returns it: a dict of
-    :data:`GEOMETRY_KEYS`."""
+    the bf16 kernels (c a multiple of 8, as the wrappers pad it), as
+    :func:`geometry` returns it: a dict of :data:`GEOMETRY_KEYS`. Every
+    shape has one: the forward's A tile in parts of ``yc`` columns where h is
+    too tall for it, d_A / d_Bm by the general kernel (``dab_general``) where
+    w > 128 or their tiles do not fit, accumulating in ``scratch`` f32
+    elements where their sums have several parts."""
     rows, hw = L * P, h * w
     np_ = _pad_n(c)
     mt = 2 if np_ <= 96 else 1
     w_reg = w in (16, 32, 64)
-    fwd_w = w if w_reg else 0
     dimg_w = w if w_reg and h % 8 == 0 else 0
     ny = 128 * mt // w if dimg_w else 0
     hs = _up(h, 4) + 2
-    dab_n = _pad_n(w)
+    dab_n = _pad_n(min(w, 128))
     kch = min(_up(c, 16), 128)
+    chunks = -(-c // kch)
     cs = _up(c, 16) + 8
-    yr = 2 if dab_n == 64 else 1
     rb = 128 * mt
     slab = 64 * np_ * 2
-    out = dict(np=np_, passes=-(-c // np_), mt=mt, fwd_w=fwd_w, dimg_w=dimg_w, ny=ny, hs=hs,
-               dab_n=dab_n, kch=kch, chunks=-(-c // kch), cs=cs, yr=yr,
-               fwd_smem=4 * slab + _a128(rb * hs * 2),
-               dimg_smem=4 * (slab + (_a128(64 * (w + 8) * 2) + _a128(64 * ny * 2) if dimg_w else 0)),
-               dab_smem=4 * _a128(yr * dab_n * kch * 2) + _a128(128 * cs * 2) + _a128(128 * hs * 2),
-               fwd_blocks=b * -(-c // np_) * -(-rows // rb),
-               dimg_blocks=b * -(-c // np_) * -(-hw // rb),
-               dab_blocks=b * -(-rows // 128))
-    out["fits"] = int(c % 8 == 0 and w <= 128
-                      and max(out["fwd_smem"], out["dimg_smem"], out["dab_smem"]) <= SMEM_MAX)
-    return out
+    yc = min(_up(h, 4), ((SMEM_MAX - 4 * slab) // (rb * 2) - 2) // 4 * 4)
+    fwd_w = w if w_reg and h <= yc else 0
+    yr = 2 if dab_n == 64 else 1
+    dab_smem = 4 * _a128(yr * dab_n * kch * 2) + _a128(128 * cs * 2) + _a128(128 * hs * 2)
+    general = int(w > 128 or dab_smem > SMEM_MAX)
+    xchunks = -(-w // dab_n)
+    if general:
+        yr = 1
+        dab_smem = 4 * _a128(dab_n * kch * 2) + _a128(128 * (kch + 8) * 2)
+    return dict(np=np_, passes=-(-c // np_), mt=mt, fwd_w=fwd_w, dimg_w=dimg_w, ny=ny, hs=hs,
+                yc=yc, yparts=-(-h // yc), dab_n=dab_n, kch=kch, chunks=chunks, cs=cs, yr=yr,
+                dab_general=general, xchunks=xchunks,
+                fwd_smem=4 * slab + _a128(rb * (yc + 2) * 2),
+                dimg_smem=4 * (slab + (_a128(64 * (w + 8) * 2) + _a128(64 * ny * 2) if dimg_w else 0)),
+                dab_smem=dab_smem,
+                fwd_blocks=b * -(-c // np_) * -(-rows // rb),
+                dimg_blocks=b * -(-c // np_) * -(-hw // rb),
+                dab_blocks=b * -(-rows // 128),
+                scratch=b * rows * (h + w) if general and (xchunks > 1 or chunks > 1) else 0)
 
 
 def l2_bytes(b, L, P, h, w, c):
@@ -209,16 +227,17 @@ def l2_bytes(b, L, P, h, w, c):
     fwd = p["fwd_blocks"] * -(-h * w // 64) * 64 * p["np"] * 2
     g_slabs = -(-L * P // 64) * 64
     dimg = p["dimg_blocks"] * g_slabs * (p["np"] + (w + p["ny"] if p["dimg_w"] else 0)) * 2
-    dab = p["dab_blocks"] * -(-h // p["yr"]) * p["yr"] * p["chunks"] * p["dab_n"] * p["kch"] * 2
+    dab = p["dab_blocks"] * -(-h // p["yr"]) * p["yr"] * p["chunks"] * p["xchunks"] * p["dab_n"] \
+        * p["kch"] * 2
     return dict(fwd=fwd, dimg=dimg, dab=dab)
 
 
 def geometry(lib, b, L, P, h, w, c):
     r"""The bf16 kernels' plan from ``lib``'s ``vp_warp_contract_geometry``, a
     dict of :data:`GEOMETRY_KEYS`."""
-    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    out = (ctypes.c_int64 * len(GEOMETRY_KEYS))()
     fn = lib.vp_warp_contract_geometry
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
     fn.restype = ctypes.c_int
     err = fn(b, L, P, h, w, c, out)
     if err:
@@ -247,14 +266,23 @@ def run_fwd(lib, A, Bm, img, out):
         raise RuntimeError(f"K9 forward variant launch failed ({err})")
 
 
-def run_bwd(lib, A, Bm, img, g, outs):
+def run_bwd(lib, A, Bm, img, g, outs, scratch=None):
     b, Lf, P, h = A.shape
     _, _, w, c = img.shape
+    extra = [None if scratch is None else scratch.data_ptr()] if lib.takes_scratch else []
     err = lib.vp_warp_contract_bwd(1, A.data_ptr(), Bm.data_ptr(), img.data_ptr(), g.data_ptr(),
-                                   *(o.data_ptr() for o in outs), b, Lf, P, h, w, c,
+                                   *(o.data_ptr() for o in outs), *extra, b, Lf, P, h, w, c,
                                    torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K9 backward variant launch failed ({err})")
+
+
+def scratch_for(A, img):
+    r"""f32 scratch of the most elements any plan asks for at these sizes
+    (b * L * P * (h + w)), so that a variant that moves a shape onto the general
+    d_A / d_Bm kernel has it."""
+    b, Lf, P, h = A.shape
+    return torch.empty(b * Lf * P * (h + img.shape[2]), dtype=torch.float32, device=A.device)
 
 
 def rel(got, want):
@@ -280,7 +308,7 @@ def check(libs, gen):
             got = [torch.full_like(x, math.nan) for x in want]
             try:  # a variant may refuse a shape (its tiles do not fit): its outputs stay nan
                 run_fwd(libs[name], A, Bm, img, got[0])
-                run_bwd(libs[name], A, Bm, img, g, got[1:])
+                run_bwd(libs[name], A, Bm, img, g, got[1:], scratch_for(A, img))
             except RuntimeError as e:
                 print(f"[check] {name} at b={b} L={Lf} P={P} {h}x{w}x{c}: {e}")
             torch.cuda.synchronize()
@@ -353,10 +381,12 @@ def main():
         A, Bm, img, g = args_at(gen, B, L, side * side, side, side, ch)
         out = torch.empty(B, L, side * side, ch, dtype=img.dtype, device=img.device)
         grads = [torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(img)]
+        scratch = scratch_for(A, img)
         line = []
         for i, name in enumerate(order):
             fwd = event_ms(lambda: run_fwd(libs[name], A, Bm, img, out), warmup=1, iters=5)
-            bwd = event_ms(lambda: run_bwd(libs[name], A, Bm, img, g, grads), warmup=1, iters=5)
+            bwd = event_ms(lambda: run_bwd(libs[name], A, Bm, img, g, grads, scratch), warmup=1,
+                           iters=5)
             key = f"{name} (again)" if name == "parent" and i else name
             tot = totals.setdefault(key, [0.0, 0.0])
             tot[0] += fwd
@@ -365,7 +395,7 @@ def main():
         lib_f, lib_b = einsum_ms(A, Bm, img, g)
         print(f"[time] {side}x{side}x{ch} b={B} L={L} bf16, ms per forward / backward call: "
               + ", ".join(line) + f"; torch.einsum {lib_f}, autograd.grad through it {lib_b}")
-        del A, Bm, img, g, out, grads
+        del A, Bm, img, g, out, grads, scratch
         torch.cuda.empty_cache()
     print("[time] over the three shapes, forward / backward ms: "
           + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in totals.items()))

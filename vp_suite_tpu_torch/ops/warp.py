@@ -42,14 +42,16 @@ Two more entry points reach the JAX package's other warp kernels:
 - :func:`warp_ret` is the L warps fused with TrajGRU's 1x1 ``ret`` conv,
   ``out[b, p, o] = bias[o] + sum_l sum_k w[l, k, o] * warp_l[b, p, k]``, with
   the warp tensor kept out of device memory (``csrc/warp_ret.cu``, for K8a-c,
-  ``pallas_warp.warp_ret``). No model calls it, as in the JAX package, whose
-  ``TrajGRU`` runs the unfused ``warp_flow_ret``.
+  ``pallas_warp.warp_ret``; bf16 on wgmma kernels that stage the image's
+  band of rows, f32 on the first port's FMA bodies). No model calls it, as
+  in the JAX package, whose ``TrajGRU`` runs the unfused ``warp_flow_ret``.
 - :func:`warp_contract` contracts prebuilt factor matrices, ``out[b, l, p, c]
   = sum_{y, x} A[b, l, p, y] * Bm[b, l, p, x] * img[b, y, x, c]``, for any real
   ``A`` and ``Bm`` (``csrc/warp_contract.cu``, for K9a-c,
   ``pallas_warp.warp_contract``); with the one-hot factors of
   :func:`~vp_suite_tpu_torch.ops.grid_sample._onehot_factor` it is the warp.
 """
+import ctypes
 import itertools
 
 import torch
@@ -294,6 +296,27 @@ def warp_ret_backward_reference(iy, ix, img, w, bias, g):
     return d_iy, d_ix, d_img, d_w.to(w.dtype), gf.sum((0, 1)).to(bias.dtype)
 
 
+def _ret_operands(img, w, bias, g=None):
+    r"""``(img, w, bias, g)`` as the kernels read them: ``w`` in the image's
+    dtype, ``bias`` in f32, all contiguous; in bf16, which the kernels read in
+    16-byte vectors, ``f`` and ``O`` padded with zeros to multiples of 8 (the
+    image's and ``g``'s channels, ``w``'s rows and columns, ``bias``) and each
+    tensor 16-byte aligned (copied where a view starts elsewhere)."""
+    w, bias = w.to(img.dtype).contiguous(), bias.float().contiguous()
+    if img.dtype != torch.bfloat16:
+        return img, w, bias, g
+    pf, po = -img.shape[-1] % 8, -w.shape[-1] % 8
+    pad = torch.nn.functional.pad
+    if pf:
+        img = pad(img, (0, pf))
+    if pf or po:
+        w = pad(w, (0, po, 0, pf))
+    if po:
+        bias = pad(bias, (0, po))
+        g = None if g is None else pad(g, (0, po))
+    return [t if t is None or t.data_ptr() % 16 == 0 else t.clone() for t in (img, w, bias, g)]
+
+
 def warp_ret_forward(iy, ix, img, w, bias):
     r""":func:`warp_ret`'s forward with no autograd: ``[b, P, O]`` in
     ``img.dtype``. On CPU tensors it computes :func:`warp_ret_reference`; on
@@ -305,24 +328,30 @@ def warp_ret_forward(iy, ix, img, w, bias):
         return warp_ret_reference(iy, ix, img, w, bias)
     _check_kernel_operands("warp_ret", iy, ix, img)
     b, P, L = iy.shape
-    _, h, wd, f = img.shape
+    _, h, wd, _ = img.shape
     O = w.shape[-1]
-    out = torch.empty((b, P, O), dtype=img.dtype, device=img.device)
+    img, w, bias, _ = _ret_operands(img, w, bias)
+    f, Op = img.shape[-1], w.shape[-1]
+    out = torch.empty((b, P, Op), dtype=img.dtype, device=img.device)
     if not out.numel():
-        return out
+        return out[..., :O]
     _launch("warp_ret", build.warp_ret_library(), "vp_warp_ret_fwd",
-            int(img.dtype == torch.bfloat16), iy, ix, img, w.to(img.dtype).contiguous(),
-            bias.float().contiguous(), out, b, P, L, h, wd, f, O)
+            int(img.dtype == torch.bfloat16), iy, ix, img, w, bias, out, b, P, L, h, wd, f, Op)
     warp_ret_forward.launches += 1
-    return out
+    return out if Op == O else out[..., :O].contiguous()
 
 
-def _dw_slices(device, b, P, L, f, O):
-    r"""How many slices of the pixel tiles the d_W pass splits into: enough
-    blocks for four per SM, at most one slice per 64-pixel tile."""
+def _dw_slices(device, b, P, L, f, O, bf16):
+    r"""How many slices of the pixels the d_W pass splits into. f32: slices of
+    the 64-pixel tiles, enough blocks for four per SM, at most one slice per
+    tile. bf16: ``b`` times the parts of an item's 64-pixel chunks (a block
+    and a partial each), enough blocks over all flows for four per SM, at
+    most one part per chunk."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if bf16:
+        return b * max(1, min(-(-P // 64), -(-4 * sms // (b * L))))
     tiles = b * -(-P // 64)
     blocks = L * -(-f // 64) * -(-O // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(tiles, -(-4 * sms // blocks)))
 
 
@@ -340,20 +369,24 @@ def warp_ret_backward(iy, ix, img, w, bias, g):
     b, P, L = iy.shape
     _, h, wd, f = img.shape
     O = w.shape[-1]
-    dev = img.device
+    dev, dtype, w_dtype, bias_dtype = img.device, img.dtype, w.dtype, bias.dtype
+    d_bias = g.float().sum((0, 1))
+    bf16 = dtype == torch.bfloat16
+    img, w, _, g = _ret_operands(img, w, bias, g)
+    fp, Op = img.shape[-1], w.shape[-1]
     d_iy = torch.empty(iy.shape, dtype=torch.float32, device=dev)
     d_ix = torch.empty_like(d_iy)
     d_img = torch.zeros(img.shape, dtype=torch.float32, device=dev)
     d_w = torch.zeros(w.shape, dtype=torch.float32, device=dev)
     if g.numel():
-        slices = _dw_slices(dev, b, P, L, f, O)
-        partial = torch.empty((slices, L, f, O), dtype=torch.float32, device=dev)
+        slices = _dw_slices(dev, b, P, L, fp, Op, bf16)
+        partial = torch.empty((slices, L, fp, Op), dtype=torch.float32, device=dev)
         _launch("warp_ret_backward", build.warp_ret_library(), "vp_warp_ret_bwd",
-                int(img.dtype == torch.bfloat16), iy, ix, img, w.to(img.dtype).contiguous(), g,
-                d_img, d_iy, d_ix, partial, d_w, slices, b, P, L, h, wd, f, O)
+                int(bf16), iy, ix, img, w, g, d_img, d_iy, d_ix, partial, d_w, slices, b, P, L,
+                h, wd, fp, Op)
         warp_ret_backward.launches += 3
-    d_bias = g.float().sum((0, 1))
-    return d_iy, d_ix, d_img.to(img.dtype), d_w.to(w.dtype), d_bias.to(bias.dtype)
+    return (d_iy, d_ix, d_img[..., :f].to(dtype).contiguous(),
+            d_w[:, :f, :O].to(w_dtype).contiguous(), d_bias.to(bias_dtype))
 
 
 class WarpRetFunction(torch.autograd.Function):
@@ -488,10 +521,8 @@ def warp_contract_forward(A, Bm, img):
     :func:`warp_contract_reference`; on CUDA tensors it launches the forward
     kernel, which takes contiguous operands all f32 or all bf16 (it forms the
     factor product ``A[p, y] * Bm[p, x]`` in that dtype and sums in f32), and
-    raises on anything else. The bf16 kernel takes ``w <= 128`` and shapes
-    whose tiles fit a block's shared memory (``h`` up to some 256); its
-    operands are padded to a multiple of 8 channels and copied to 16-byte
-    alignment where needed."""
+    raises on anything else. In bf16 the operands are padded to a multiple
+    of 8 channels and copied to 16-byte alignment where needed."""
     _check_contract(A, Bm, img)
     if img.device.type == "cpu":
         return warp_contract_reference(A, Bm, img)
@@ -508,6 +539,19 @@ def warp_contract_forward(A, Bm, img):
                 int(bf16), A, Bm, img, out, b, L, P, h, w, cp)
         warp_contract_forward.launches += 1
     return out if cp == c else out[..., :c].contiguous()
+
+
+def _contract_scratch(b, L, P, h, w, c, device):
+    r"""The f32 scratch that the bf16 backward kernels need at these sizes
+    (the plan's ``scratch``: the general d_A / d_Bm kernel's partial sums
+    where w > 128 or c > 128 split them), or None where they need none."""
+    out = (ctypes.c_int64 * 23)()
+    lib = build.warp_contract_library()
+    err = lib.vp_warp_contract_geometry(b, L, P, h, w, c, out)
+    if err:
+        raise RuntimeError(f"warp_contract_backward: no plan for these sizes: "
+                           f"{lib.vp_cuda_error_string(err).decode()} ({err})")
+    return torch.empty(out[22], dtype=torch.float32, device=device) if out[22] else None
 
 
 def warp_contract_backward(A, Bm, img, g):
@@ -531,8 +575,9 @@ def warp_contract_backward(A, Bm, img, g):
         g, = _bf16_contract_operands(g)
     cp = img.shape[-1]
     d_img = torch.empty_like(img)
+    scratch = _contract_scratch(b, L, P, h, w, cp, img.device) if bf16 else None
     _launch("warp_contract_backward", build.warp_contract_library(), "vp_warp_contract_bwd",
-            int(bf16), A, Bm, img, g, d_A, d_Bm, d_img, b, L, P, h, w, cp)
+            int(bf16), A, Bm, img, g, d_A, d_Bm, d_img, scratch, b, L, P, h, w, cp)
     warp_contract_backward.launches += 2
     return d_A, d_Bm, d_img if cp == c else d_img[..., :c].contiguous()
 
