@@ -70,7 +70,21 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     prints the share of the warp backward's taps outside their block's band
     for the indices of EF-TrajGRU's second step, and at b=2 holds one f32 SGD
     step on the card against the same step on the CPU;
-11. times each kernel at the shapes its path gives it, beside its plain
+11. drives the facade's training path: ``VPSuite()`` ->
+    ``load_dataset("MMF", digit_source="synthetic", img_size=64, ...)`` ->
+    ``create_model`` in bf16 (img_shape and the rest from the dataset) ->
+    ``train`` (b=32, 5 -> 10): EF-ConvLSTM per-step for 2 epochs of 8 steps
+    and fused for 1 epoch of 4 steps on batches made on the card
+    (``backend="device"``), and per-step for 1 epoch of 3 steps on the numpy
+    host backend, each with the launch counts set to 0 just before ``train``
+    and held exactly just after (every train step's and every validation
+    forward's); prints each epoch's frames/s, checks the losses, that
+    ``load_model`` restores the trained parameters and predicts the same
+    frames, that a host batch through ``device_prefetch`` is the loader's, and
+    the card's batch generator (speeds, start positions, values, one seed one
+    stream), and prints the device's busy share of one more device-backend
+    epoch under the profiler;
+12. times each kernel at the shapes its path gives it, beside its plain
     version, its bound and the one PyTorch call that computes the same
     function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
     forward; for K8, whose fused function no one call computes,
@@ -137,6 +151,20 @@ WANT_PREDICT_LAUNCHES = {"per_step": _launches(K1=45), "fused_scan": _launches(K
 WANT_TRAIN_LAUNCHES = {"per_step": _launches(K1=45, K2=45),
                        "fused_scan": _launches(K3s=6, K4=6),
                        "trajgru": _launches(warp_fwd=45, warp_bwd=45)}
+#: the facade's runs: ``load_dataset("MMF", ...)`` -> ``create_model`` ->
+#: ``train``, as (path, dataset backend, epochs, steps per epoch); each epoch
+#: validates on one batch of B sequences, which the host loader makes.
+SUITE_RUNS = (("per_step", "device", 2, 8), ("fused_scan", "device", 1, 4),
+              ("per_step", "numpy", 1, 3))
+
+
+def want_suite_launches(path, epochs, steps, val_batches=1):
+    r"""Launches of a ``train`` run: each train step's and each validation
+    forward's, as one predict or train step launches them."""
+    train, val = WANT_TRAIN_LAUNCHES[path], WANT_PREDICT_LAUNCHES[path]
+    return {k: epochs * (steps * train[k] + val_batches * val[k]) for k in KERNEL_IDS}
+
+
 #: no model reaches K8 or K9 (the JAX package's TrajGRU runs warp_flow_ret); their
 #: path is their entry points, ``warp_ret`` and ``warp_contract`` with their
 #: gradients, run once at each of EF-TrajGRU's three layer shapes in bf16. Each
@@ -435,6 +463,7 @@ def main():
     entry_launches = drive_entry_points(ret_inputs, contract_inputs)
     serve = drive_serving(suite, scan_launches)
     train = drive_training()
+    drive_suite_train(dev)
 
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
@@ -1185,6 +1214,124 @@ def drive_training():
     return out
 
 
+
+def drive_suite_train(dev):
+    r"""The facade's training path: ``VPSuite()`` -> ``load_dataset("MMF",
+    digit_source="synthetic", img_size=64, ...)`` -> ``create_model`` in bf16
+    (width and depth from the dataset) -> ``train`` (b=32, 5 -> 10) for each
+    of ``SUITE_RUNS``, with the launch counts set to 0 just before each
+    ``train`` and held exactly just after; prints each epoch's frames/s and
+    checks the losses, the checkpoints (``load_model`` and ``predict``), one
+    batch of the host path through ``device_prefetch`` and the card's batch
+    generator; then one more device-backend epoch under the profiler."""
+    import shutil
+    import numpy as np
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.datasets.mmnist_device import DeviceBatchIterator, render, sample
+    from vp_suite_tpu_torch.training.data import BatchLoader, device_prefetch
+    out_root = ROOT / "vp-suite-data" / "chip_smoke"
+    shutil.rmtree(out_root, ignore_errors=True)
+    frames = torch.rand((B, CTX, IMG[1], IMG[2], IMG[0]),
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    run_kw = dict(batch_size=B, context_frames=CTX, pred_frames=PRED, no_vis=True,
+                  no_wandb=True)
+    for i, (path, backend, epochs, steps) in enumerate(SUITE_RUNS):
+        name = f"{path} {backend}"
+        out = out_root / f"run{i}"
+        suite = VPSuite()
+        suite.load_dataset("MMF", digit_source="synthetic", img_size=IMG[1], backend=backend,
+                           n_seqs={"train": B * steps, "val": B, "test": B})
+        entry = suite.create_model(PATHS[path][0], compute_dtype=torch.bfloat16, seed=SEED,
+                                   **PATHS[path][1])
+        check(entry.model.img_shape == IMG, f"{name}: the model took img_shape "
+              f"{entry.model.img_shape} from the dataset, not {IMG}")
+        torch.cuda.synchronize()
+        counters = reset_counts()
+        best = suite.train(epochs=epochs, steps_per_epoch=steps, out_dir=str(out), **run_kw)
+        torch.cuda.synchronize()
+        launches, want = read_counts(counters), want_suite_launches(path, epochs, steps)
+        print(f"[suite] train {name}, {epochs} epoch(s) of {steps} steps: kernel launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        check(launches == want, f"{name}: train launched {launches}, not {want}")
+        with open(out / "metrics.jsonl") as f:
+            val = [json.loads(line)["mse"] for line in f]
+        check(len(val) == epochs and all(map(math.isfinite, val)) and math.isfinite(best),
+              f"{name}: validation losses {val}, best {best}")
+        check(entry.state.step == epochs * steps,
+              f"{name}: the state counts {entry.state.step} steps, not {epochs * steps}")
+        print(f"[suite] train {name} bf16 b={B} {CTX}->{PRED} at {IMG[1]}x{IMG[2]}: "
+              f"frames/s per epoch "
+              + ", ".join(f"{x:.1f}" for x in entry.train_epoch_fps)
+              + f" (last epoch {entry.train_epoch_fps[-1]:.1f}); validation MSE per epoch "
+              + ", ".join(f"{x:.2f}" for x in val) + f", best {best:.2f}")
+
+        # the saved model: final_model is the entry's state, and so is
+        # best_model where the last epoch was the best
+        ckpt = "best_model" if val[-1] == best else "final_model"
+        loaded = VPSuite().load_model(str(out), ckpt)
+        d = (loaded.model.state_dict(), entry.model.state_dict())
+        check(all(torch.equal(d[0][k], d[1][k]) for k in d[1]) and loaded.state.step > 0,
+              f"{name}: load_model({ckpt}) did not restore the trained parameters")
+        suite.models.append(loaded)
+        want_pred = suite.predict(frames, pred_frames=PRED, model_idx=-2)
+        got_pred = suite.predict(frames, pred_frames=PRED, model_idx=-1)
+        diff = (got_pred - want_pred).abs().max().item()
+        print(f"[suite] {name}: load_model({ckpt}) predict against the trained entry's: "
+              f"max diff {diff:.3g}")
+        check(diff == 0.0, f"{name}: the loaded model predicts other frames")
+
+        if backend == "numpy":
+            data = suite.datasets[-1].train_data
+            data.reset_rng()
+            host = next(iter(BatchLoader(data, B, uint8_frames=True, num_workers=1)))
+            data.reset_rng()
+            card = next(iter(device_prefetch(BatchLoader(data, B, uint8_frames=True,
+                                                         num_workers=1), suite.device)))
+            check(card["frames"].device == suite.device and card["frames"].dtype == torch.uint8
+                  and np.array_equal(card["frames"].cpu().numpy(), host["frames"])
+                  and np.array_equal(card["actions"].cpu().numpy(), host["actions"]),
+                  f"{name}: a batch through device_prefetch is not the loader's batch")
+            print(f"[suite] {name}: one uint8 batch {tuple(host['frames'].shape)} through "
+                  f"device_prefetch equals the loader's")
+        else:
+            epoch = B * (CTX + PRED) * steps / entry.train_epoch_fps[-1] * 1e3
+            busy = profile(f"train epoch {name} ({steps} steps, no validation)",
+                           lambda: suite.train(epochs=1, steps_per_epoch=steps, no_val=True,
+                                               out_dir=str(out), model_idx=0, **run_kw))
+            profiled = B * (CTX + PRED) * steps / entry.train_epoch_fps[-1] * 1e3
+            if busy:
+                print(f"[suite] {name}: {busy:.1f} ms of device time in an epoch of {steps} "
+                      f"steps: busy {busy / profiled:.0%} of the profiled epoch's "
+                      f"{profiled:.1f} ms; {busy / epoch:.0%} of the {epoch:.1f} ms of the "
+                      f"last epoch above, which ran without the profiler")
+
+    # the card's generator: its distributions and its determinism
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids, pos0, speed0 = sample(gen, 100, batch=4096, num_digits=2, img_size=IMG[1],
+                               digit_size=28, min_speed=2, max_speed=5)
+    speeds = set(speed0.unique().tolist())
+    positions = (pos0.min().item(), pos0.max().item())
+    templates = torch.rand((100, 28, 28), generator=torch.Generator().manual_seed(SEED))
+    batch = render(templates.to(dev), ids[:B], pos0[:B], speed0[:B], seq_len=CTX + PRED,
+                   img_size=IMG[1], num_channels=IMG[0])
+    kw = dict(batch_size=4, seq_len=CTX + PRED, img_size=IMG[1], num_channels=IMG[0],
+              num_digits=2, min_speed=2, max_speed=5, value_range=(0.0, 1.0), n_steps=2,
+              seed=SEED, device=dev)
+    bank = (templates.numpy() * 255).astype(np.uint8)
+    same = all(torch.equal(a["frames"], b["frames"])
+               for a, b in zip(DeviceBatchIterator(bank, **kw), DeviceBatchIterator(bank, **kw)))
+    print(f"[suite] card generator: speeds {sorted(speeds)}, start positions in "
+          f"[{positions[0]}, {positions[1]}], ids in [{ids.min().item()}, {ids.max().item()}], "
+          f"frames in [{batch.min().item():.3g}, {batch.max().item():.3g}], same seed same "
+          f"batches: {same}")
+    check(speeds == {-5, -4, -3, -2, 2, 3, 4, 5}, f"card generator speeds {sorted(speeds)}")
+    check(positions == (0, IMG[1] - 28 - 1), f"card generator start positions in {positions}")
+    check(ids.min().item() >= 0 and ids.max().item() < 100, "card generator template ids")
+    check(batch.min().item() >= 0.0 and batch.max().item() <= 1.0, "card generator values")
+    check(same, "the card generator gives other batches for the same seed")
+    shutil.rmtree(out_root, ignore_errors=True)
+
 def forward_ms(model, batch):
     r"""Median host time of the train step's forward and loss alone (grad mode
     on, so the forward saves what the backward needs; no backward)."""
@@ -1546,7 +1693,7 @@ def profile(name, fn, pick=()):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy:
         print(f"[profile] {name}: device time not measured (the profiler saw no CUDA kernels)")
-        return
+        return None
     print(f"[profile] {name}: {busy:.2f} ms of device time in {wall:.2f} ms under the profiler "
           f"(busy {busy / wall:.0%}), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -1556,6 +1703,7 @@ def profile(name, fn, pick=()):
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"[profile] {name}: {key} {ms:.3f} ms of the {busy:.2f} ms of device time "
               f"({ms / busy:.1%}), {sum(e.count for e in hits)} launches")
+    return busy
 
 
 if __name__ == "__main__":

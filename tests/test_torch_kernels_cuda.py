@@ -289,6 +289,38 @@ def test_sgd_step_on_the_card_matches_the_cpu(cuda, cfg):
         torch.testing.assert_close(steps["cuda"][1][k], want, rtol=5e-4, atol=5e-4, msg=k)
 
 
+
+@pytest.mark.parametrize("cfg,want", [
+    ({}, dict(K1=3 * 15, K2=15)),
+    (dict(use_fused_scan=True, interleaved_encode=False, interleaved_forecast=False),
+     dict(K3=2 * 6, K3s=6, K4=6))], ids=["per_step", "fused_scan"])
+def test_facade_train_on_the_card_launches_the_kernels(cuda, tmp_path, cfg, want):
+    r"""One device-backend ``VPSuite.train`` step (b=2, 3 -> 2 frames, so 15
+    cell steps per forward) and its validation over two batches: exactly the
+    train step's K1 + K2 (or K3s + K4) and each validation forward's K1 (or
+    K3), and no other kernel."""
+    suite = VPSuite()
+    suite.load_dataset("MMF", img_size=16, digit_source="synthetic", backend="device",
+                       n_seqs={"train": 8, "val": 4, "test": 4})
+    entry = suite.create_model("convlstm-shi", enc_c=(16, 16, 16, 32, 32, 32),
+                               dec_c=(32, 32, 32, 32, 16, 16), **cfg)
+    counters = {"K1": (convlstm_gate_fuse, "launches"), "K2": (convlstm_gate_backward, "launches"),
+                "K3": (convlstm_scan_fused, "launches"),
+                "K3s": (convlstm_scan_fused, "save_gates_launches"),
+                "K4": (convlstm_scan_backward, "launches"), "warp_fwd": (warp_sample, "launches"),
+                "warp_bwd": (warp_sample_backward, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    best = suite.train(epochs=1, batch_size=2, context_frames=3, pred_frames=2,
+                       steps_per_epoch=1, no_vis=True, no_wandb=True, out_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert {k: getattr(fn, attr) for k, (fn, attr) in counters.items()} \
+        == {k: want.get(k, 0) for k in counters}
+    assert np.isfinite(best) and entry.state.step == 1
+    loaded = VPSuite().load_model(str(tmp_path), "final_model")
+    assert all(torch.equal(a, b) for a, b in zip(loaded.model.state_dict().values(),
+                                                 entry.model.state_dict().values()))
+
 def _warp_args(rng, cuda, dtype, b=2, h=12, w=20, c=24, L=3):
     r"""Indices a few pixels off each output pixel, some out of the image;
     c=24 takes the kernel's vector path in both dtypes, c=20 (below) its

@@ -1,5 +1,7 @@
 r"""Model registry of the port (the JAX package's ids; EF-ConvLSTM and
 EF-TrajGRU are ported so far)."""
+import torch
+
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_conv_lstm import EF_ConvLSTM
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_traj_gru import EF_TrajGRU
 
@@ -8,3 +10,14 @@ MODEL_CLASSES = {
     "trajgru": EF_TrajGRU,
 }
 AVAILABLE_MODELS = MODEL_CLASSES.keys()
+
+
+def build_model(model_id: str, seed: int, device, **model_kwargs):
+    r"""The registry model ``model_id`` with parameters drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the CPU (torch's global RNG
+    is not touched), moved to ``device``, in eval mode."""
+    with torch.device("meta"):
+        model = MODEL_CLASSES[model_id](**model_kwargs)
+    model = model.to_empty(device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

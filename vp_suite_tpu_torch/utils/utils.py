@@ -1,0 +1,90 @@
+r"""Core utilities of the kwargs-based configuration system (the JAX
+package's ``utils/utils.py``, the parts that the datasets and the facade use)."""
+from datetime import datetime
+
+import torch
+
+
+class PytestExpectedException(Exception):
+    r"""Raised instead of downloading datasets when running under pytest."""
+
+
+def timestamp(program: str = "") -> str:
+    r"""Returns a timestamp string usable as a directory name."""
+    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    return f"{program}_{stamp}" if program else stamp
+
+
+def set_from_kwarg(obj, kwarg_dict: dict, attr_name: str, default=None, required: bool = False,
+                   choices=None, skip_unusable: bool = False):
+    r"""Sets ``obj.<attr_name>`` from ``kwarg_dict`` if present, type-checked
+    against the attribute's current value and validated against ``choices``."""
+    attr_val = kwarg_dict.get(attr_name, default)
+    if attr_name not in kwarg_dict:
+        if required:
+            raise ValueError(f"missing required argument: '{attr_name}'")
+        if default is None:
+            return
+    if hasattr(obj, attr_name):
+        cur = getattr(obj, attr_name)
+        if cur is not None and attr_val is not None and not isinstance(cur, type(NotImplemented)):
+            cur_t, new_t = type(cur), type(attr_val)
+            compatible = (cur_t == new_t
+                          or (cur_t in (list, tuple) and new_t in (list, tuple))
+                          or (cur_t in (int, float) and new_t in (int, float)))
+            if not compatible:
+                if skip_unusable:
+                    return
+                raise TypeError(f"mismatching types for argument '{attr_name}' "
+                                f"(expected: {cur_t}, got: {new_t})")
+    elif skip_unusable:
+        return
+    if choices is not None:
+        vals = attr_val if isinstance(attr_val, (list, tuple)) else [attr_val]
+        for v in vals:
+            if v not in choices:
+                raise ValueError(f"invalid value for argument '{attr_name}': {v} "
+                                 f"(valid choices: {choices})")
+    setattr(obj, attr_name, attr_val)
+
+
+def get_public_attrs(obj, calling_method: str = None, non_config_vars=None,
+                     model_mode: bool = False) -> dict:
+    r"""An object's public, non-constant, non-callable attributes as a flat
+    dict: skips private names, ALL-CAPS constants, properties, callables,
+    ``calling_method`` and ``non_config_vars`` (and, in ``model_mode``,
+    anything with a ``shape``)."""
+    non_config_vars = set(non_config_vars or [])
+    attrs = {}
+    cls = type(obj)
+    names = set()
+    for klass in cls.__mro__:
+        names.update(vars(klass).keys())
+    names.update(vars(obj).keys() if hasattr(obj, "__dict__") else [])
+    for name in sorted(names):
+        if name.startswith("_") or name == calling_method or name in non_config_vars:
+            continue
+        if name.isupper():
+            continue
+        if isinstance(getattr(cls, name, None), property):
+            continue
+        try:
+            val = getattr(obj, name)
+        except AttributeError:
+            continue
+        if callable(val):
+            continue
+        if model_mode and hasattr(val, "shape"):
+            continue
+        attrs[name] = val
+    return attrs
+
+
+def torch_dtype(value):
+    r"""A torch dtype from a dtype or its name (``"bfloat16"``, ``"torch.float32"``)."""
+    if isinstance(value, torch.dtype):
+        return value
+    dtype = getattr(torch, str(value).removeprefix("torch."), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown compute_dtype '{value}'")
+    return dtype

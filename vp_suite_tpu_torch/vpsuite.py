@@ -1,29 +1,62 @@
-r"""The VPSuite facade of the port: model creation and direct inference.
+r"""The VPSuite facade of the port: datasets, model creation and loading,
+training and direct inference.
 
-Same semantics as the JAX package's ``VPSuite.create_model`` and
-``VPSuite.predict``: REQUIRED_ARGS come from the keyword arguments (datasets
-are not ported yet, so none can supply them), models come from the registry,
-a single ``[t, h, w, c]`` context sequence is accepted, actions are zero-filled
-when absent, and the predictor is cached per ``(context, horizon,
-action_conditional)``. Models run on CUDA unless the caller asks for the CPU.
+The JAX package's ``VPSuite`` semantics: ``load_dataset`` wraps a registry
+dataset into train/val (or test) splits; ``create_model`` takes REQUIRED_ARGS
+missing from its keywords from the last loaded dataset; ``train`` runs the
+epochs with the JAX package's control flow (run config over the defaults,
+unknown keywords refused, strict compatibility checks, a seeded shuffling
+host loader or, for on-the-fly Moving MNIST with ``backend="device"``,
+batches made on the card, validation through the host loader,
+ReduceLROnPlateau, best and final checkpoints, ``metrics.jsonl``);
+``load_model`` rebuilds a checkpointed model; ``predict`` accepts a single
+``[t, h, w, c]`` sequence, zero-fills absent actions and caches the predictor
+per ``(context, horizon, action_conditional)``. Models run on CUDA unless the
+caller asks for the CPU.
+
+Not ported yet, and refused before any work: ``multihost``, ``fsdp``,
+``num_devices > 1``, ``ckpt_backend="orbax"``, ``profile_dir``, hyperopt
+trials and visualisation during training.
 """
+import json
+import random
+import time
 import warnings
+from copy import deepcopy
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG
-from vp_suite_tpu_torch.models import AVAILABLE_MODELS, MODEL_CLASSES
-from vp_suite_tpu_torch.training.loop import make_predict_fn
+from vp_suite_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from vp_suite_tpu_torch.datasets import DATASET_CLASSES
+from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG, SETTINGS
+from vp_suite_tpu_torch.measure import LOSS_CLASSES
+from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
+from vp_suite_tpu_torch.models import AVAILABLE_MODELS, MODEL_CLASSES, build_model
+from vp_suite_tpu_torch.training.data import BatchLoader, device_prefetch
+from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
+from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
+from vp_suite_tpu_torch.training.train_state import create_train_state
+from vp_suite_tpu_torch.utils.compatibility import (check_model_and_data_compat,
+                                                    check_run_and_model_compat)
+from vp_suite_tpu_torch.utils.dataset_wrapper import VPDatasetWrapper
+from vp_suite_tpu_torch.utils.utils import timestamp, torch_dtype
 
 
 class ModelEntry:
-    r"""A created model (an ``nn.Module`` on the suite's device) with its
-    registry id and cached predictors."""
+    r"""A created or loaded model (an ``nn.Module`` on the suite's device)
+    with its registry id, its training state (created by the first ``train``
+    or loaded with the checkpoint, then kept), the directory it is saved in
+    and its cached predictors."""
 
-    def __init__(self, model, model_id):
+    def __init__(self, model, model_id, state=None, model_dir=None):
         self.model = model
         self.model_id = model_id
+        self.state = state
+        self.model_dir = model_dir
         self.predict_fns = {}
+        self.train_epoch_fps = []   #: frames/s of each epoch of the last ``train``
 
     @property
     def NAME(self):
@@ -50,19 +83,66 @@ class VPSuite:
             raise ValueError(f"VPSuite runs on 'cuda' or 'cpu', not '{device}'")
         self.device = device
         self.clear_models()
+        self.clear_datasets()
+
+    # ------------------------------------------------------------------ #
+    # datasets and models
+    @property
+    def training_sets(self):
+        return [d for d in self.datasets if d.is_training_set]
+
+    @property
+    def test_sets(self):
+        return [d for d in self.datasets if d.is_test_set]
+
+    def clear_datasets(self):
+        self.datasets = []
 
     def clear_models(self):
         self.models = []
+
+    def load_dataset(self, dataset_id: str, split: str = "train", **dataset_kwargs):
+        r"""Loads a registry dataset (its train and val splits, or its test
+        split) and appends it to the suite's datasets; ``context_frames``,
+        ``pred_frames`` and ``seq_step`` among the keywords set its sequence
+        length."""
+        dataset_class = DATASET_CLASSES[dataset_id]
+        seq_kwargs = {k: dataset_kwargs.pop(k) for k in
+                      ["context_frames", "pred_frames", "seq_step"] if k in dataset_kwargs}
+        dataset = VPDatasetWrapper(dataset_class, split, **dataset_kwargs)
+        print(f"loaded dataset '{dataset.NAME}' (action size: {dataset.action_size})")
+        if seq_kwargs:
+            dataset.set_seq_len(
+                seq_kwargs.get("context_frames", DEFAULT_RUN_CONFIG["context_frames"]),
+                seq_kwargs.get("pred_frames", DEFAULT_RUN_CONFIG["pred_frames"]),
+                seq_kwargs.get("seq_step", DEFAULT_RUN_CONFIG["seq_step"]))
+        self.datasets.append(dataset)
+        return dataset
+
+    def list_available_datasets(self):
+        for dataset_id, dataset_class in DATASET_CLASSES.items():
+            print(f"'{dataset_id}': {dataset_class.NAME}")
 
     def list_available_models(self):
         for model_id, model_class in MODEL_CLASSES.items():
             print(f"'{model_id}': {model_class.NAME}")
 
+    def load_model(self, model_dir: str, ckpt_name: str = "best_model"):
+        r"""Rebuilds a checkpointed model (``model_dir/ckpt_name``, as
+        ``train`` saves them) on the suite's device, with its training state;
+        appends it to the suite's models and returns its :class:`ModelEntry`."""
+        ckpt_dir = Path(model_dir) / ckpt_name if ckpt_name else Path(model_dir)
+        model, state, model_id = load_checkpoint(ckpt_dir, self.device)
+        entry = ModelEntry(model.eval(), model_id, state=state, model_dir=str(model_dir))
+        self._model_setup(entry, loaded=True)
+        return entry
+
     def create_model(self, model_id: str, action_conditional: bool = False,
                      seed: int = None, **model_kwargs):
-        r"""Creates a registry model with parameters drawn from a
-        ``torch.Generator`` seeded with ``seed`` (default 42) on the CPU, then
-        moved to the suite's device; returns its :class:`ModelEntry`."""
+        r"""Creates a registry model, taking REQUIRED_ARGS missing from
+        ``model_kwargs`` from the last loaded dataset, with parameters drawn
+        from a ``torch.Generator`` seeded with ``seed`` (default 42) on the
+        CPU, then moved to the suite's device; returns its :class:`ModelEntry`."""
         if model_id not in AVAILABLE_MODELS:
             raise ValueError(f"invalid model type specified! "
                              f"Available model types: {list(AVAILABLE_MODELS)}")
@@ -71,7 +151,14 @@ class VPSuite:
             if param not in model_kwargs:
                 print(f"model parameter '{param}' not specified "
                       f"-> trying to take from last loaded dataset...")
-                raise ValueError(f"no dataset loaded to take parameter '{param}' from")
+                if len(self.datasets) < 1:
+                    raise ValueError(f"no dataset loaded to take parameter '{param}' from")
+                param_val = self.datasets[-1].config.get(param, None)
+                if param_val is None:
+                    raise ValueError(f"dataset '{self.datasets[-1].NAME}' doesn't provide "
+                                     f"parameter '{param}', so it has to be specified "
+                                     f"on model creation")
+                model_kwargs[param] = param_val
         if action_conditional and not model_class.CAN_HANDLE_ACTIONS:
             warnings.warn("specified model can't handle actions "
                           "-> argument 'action_conditional' set to False")
@@ -81,20 +168,232 @@ class VPSuite:
             if isinstance(v, list):
                 model_kwargs[k] = tuple(v)
 
-        # build without drawing from torch's global RNG, then draw from the seed
-        with torch.device("meta"):
-            model = model_class(**model_kwargs)
-        model = model.to_empty(device="cpu")
         seed = DEFAULT_RUN_CONFIG["seed"] if seed is None else seed
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        model = model.to(self.device).eval()
-        entry = ModelEntry(model, model_id)
-        print(f"created new model '{entry.NAME}' "
-              f"{'(action-conditional)' if action_conditional else ''}")
-        print(f" - Model parameters (total): {sum(p.numel() for p in model.parameters())}")
-        self.models.append(entry)
+        entry = ModelEntry(build_model(model_id, seed, self.device, **model_kwargs), model_id)
+        self._model_setup(entry)
         return entry
 
+    def _model_setup(self, entry: ModelEntry, loaded: bool = False):
+        ac_str = "(action-conditional)" if entry.config["action_conditional"] else ""
+        print(f"{'loaded' if loaded else 'created new'} model '{entry.NAME}' {ac_str}")
+        print(f" - Model parameters (total): {sum(p.numel() for p in entry.model.parameters())}")
+        self.models.append(entry)
+
+    # ------------------------------------------------------------------ #
+    # run preparation
+    def _prepare_run(self, split: str = "train", **run_kwargs):
+        if len(self.models) == 0:
+            raise RuntimeError("No model available. Load a pretrained model or create a "
+                               "new instance before starting training or test runs")
+        if split == "train" and len(self.training_sets) == 0:
+            raise ValueError("No training sets loaded. Load a dataset in training mode "
+                             "before starting training or test runs")
+        elif split == "test" and len(self.test_sets) == 0:
+            raise ValueError("No test sets loaded. Load a dataset in test mode "
+                             "before starting training or test runs")
+        run_config = deepcopy(DEFAULT_RUN_CONFIG)
+        unknown = [k for k in run_kwargs if k not in run_config]
+        if unknown:
+            raise ValueError(f"Only the following run arguments are supported: "
+                             f"{list(run_config.keys())} (got unknown: {unknown})")
+        run_config.update(run_kwargs)
+        _refuse_unported(run_config)
+        self._set_seeds(run_config["seed"])
+        run_config["opt_direction"] = "maximize" \
+            if LOSS_CLASSES[run_config["val_rec_criterion"]].BIGGER_IS_BETTER else "minimize"
+        run_config["device"] = str(self.device)
+        return run_config
+
+    def _set_seeds(self, seed: int):
+        r"""The single seeding site: Python's and numpy's global RNGs, and a
+        root ``torch.Generator`` from which randomness of the suite's own is
+        drawn (torch's global RNG is left alone)."""
+        random.seed(seed)
+        np.random.seed(seed)
+        self._root_rng = torch.Generator().manual_seed(seed)
+
+    def reset_rng(self, seed: int):
+        self._set_seeds(seed)
+        for dataset in self.datasets:
+            dataset.reset_rng()
+
+    # ------------------------------------------------------------------ #
+    # training
+    def _prepare_training(self, dataset_idx: int, model_idx: int, **run_kwargs):
+        run_config = self._prepare_run("train", **run_kwargs)
+        try:
+            dataset = self.training_sets[dataset_idx]
+            entry = self.models[model_idx]
+        except IndexError:
+            raise ValueError("given indices for model and/or dataset are invalid")
+        dataset.set_seq_len(run_config["context_frames"], run_config["pred_frames"],
+                            run_config["seq_step"])
+        if not dataset.is_ready():
+            raise RuntimeError("dataset is not ready even though set_seq_len was called")
+        check_run_and_model_compat(entry.model, run_config)
+        check_model_and_data_compat(entry.model, dataset, strict_mode=True)
+        return entry, dataset, run_config
+
+    def train(self, trial=None, dataset_idx: int = -1, model_idx: int = -1, **run_kwargs):
+        r"""Trains a loaded model on a loaded training set; returns the best
+        validation indicator. Frames per second of each epoch's training
+        loop (steps x batch x frames over its wall time) are kept in the
+        entry's ``train_epoch_fps``."""
+        if trial is not None:
+            raise NotImplementedError("hyperopt trials are not ported yet")
+        entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
+                                                            **run_kwargs)
+        model = entry.model
+
+        # the run's compute dtype re-casts the model's activations (the
+        # parameters stay f32, so the training state stays valid)
+        run_dtype = run_config.get("compute_dtype")
+        if run_dtype and model.TRAINABLE:
+            dtype = torch_dtype(run_dtype)
+            if dtype != model.compute_dtype:
+                model.compute_dtype = dtype
+                print(f"run compute_dtype={str(dtype).removeprefix('torch.')}: "
+                      f"the model runs its activations in it")
+        train_data, val_data = dataset.train_data, dataset.val_data
+        batch_size = run_config["batch_size"]
+
+        if run_config["out_dir"] is None and entry.model_dir is not None:
+            print(f"Using existing model save location ({entry.model_dir})...")
+            out_path = Path(entry.model_dir)
+        else:
+            out_path = Path(run_config["out_dir"] or SETTINGS.OUT_PATH / timestamp("train"))
+            out_path.mkdir(parents=True, exist_ok=True)
+            entry.model_dir = str(out_path.resolve())
+
+        with_training = model.TRAINABLE and not run_config["no_train"]
+        with_validation = not run_config["no_val"]
+
+        config = {**run_config, **model.config, **dataset.config,
+                  "model_name": model.NAME, "dataset_name": dataset.NAME}
+        save_config = {"run": run_config, "model": model.config,
+                       "dataset": dataset.config, "device": str(self.device)}
+        with open(out_path / "run_cfg.json", "w") as cfg_file:
+            json.dump(save_config, cfg_file, indent=4, default=str)
+        logger = _RunLogger(out_path, config, run_config["no_wandb"], project="vp-suite-training")
+
+        if run_config["accum_steps"] > 1 and batch_size % run_config["accum_steps"] != 0:
+            raise ValueError(f"batch {batch_size} not divisible by "
+                             f"accum_steps {run_config['accum_steps']}")
+
+        if entry.state is None:
+            entry.state = create_train_state(model, lr=run_config["lr"], seed=run_config["seed"])
+        state = set_learning_rate(entry.state, run_config["lr"])
+
+        def save(path):
+            save_checkpoint(path, state, entry.model_id, model.config, run_config)
+
+        loss_provider = PredictionLossProvider(config)
+        if config["val_rec_criterion"] not in config["losses_and_scales"]:
+            raise ValueError(f"Validation criterion '{config['val_rec_criterion']}' has "
+                             f"to be one of the chosen losses: "
+                             f"{list(config['losses_and_scales'].keys())}")
+        train_step = make_train_step(model, run_config, loss_provider,
+                                     accum_steps=run_config["accum_steps"])
+        eval_step = make_eval_step(model, run_config, loss_provider)
+
+        # uint8 host-to-device copies are exact up to 1/510 for [0, 1] data
+        uint8_ok = [float(v) for v in dataset.config["tensor_value_range"]] == [0.0, 1.0]
+        if len(train_data) < batch_size:
+            raise ValueError(
+                f"training set has {len(train_data)} sequences but batch_size is {batch_size}: "
+                f"with drop_last no batch would ever be formed — lower batch_size or provide "
+                f"more data")
+        train_loader = BatchLoader(train_data, batch_size, shuffle=True, seed=run_config["seed"],
+                                   drop_last=True, uint8_frames=uint8_ok)
+        val_bs = run_config.get("val_batch_size", 0) or batch_size
+        val_bs = max(1, min(val_bs, len(val_data)))
+        val_loader = BatchLoader(val_data, batch_size=val_bs, shuffle=False, drop_last=True,
+                                 uint8_frames=uint8_ok)
+
+        scheduler = ReduceLROnPlateau(
+            run_config["lr"], mode="max" if run_config["opt_direction"] == "maximize" else "min")
+        best_val_loss = float("-inf") if run_config["opt_direction"] == "maximize" \
+            else float("inf")
+
+        def loss_improved(cur, best):
+            return cur > best if run_config["opt_direction"] == "maximize" else cur < best
+
+        steps_cap = run_config.get("steps_per_epoch", 0)
+        # the device backend makes each training batch on the card from a
+        # seeded generator; validation still goes through the host loader
+        use_device_gen = (getattr(train_data, "backend", None) == "device"
+                          and hasattr(train_data, "device_batch_iterator"))
+        training_timeout = time.time() + config["max_training_hours"] * 3600
+        entry.train_epoch_fps = []
+        for epoch in range(run_config["epochs"]):
+            print(f"\nEpoch: {epoch + 1} of {config['epochs']}")
+
+            if with_training:
+                t0 = time.time()
+                n_steps = 0
+                if use_device_gen:
+                    batches = train_data.device_batch_iterator(
+                        batch_size, steps_cap or len(train_loader),
+                        seed=run_config["seed"] * 9973 + epoch, device=self.device)
+                else:
+                    batches = device_prefetch(train_loader, self.device,
+                                              depth=run_config["prefetch_batches"])
+                for device_batch in batches:
+                    state, metrics = train_step(state, device_batch, epoch)
+                    n_steps += 1
+                    if n_steps % run_config["log_every"] == 0:
+                        print(f"  step {n_steps}: "
+                              f"{ {k: float(v) for k, v in metrics.items()} }")
+                    if steps_cap and n_steps >= steps_cap:
+                        break
+                if n_steps:
+                    float(metrics["total"])   # waits for the device
+                dt = time.time() - t0
+                frames_seen = n_steps * batch_size * (run_config["context_frames"]
+                                                      + run_config["pred_frames"])
+                entry.train_epoch_fps.append(frames_seen / max(dt, 1e-9))
+                print(f"  trained {n_steps} steps in {dt:.1f}s "
+                      f"({entry.train_epoch_fps[-1]:.1f} frames/s)")
+            else:
+                print("Skipping training loop.")
+
+            val_losses = {}
+            if with_validation:
+                agg = [eval_step(state, batch)
+                       for batch in device_prefetch(val_loader, self.device, depth=1)]
+                if not agg:
+                    raise RuntimeError("validation set is empty")
+                val_losses = {k: float(np.mean([float(a[k]) for a in agg]))
+                              for k in agg[0].keys()}
+                indicator_loss = val_losses[run_config["val_rec_criterion"]]
+                if with_training:
+                    state = set_learning_rate(state, scheduler.step(indicator_loss))
+                print("Validation losses (mean over entire validation set):")
+                for k, v in val_losses.items():
+                    print(f" - {k}: {v}")
+                if loss_improved(indicator_loss, best_val_loss):
+                    best_val_loss = indicator_loss
+                    save(out_path / "best_model")
+                    print(f"Minimum indicator loss ({config['val_rec_criterion']}) "
+                          f"reduced -> model saved!")
+            else:
+                print("Skipping validation loop and simply saving current model "
+                      "as the 'best' model.")
+                save(out_path / "best_model")
+
+            logger.log_epoch(epoch, val_losses)
+            if time.time() > training_timeout:
+                print("Maximum training time exceeded, leaving training loop...")
+                break
+
+        print("\nTraining done, cleaning up...")
+        entry.state = state
+        save(out_path / "final_model")
+        logger.finish()
+        return best_val_loss
+
+    # ------------------------------------------------------------------ #
+    # inference
     def predict(self, frames, actions=None, pred_frames: int = None, model_idx: int = -1):
         r"""Direct inference: context ``frames`` ``[b, t, h, w, c]`` (or one
         ``[t, h, w, c]`` sequence) in the model's value range ->
@@ -137,3 +436,47 @@ class VPSuite:
                         "use_actions": model.action_conditional})
         preds, _ = entry.predict_fns[key]({"frames": frames, "actions": actions})
         return preds[0] if squeeze else preds
+
+
+def _refuse_unported(run_config):
+    r"""Raises ``NotImplementedError`` for run options that are not ported yet."""
+    unported = {
+        "multihost": run_config["multihost"],
+        "fsdp": run_config["fsdp"],
+        "num_devices > 1": run_config["num_devices"] > 1,
+        "ckpt_backend='orbax'": run_config["ckpt_backend"] == "orbax",
+        "profile_dir": run_config["profile_dir"] is not None,
+        "visualisation (no_vis=False with vis_every <= epochs)":
+            not run_config["no_vis"] and run_config["vis_every"] <= run_config["epochs"],
+    }
+    named = [name for name, asked in unported.items() if asked]
+    if named:
+        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+
+
+class _RunLogger:
+    r"""Metric sink: ``metrics.jsonl`` (and the console) always, wandb when
+    it is importable and not turned off."""
+
+    def __init__(self, out_path, config, no_wandb, project):
+        self.jsonl_fp = Path(out_path) / "metrics.jsonl"
+        self.wandb = None
+        if not no_wandb:
+            try:
+                import wandb
+                wandb.init(config={k: str(v) for k, v in config.items()},
+                           project=project, dir=str(SETTINGS.RUN_PATH))
+                self.wandb = wandb
+            except Exception as e:   # logging is optional: train on without it
+                print(f"wandb logging is off ({type(e).__name__}: {e})")
+
+    def log_epoch(self, epoch, val_losses):
+        rec = {"epoch": epoch, **{k: float(v) for k, v in val_losses.items()}}
+        with open(self.jsonl_fp, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if self.wandb is not None:
+            self.wandb.log(val_losses)
+
+    def finish(self):
+        if self.wandb is not None:
+            self.wandb.finish()
