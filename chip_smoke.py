@@ -84,7 +84,20 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     the card's batch generator (speeds, start positions, values, one seed one
     stream), and prints the device's busy share of one more device-backend
     epoch under the profiler;
-12. times each kernel at the shapes its path gives it, beside its plain
+12. drives the facade's test path, each path in a suite of its own:
+    ``VPSuite()`` -> ``load_model`` (the best checkpoint of step 11's
+    device-backend runs, per-step and fused) -> ``load_dataset("MMF",
+    split="test", img_size=64, digit_source="synthetic")`` ->
+    ``test(brief_test=True, 5 -> 10, metrics="all")`` with PyTorch's default
+    TF32 flags (cuDNN's on: the measures must turn it off themselves), with
+    the launch counts set to 0 just before ``test`` and held exactly just
+    after (each of the 10 test batches' K1 or K3; CopyLastFrame launches
+    none); checks every horizon's measures (FVD from 9 frames on), the
+    CopyLastFrame rows against a recomputation from the same batches, and
+    every measure on the card against the CPU on one (pred, target) pair of
+    the run; prints each ``test`` call's wall time and the device time of
+    LPIPS, FVD (I3D) and SSIM on one batch under the profiler;
+13. times each kernel at the shapes its path gives it, beside its plain
     version, its bound and the one PyTorch call that computes the same
     function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
     forward; for K8, whose fused function no one call computes,
@@ -164,6 +177,13 @@ def want_suite_launches(path, epochs, steps, val_batches=1):
     train, val = WANT_TRAIN_LAUNCHES[path], WANT_PREDICT_LAUNCHES[path]
     return {k: epochs * (steps * train[k] + val_batches * val[k]) for k in KERNEL_IDS}
 
+
+#: the facade's test path: a brief test (the first 10 of the test set's
+#: sequences, one a batch) of each path's trained checkpoint, and CopyLastFrame.
+TEST_SEQS = 16
+TEST_BATCHES = 10
+WANT_TEST_LAUNCHES = {path: {k: TEST_BATCHES * v for k, v in WANT_PREDICT_LAUNCHES[path].items()}
+                      for path in ("per_step", "fused_scan")}
 
 #: no model reaches K8 or K9 (the JAX package's TrajGRU runs warp_flow_ret); their
 #: path is their entry points, ``warp_ret`` and ``warp_contract`` with their
@@ -257,6 +277,18 @@ PREDICT_ATOL_BF16 = 5e-2
 #: one f32 SGD step on the card against the CPU, as (p0 - p1) / lr: the
 #: JAX package's tolerance for gradients through 15 steps and 3 layers.
 STEP_TOL = 5e-4
+#: the measures' display values on the card against the CPU in f32, relative:
+#: the same f32 formulas, sums in another order (SSIM's Gaussian window is made
+#: on the host, so both blur with the same weights). LPIPS and FVD sum
+#: convolutions of up to 7*7*7*3 taps through 5 and 22 layers: measured on an
+#: H100 0 and 2.0e-6 on these predictions, and 1.0e-5 and 2.2e-4 with TF32 let
+#: into their convolutions (the phase prints both), which these limits refuse.
+MEASURE_RTOL = {"mse": 1e-5, "l1": 1e-5, "smooth_l1": 1e-5, "psnr": 1e-5, "ssim": 1e-5,
+                "lpips": 2e-6, "fvd": 2e-5}
+#: CopyLastFrame's test results against their recomputation from the same
+#: batches: means over the batches in another order (f64 on the host, or the
+#: same measures on the same device).
+COPY_RTOL = 1e-5
 
 
 def fail(msg):
@@ -463,7 +495,7 @@ def main():
     entry_launches = drive_entry_points(ret_inputs, contract_inputs)
     serve = drive_serving(suite, scan_launches)
     train = drive_training()
-    drive_suite_train(dev)
+    drive_suite_test(drive_suite_train(dev))
 
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
@@ -1223,7 +1255,9 @@ def drive_suite_train(dev):
     ``train`` and held exactly just after; prints each epoch's frames/s and
     checks the losses, the checkpoints (``load_model`` and ``predict``), one
     batch of the host path through ``device_prefetch`` and the card's batch
-    generator; then one more device-backend epoch under the profiler."""
+    generator; then one more device-backend epoch under the profiler.
+    Returns the run directories of the first device-backend run of each
+    path, for :func:`drive_suite_test`, which deletes them."""
     import shutil
     import numpy as np
     import torch
@@ -1236,9 +1270,12 @@ def drive_suite_train(dev):
                         generator=torch.Generator().manual_seed(SEED + 2))
     run_kw = dict(batch_size=B, context_frames=CTX, pred_frames=PRED, no_vis=True,
                   no_wandb=True)
+    run_dirs = {}
     for i, (path, backend, epochs, steps) in enumerate(SUITE_RUNS):
         name = f"{path} {backend}"
         out = out_root / f"run{i}"
+        if backend == "device":
+            run_dirs.setdefault(path, out)
         suite = VPSuite()
         suite.load_dataset("MMF", digit_source="synthetic", img_size=IMG[1], backend=backend,
                            n_seqs={"train": B * steps, "val": B, "test": B})
@@ -1330,7 +1367,168 @@ def drive_suite_train(dev):
     check(ids.min().item() >= 0 and ids.max().item() < 100, "card generator template ids")
     check(batch.min().item() >= 0.0 and batch.max().item() <= 1.0, "card generator values")
     check(same, "the card generator gives other batches for the same seed")
+    return run_dirs
+
+
+def drive_suite_test(run_dirs):
+    r"""The facade's test path on each path's checkpoint (``run_dirs``, from
+    :func:`drive_suite_train`), each in a suite of its own, with PyTorch's
+    default TF32 flags; deletes the runs at the end."""
+    import shutil
+    import numpy as np
+    import torch
+    import vp_suite_tpu_torch.vpsuite as port_vpsuite
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.defaults import SETTINGS
+    from vp_suite_tpu_torch.measure import METRIC_CLASSES
+    from vp_suite_tpu_torch.measure.metric_provider import PredictionMetricProvider
+    from vp_suite_tpu_torch.training.data import BatchLoader
+    t_phase = time.time()
+    out_root = ROOT / "vp-suite-data" / "chip_smoke"
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    smoke_flags, smoke_run_path = (cudnn.allow_tf32, matmul.allow_tf32), SETTINGS._run_path
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False     # PyTorch's defaults
+    test_kw = dict(brief_test=True, context_frames=CTX, pred_frames=PRED, metrics="all",
+                   no_vis=True, no_wandb=True)
+    first_pair = None
+    for path, run_dir in run_dirs.items():
+        suite = VPSuite()
+        entry = suite.load_model(str(run_dir), "best_model")
+        check(entry.model.compute_dtype == torch.bfloat16 and entry.model.img_shape == IMG,
+              f"{path}: load_model gave a {entry.model.compute_dtype} model of "
+              f"{entry.model.img_shape}")
+        suite.load_dataset("MMF", split="test", img_size=IMG[1], digit_source="synthetic",
+                           n_seqs=TEST_SEQS)
+        SETTINGS._run_path = run_dir / "test_runs"
+        batches = []
+
+        class RecordingLoader(BatchLoader):   # the test's batches, in the order consumed
+            def __iter__(self):
+                for batch in super().__iter__():
+                    batches.append(batch)
+                    yield batch
+
+        port_vpsuite.BatchLoader = RecordingLoader
+        pairs = []
+        get_metrics = PredictionMetricProvider.get_metrics
+
+        def recording(self, pred, target, **kw):
+            pairs.append((pred, target))
+            return get_metrics(self, pred, target, **kw)
+
+        PredictionMetricProvider.get_metrics = recording
+        try:
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            t0 = time.perf_counter()
+            (results,) = suite.test(**test_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts(counters)
+        finally:
+            port_vpsuite.BatchLoader = BatchLoader
+            PredictionMetricProvider.get_metrics = get_metrics
+        print(f"[suite] test {path}: kernel launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        check(launches == WANT_TEST_LAUNCHES[path],
+              f"{path}: test launched {launches}, not {WANT_TEST_LAUNCHES[path]}")
+        check(cudnn.allow_tf32 and not matmul.allow_tf32,
+              f"{path}: test left the TF32 flags at {cudnn.allow_tf32}, {matmul.allow_tf32}")
+        print(f"[suite] test {path} bf16 {CTX}->{PRED} at {IMG[1]}x{IMG[2]}, metrics='all', "
+              f"{TEST_BATCHES} batches of 1 for {len(results)} models: {wall:.2f} s "
+              f"({wall / TEST_BATCHES * 1e3:.1f} ms per batch, both models and all measures)")
+
+        # every horizon's measures, FVD from 9 frames on
+        check(list(results) == [entry.NAME, "CopyLastFrame"],
+              f"{path}: test results for {list(results)}")
+        every = [f"{k} ({'↑' if METRIC_CLASSES[k].BIGGER_IS_BETTER else '↓'})"
+                 for k in METRIC_CLASSES if k != "fvd"]
+        for name, horizons in results.items():
+            check(len(horizons) == PRED, f"{path}: {name} has {len(horizons)} horizons")
+            for h, d in enumerate(horizons, 1):
+                want_keys = every + (["fvd (↓)"] if h >= 9 else [])
+                check(list(d) == want_keys and all(map(math.isfinite, d.values())),
+                      f"{path}: {name} at horizon {h}: {d}")
+            print(f"[suite] test {path}: {name} at horizons 1 / 5 / 10: "
+                  + " / ".join(", ".join(f"{k.split()[0]} {v:.4g}" for k, v in horizons[h].items())
+                               for h in (0, 4, 9)))
+
+        # CopyLastFrame's rows against the same batches: mse and psnr in f64 on
+        # the host, every measure through a new provider on the card
+        frames = [torch.from_numpy(b["frames"]) for b in batches[:TEST_BATCHES]]
+        check(len(pairs) == 2 * TEST_BATCHES and all(
+            torch.equal(t.cpu(), f[:, CTX:CTX + PRED]) for (_, t), f in
+            zip(pairs[1::2], frames)), f"{path}: the recorded batches are not the test's")
+        ctx_last = [f[:, CTX - 1:CTX].double() for f in frames]
+        err = [(f[:, CTX:CTX + PRED].double() - c) ** 2 for f, c in zip(frames, ctx_last)]
+        mse = np.mean([e.sum(dim=(2, 3, 4))[0].cumsum(0).numpy() / np.arange(1, PRED + 1)
+                       for e in err], axis=0)
+        psnr = np.mean([(-10 * torch.log10(e.mean(dim=(2, 3, 4))[0])).cumsum(0).numpy()
+                        / np.arange(1, PRED + 1) for e in err], axis=0)
+        provider = PredictionMetricProvider({"metrics": "all", "img_c": IMG[0]})
+        again = [provider.get_metrics(c.float().repeat(1, PRED, 1, 1, 1).to(suite.device),
+                                      f[:, CTX:CTX + PRED].to(suite.device), all_frame_cnts=True)
+                 for f, c in zip(frames, ctx_last)]
+        worst = 0.0
+        for h, d in enumerate(results["CopyLastFrame"]):
+            want = {k: np.mean([a[h][k] for a in again]) for k in d}
+            for k, v in d.items():
+                own = (lambda x: 1.0 - x) if k.startswith("ssim") else (lambda x: x)
+                worst = max(worst, abs(own(v) - own(want[k])) / abs(own(want[k])))
+            worst = max(worst, abs(d["mse (↓)"] - mse[h]) / mse[h],
+                        abs(d["psnr (↑)"] - psnr[h]) / psnr[h])
+        print(f"[suite] test {path}: CopyLastFrame against its recomputation from the same "
+              f"{TEST_BATCHES} batches (mse and psnr in f64 on the host, every measure by a new "
+              f"provider on the card): largest relative difference {worst:.3g}")
+        check(worst <= COPY_RTOL, f"{path}: CopyLastFrame's results differ from their "
+              f"recomputation by {worst:.3g}")
+        if first_pair is None:
+            first_pair = tuple(torch.cat([pairs[i][j] for i in (0, 2)]) for j in (0, 1))
+            lpips, fvd, ssim = (METRIC_CLASSES[k]() for k in ("lpips", "fvd", "ssim"))
+            pred, target = pairs[0]
+            for name, fn in (("LPIPS per_frame", lambda: lpips.per_frame(pred, target)),
+                             ("FVD at 10 frames (I3D twice)", lambda: float(fvd(pred, target))),
+                             ("SSIM per_frame", lambda: ssim.per_frame(pred, target))):
+                fn()
+                profile(f"test metrics of one batch ({path}, b=1, {PRED} frames): {name}", fn)
+
+    # every measure on the card against the CPU, on b=2 of the per-step model's
+    # (pred, target) pairs, in f32, with PyTorch's default TF32 flags
+    pred, target = first_pair
+    check(pred.dtype == torch.float32 and tuple(pred.shape) == (2, PRED, IMG[1], IMG[2], IMG[0]),
+          f"test predictions are {pred.dtype} {tuple(pred.shape)}")
+    def display_err(name, want):
+        measure = METRIC_CLASSES[name]()
+        got = float(measure.to_display(float(measure(pred, target))))
+        return abs(got - want) / abs(want)
+
+    wants = {name: float(cls.to_display(float(cls()(pred.cpu(), target.cpu()))))
+             for name, cls in METRIC_CLASSES.items()}
+    errs = {name: display_err(name, want) for name, want in wants.items()}
+    print("[suite] the measures on the card against the CPU (relative, of the display values), "
+          "b=2 of the test's predictions, TF32 flags at PyTorch's defaults: "
+          + ", ".join(f"{k} {v:.3g} (limit {MEASURE_RTOL[k]:g})" for k, v in errs.items()))
+    check(all(v <= MEASURE_RTOL[k] for k, v in errs.items()),
+          "a measure on the card disagrees with the CPU")
+    # what the check would see if TF32 reached the measures' convolutions: their
+    # guard made a no-op for LPIPS and FVD
+    from vp_suite_tpu_torch.measure import image_wise, lpips_net
+    from vp_suite_tpu_torch.measure.fvd import fvd, i3d
+    guarded = (image_wise, lpips_net, fvd, i3d)
+    guards = [m.full_precision for m in guarded]
+    for m in guarded:
+        m.full_precision = contextlib.nullcontext
+    try:
+        leaks = {name: display_err(name, wants[name]) for name in ("lpips", "fvd")}
+    finally:
+        for m, guard in zip(guarded, guards):
+            m.full_precision = guard
+    print("[suite] the same with TF32 in the measures' cuDNN convolutions (their guard off, "
+          "for reference): " + ", ".join(f"{k} {v:.3g}" for k, v in leaks.items()))
+    cudnn.allow_tf32, matmul.allow_tf32 = smoke_flags
+    SETTINGS._run_path = smoke_run_path
     shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[suite] the test phase took {time.time() - t_phase:.1f} s")
 
 def forward_ms(model, batch):
     r"""Median host time of the train step's forward and loss alone (grad mode

@@ -24,6 +24,11 @@ and the factor contraction (K9), relative to the largest of each kind: f32
 1e-5 (K8) and 5e-5 (K9), sums in another order; bf16 2^-6, since both sides
 round each result once and a sum taken in another order flips some roundings
 (and K9's kernel rounds the factor product, as the TPU kernel does).
+
+The measures run with PyTorch's default TF32 flags (cuDNN's on), which they
+turn off around their own convolutions and matmuls: MSE, L1, SmoothL1, PSNR
+and SSIM within 1e-5 relative of the CPU (the same f32 formulas, sums in
+another order), LPIPS and FVD within MEASURE_RTOL.
 """
 import numpy as np
 import pytest
@@ -36,7 +41,9 @@ from vp_suite_tpu_torch.ops.convlstm import (convlstm_scan_backward,
                                              convlstm_scan_backward_reference, convlstm_scan_forward,
                                              convlstm_scan_forward_reference, convlstm_scan_fused,
                                              convlstm_scan_reference)
+from vp_suite_tpu_torch.defaults import SETTINGS
 from vp_suite_tpu_torch.kernels import build, k8_variants, k9_variants, warp_fwd_variants
+from vp_suite_tpu_torch.measure import METRIC_CLASSES
 from vp_suite_tpu_torch.kernels.warp_bwd_variants import geometry, out_of_band_share
 from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices, _onehot_factor, grid_sample
 from vp_suite_tpu_torch.ops.warp import (warp_contract, warp_contract_backward,
@@ -59,6 +66,19 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture()
+def cuda_default_tf32():
+    r"""The card, with PyTorch's default TF32 flags (cuDNN's on, cuBLAS's
+    off) while the test runs; the flags are restored after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    yield torch.device("cuda")
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def _randn(rng, *shape, scale=1.0):
@@ -721,3 +741,88 @@ def test_factor_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32 indices"):
         warp_ret_forward(iy.double(), iy.double(), torch.zeros(1, 2, 2, 8, device=cuda),
                          torch.zeros(2, 8, 24, device=cuda), torch.zeros(24, device=cuda))
+
+
+#: the measures' display values on the card against the CPU, relative: the
+#: same f32 formulas; LPIPS and FVD sum convolutions of up to 7*7*7*3 taps in
+#: another order, through 5 and 22 layers. With TF32 let into those
+#: convolutions they must exceed these limits
+#: (``test_measure_limits_see_tf32_in_the_convolutions``).
+MEASURE_RTOL = {"mse": 1e-5, "l1": 1e-5, "smooth_l1": 1e-5, "psnr": 1e-5, "ssim": 1e-5,
+                "lpips": 1e-5, "fvd": 1e-4}
+
+
+@pytest.mark.parametrize("name", list(MEASURE_RTOL))
+def test_measures_on_the_card_match_the_cpu(cuda_default_tf32, name):
+    r"""Each measure's ``forward`` (and ``per_frame``), as displayed, on the
+    card against the CPU at 64x64 (FVD at 10 frames, resized to 224x224), on
+    a target and a prediction near it, with PyTorch's default TF32 flags,
+    which the measures leave as they found them."""
+    pred, target = _measure_pair(10 if name == "fvd" else 3)
+    measure = METRIC_CLASSES[name]()
+    want = measure.to_display(measure(pred, target))
+    got = measure(pred.to(cuda_default_tf32), target.to(cuda_default_tf32))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_allclose(float(measure.to_display(got)), float(want), rtol=MEASURE_RTOL[name])
+    if name != "fvd":
+        got_pf = measure.per_frame(pred.to(cuda_default_tf32), target.to(cuda_default_tf32))
+        want_pf = measure.per_frame(pred, target)
+        torch.testing.assert_close(measure.to_display(got_pf).cpu(), measure.to_display(want_pf),
+                                   rtol=MEASURE_RTOL[name], atol=0)
+    assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+def _measure_pair(t):
+    rng = np.random.default_rng(0)
+    target = rng.random((2, t, 64, 64, 3)).astype(np.float32)
+    pred = np.clip(target + 0.1 * rng.standard_normal(target.shape), 0, 1).astype(np.float32)
+    return torch.from_numpy(pred), torch.from_numpy(target)
+
+
+@pytest.mark.parametrize("name", ["lpips", "fvd"])
+def test_measure_limits_see_tf32_in_the_convolutions(cuda_default_tf32, monkeypatch, name):
+    r"""With the measures' TF32 guard made a no-op, cuDNN's default TF32
+    reaches LPIPS's and I3D's convolutions, and the card's value leaves
+    MEASURE_RTOL of the CPU's: the limits can see that fault."""
+    import contextlib
+    from vp_suite_tpu_torch.measure import image_wise, lpips_net
+    from vp_suite_tpu_torch.measure.fvd import fvd, i3d
+    pred, target = _measure_pair(10 if name == "fvd" else 3)
+    measure = METRIC_CLASSES[name]()
+    want = float(measure(pred, target))
+    for module in (image_wise, lpips_net, fvd, i3d):
+        monkeypatch.setattr(module, "full_precision", contextlib.nullcontext)
+    got = float(measure(pred.to(cuda_default_tf32), target.to(cuda_default_tf32)))
+    assert abs(got - want) > MEASURE_RTOL[name] * abs(want)
+
+
+@pytest.mark.parametrize("cfg,want", [
+    ({}, dict(K1=4 * 15)),
+    (dict(use_fused_scan=True, interleaved_encode=False, interleaved_forecast=False),
+     dict(K3=4 * 6))], ids=["per_step", "fused_scan"])
+def test_facade_test_on_the_card_launches_the_kernels(cuda_default_tf32, monkeypatch, tmp_path,
+                                                       cfg, want):
+    r"""One ``VPSuite.test`` over 4 test sequences (3 -> 2 frames, so 15 cell
+    steps per forward): exactly each batch's K1 (or K3), and no other kernel;
+    every horizon's metrics finite, for the model and CopyLastFrame."""
+    monkeypatch.setattr(SETTINGS, "_run_path", tmp_path)
+    suite = VPSuite()
+    suite.load_dataset("MMF", split="test", img_size=16, digit_source="synthetic", n_seqs=4)
+    suite.create_model("convlstm-shi", enc_c=(16, 16, 16, 32, 32, 32),
+                       dec_c=(32, 32, 32, 32, 16, 16), **cfg)
+    counters = {"K1": (convlstm_gate_fuse, "launches"), "K2": (convlstm_gate_backward, "launches"),
+                "K3": (convlstm_scan_fused, "launches"),
+                "K3s": (convlstm_scan_fused, "save_gates_launches"),
+                "K4": (convlstm_scan_backward, "launches"), "warp_fwd": (warp_sample, "launches"),
+                "warp_bwd": (warp_sample_backward, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    (results,) = suite.test(brief_test=True, context_frames=3, pred_frames=2,
+                            metrics=["mse", "psnr", "ssim", "lpips"], no_vis=True, no_wandb=True)
+    torch.cuda.synchronize()
+    assert {k: getattr(fn, attr) for k, (fn, attr) in counters.items()} \
+        == {k: want.get(k, 0) for k in counters}
+    assert list(results) == ["EF-ConvLSTM (Shi et al.)", "CopyLastFrame"]
+    for horizons in results.values():
+        assert len(horizons) == 2
+        assert all(len(d) == 4 and all(np.isfinite(v) for v in d.values()) for d in horizons)

@@ -223,7 +223,7 @@ def test_eval_step_matches_jax(jax_init):
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("name", sorted(LOSS_CLASSES))
+@pytest.mark.parametrize("name", ["l1", "mse", "smooth_l1"])
 def test_losses_match_jax(name):
     rng = np.random.default_rng(4)
     pred, target = (rng.standard_normal((2, 3, 4, 5, 3)).astype(np.float32) for _ in range(2))

@@ -113,6 +113,12 @@ class VPModel(nn.Module):
             input_frames = frames[:, :t_in]
         return input_frames, frames[:, t_in:total], actions
 
+    def pred_1(self, x, **kwargs):
+        r"""Predicts one future frame ``[b, h, w, c]`` from the context
+        ``[b, t, h, w, c]``."""
+        preds, _ = self(x, pred_frames=1, **kwargs)
+        return preds[:, 0]
+
     def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False, **kwargs):
         r"""Full rollout: ``[b, t, h, w, c] -> ([b, p, h, w, c], aux_losses)``."""
         raise NotImplementedError

@@ -4,7 +4,8 @@ schedules, with the configuration that rebuilds the model.
 A checkpoint directory holds
 - ``checkpoint.pt``: ``torch.save`` of ``{"model": state_dict, "optimizer":
   the optimizer's state_dict (its moments and learning rate), "optimizer_name",
-  "step", "model_state"}``;
+  "step", "model_state"}`` (``optimizer`` and ``optimizer_name`` are None
+  for a model with nothing to train);
 - ``model_config.json``: ``{"model_id", "model_config"}``, from which the
   registry rebuilds the model;
 - ``run_cfg.json``: the run configuration, where one is given.
@@ -44,9 +45,10 @@ def save_checkpoint(ckpt_dir, state, model_id: str, model_config: dict, run_conf
     and the model's registry id and configuration into ``ckpt_dir``."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
+    opt = state.optimizer
     torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "optimizer_name": type(state.optimizer).__name__.lower(),
+                "optimizer": opt.state_dict() if opt is not None else None,
+                "optimizer_name": type(opt).__name__.lower() if opt is not None else None,
                 "step": state.step,
                 "model_state": state.model_state}, ckpt_dir / CHECKPOINT_FILE)
     with open(ckpt_dir / "model_config.json", "w") as f:
@@ -85,8 +87,9 @@ def load_checkpoint(ckpt_dir, device="cpu"):
     model = model_from_config(cfg["model_id"], cfg["model_config"], device)
     ckpt = torch.load(ckpt_dir / CHECKPOINT_FILE, map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"])
-    state = create_train_state(model, optimizer=ckpt["optimizer_name"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state = create_train_state(model, optimizer=ckpt["optimizer_name"] or "adam")
+    if ckpt["optimizer"] is not None:
+        state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = ckpt["step"]
     state.model_state = ckpt["model_state"]
     return model, state, cfg["model_id"]

@@ -1,11 +1,13 @@
-r"""Model registry of the port (the JAX package's ids; EF-ConvLSTM and
-EF-TrajGRU are ported so far)."""
+r"""Model registry of the port (the JAX package's ids; EF-ConvLSTM,
+EF-TrajGRU and the CopyLastFrame baseline are ported so far)."""
 import torch
 
+from vp_suite_tpu_torch.models.copy_last_frame import CopyLastFrame
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_conv_lstm import EF_ConvLSTM
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_traj_gru import EF_TrajGRU
 
 MODEL_CLASSES = {
+    "copy": CopyLastFrame,
     "convlstm-shi": EF_ConvLSTM,
     "trajgru": EF_TrajGRU,
 }

@@ -123,10 +123,12 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None):
     return eval_step
 
 
-def make_predict_fn(model: VPModel, run_config: dict):
+def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None):
     r"""Builds the inference function ``batch -> (preds, targets)`` for
     ``run_config``'s context and horizon. It runs under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``. ``pre`` maps the inputs into the model's
+    value range and size and ``post`` maps the predictions back (the
+    adapters of ``check_model_and_data_compat``; identity when None)."""
     cfg = {"context_frames": run_config["context_frames"],
            "pred_frames": run_config["pred_frames"]}
 
@@ -135,8 +137,12 @@ def make_predict_fn(model: VPModel, run_config: dict):
             batch, cfg, needs_complete_input=model.NEEDS_COMPLETE_INPUT)
         kw = {"actions": actions} if model.CAN_HANDLE_ACTIONS else {}
         with torch.inference_mode():
+            if pre is not None:
+                inputs = pre(inputs)
             preds, _ = _apply_model(model, inputs, pred_frames=cfg["pred_frames"],
                                     train=False, **kw)
+            if post is not None:
+                preds = post(preds)
         return preds, targets
 
     return predict

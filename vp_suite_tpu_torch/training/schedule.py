@@ -32,8 +32,8 @@ class ReduceLROnPlateau:
 
 
 def set_learning_rate(state, lr):
-    r"""Writes ``lr`` into every parameter group of the state's optimizer;
-    returns the state."""
-    for group in state.optimizer.param_groups:
+    r"""Writes ``lr`` into every parameter group of the state's optimizer
+    (a state without one is left as it is); returns the state."""
+    for group in state.optimizer.param_groups if state.optimizer is not None else ():
         group["lr"] = lr
     return state

@@ -8,6 +8,9 @@ optimizer (``torch.optim.Adam`` by default, with ``optax.adam``'s defaults,
 betas 0.9/0.999 and eps 1e-8, and the same update formula), the optimizer
 step count, the functional training schedules (``model_state``) and an
 explicit ``torch.Generator`` in place of the PRNG key, for regimes that draw.
+A model with nothing to train (``TRAINABLE = False``, or no parameter that
+requires grad) gets no optimizer, as the JAX package gives it no optimizer
+state.
 """
 import dataclasses
 
@@ -24,7 +27,7 @@ OPTIMIZERS = {
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer                           #: None: nothing to train
     step: int = 0                                              #: optimizer steps taken
     model_state: dict = dataclasses.field(default_factory=dict)  #: training schedules
     generator: torch.Generator = None                         #: randomness of the regimes that draw
@@ -34,11 +37,13 @@ def create_train_state(model, lr: float = None, seed: int = None, optimizer: str
     r"""The training state of ``model`` (whose parameters are already
     initialised): ``optimizer`` is ``"adam"`` or ``"sgd"`` (plain SGD, with
     which one step shows the gradients); ``lr`` and ``seed`` default to the
-    run defaults. The generator lies on the model's device."""
+    run defaults. The generator lies on the model's device. A model with
+    nothing to train gets ``optimizer=None``."""
     lr = DEFAULT_RUN_CONFIG["lr"] if lr is None else lr
     seed = DEFAULT_RUN_CONFIG["seed"] if seed is None else seed
     make = OPTIMIZERS[optimizer]
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device if params else torch.device("cpu")
-    return TrainState(model=model, optimizer=make(params, lr),
+    trainable = getattr(model, "TRAINABLE", True) and params
+    return TrainState(model=model, optimizer=make(params, lr) if trainable else None,
                       generator=torch.Generator(device=device).manual_seed(seed))

@@ -1,14 +1,13 @@
 r"""Model/dataset/run compatibility checks and adapters (the JAX package's
 ``utils/compatibility.py``).
 
-A value-range difference between a model and a dataset is bridged by
-pre/post adapters over ``[b, t, h, w, c]`` tensors; strict mode, which
-``VPSuite.train`` uses, raises instead. An image-size difference outside
-strict mode needs a resize adapter, which comes with ``VPSuite.test`` and
-raises until then.
+A value-range or image-size difference between a model and a dataset is
+bridged by pre/post adapters over ``[b, t, h, w, c]`` tensors (``VPSuite.test``
+uses them); strict mode, which ``VPSuite.train`` uses, raises instead.
 """
 import warnings
 
+from vp_suite_tpu_torch.ops.image import resize_bilinear
 from vp_suite_tpu_torch.utils.models import ScaleToModel, ScaleToTest
 
 
@@ -28,9 +27,13 @@ class AdapterChain:
 
 
 class ResizeAdapter:
+    r"""Resizes frames to ``size`` (h, w), bilinearly."""
+
     def __init__(self, size):
-        raise NotImplementedError(f"resizing to {size} between a model and a dataset is not "
-                                  f"ported yet (it comes with VPSuite.test)")
+        self.size = size
+
+    def __call__(self, x):
+        return resize_bilinear(x, self.size)
 
 
 def check_model_and_data_compat(model, dataset, strict_mode=False):

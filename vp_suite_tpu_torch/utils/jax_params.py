@@ -1,5 +1,7 @@
-r"""Carries Encoder-Forecaster weights (EF-ConvLSTM and EF-TrajGRU) from the
-JAX package's parameter tree into the port's model.
+r"""Carries parameters from the JAX package's layouts into the port's: the
+Encoder-Forecaster weights (EF-ConvLSTM and EF-TrajGRU) into the port's
+model, and the measure nets' flat dicts (LPIPS, I3D) into the port's
+parameter dicts.
 
 The JAX tree (``{"enc_rnn1": {...}, "enc_stage1": {layer: {"kernel",
 "bias"}}, ..., "dec_rnn1", ...}``, nested dicts of arrays) maps onto the
@@ -11,7 +13,8 @@ ConvLSTM block's ``{"conv_kernel", "conv_bias", "wci", "wcf", "wco"}`` become
 ``{name}_kernel``/``{name}_bias`` for ``name`` in ``i2h``, ``i2f_conv1``,
 ``h2f_conv1``, ``flows_conv`` and ``ret`` become ``{name}.weight``/``.bias``.
 Layouts: conv ``[kh, kw, in, out] -> [out, in, kh, kw]``, convT ``[kh, kw,
-in, out] -> [in, out, kh, kw]``, peephole ``[h, w, c] -> [1, c, h, w]``.
+in, out] -> [in, out, kh, kw]``, peephole ``[h, w, c] -> [1, c, h, w]``, 3-D
+conv ``[kt, kh, kw, in, out] -> [out, in, kt, kh, kw]``.
 """
 import numpy as np
 import torch
@@ -72,3 +75,22 @@ def load_jax_params(model, params):
     key on both sides must match); the model keeps its device and dtype."""
     model.load_state_dict(ef_state_dict_from_jax(params), strict=True)
     return model
+
+
+def _kernels_from_jax(params, axes):
+    return {k: _tensor(v, axes if k.endswith("_kernel") else None) for k, v in params.items()}
+
+
+def lpips_params_from_jax(params) -> dict:
+    r"""The port's LPIPS parameters (f32 CPU tensors, same keys) from the JAX
+    package's dict: ``conv{i}_kernel`` HWIO -> OIHW; ``conv{i}_bias`` and
+    the linear heads ``lin{i}`` as they are."""
+    return _kernels_from_jax(params, (3, 2, 0, 1))
+
+
+def i3d_params_from_jax(params) -> dict:
+    r"""The port's I3D parameters (f32 CPU tensors, same keys) from the JAX
+    package's dict: every ``*_kernel`` DHWIO -> OIDHW; biases and the
+    BatchNorm vectors (``*_bn_mean``, ``_bn_var``, ``_bn_scale``,
+    ``_bn_bias``) as they are."""
+    return _kernels_from_jax(params, (4, 3, 0, 1, 2))

@@ -1,5 +1,5 @@
 r"""The VPSuite facade of the port: datasets, model creation and loading,
-training and direct inference.
+training, testing and direct inference.
 
 The JAX package's ``VPSuite`` semantics: ``load_dataset`` wraps a registry
 dataset into train/val (or test) splits; ``create_model`` takes REQUIRED_ARGS
@@ -9,15 +9,19 @@ unknown keywords refused, strict compatibility checks, a seeded shuffling
 host loader or, for on-the-fly Moving MNIST with ``backend="device"``,
 batches made on the card, validation through the host loader,
 ReduceLROnPlateau, best and final checkpoints, ``metrics.jsonl``);
-``load_model`` rebuilds a checkpointed model; ``predict`` accepts a single
+``load_model`` rebuilds a checkpointed model; ``test`` runs every loaded
+model and the CopyLastFrame baseline over each test set, batch by batch, and
+reports every measure for each prediction horizon (``test_metrics.jsonl``
+and ``test_metrics.json``); ``predict`` accepts a single
 ``[t, h, w, c]`` sequence, zero-fills absent actions and caches the predictor
 per ``(context, horizon, action_conditional)``. Models run on CUDA unless the
 caller asks for the CPU.
 
 Not ported yet, and refused before any work: ``multihost``, ``fsdp``,
 ``num_devices > 1``, ``ckpt_backend="orbax"``, ``profile_dir``, hyperopt
-trials and visualisation during training.
+trials, and visualisation during training and testing.
 """
+import itertools
 import json
 import random
 import time
@@ -33,12 +37,13 @@ from vp_suite_tpu_torch.datasets import DATASET_CLASSES
 from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG, SETTINGS
 from vp_suite_tpu_torch.measure import LOSS_CLASSES
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
+from vp_suite_tpu_torch.measure.metric_provider import PredictionMetricProvider
 from vp_suite_tpu_torch.models import AVAILABLE_MODELS, MODEL_CLASSES, build_model
 from vp_suite_tpu_torch.training.data import BatchLoader, device_prefetch
 from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
 from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
 from vp_suite_tpu_torch.training.train_state import create_train_state
-from vp_suite_tpu_torch.utils.compatibility import (check_model_and_data_compat,
+from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
                                                     check_run_and_model_compat)
 from vp_suite_tpu_torch.utils.dataset_wrapper import VPDatasetWrapper
 from vp_suite_tpu_torch.utils.utils import timestamp, torch_dtype
@@ -197,7 +202,7 @@ class VPSuite:
             raise ValueError(f"Only the following run arguments are supported: "
                              f"{list(run_config.keys())} (got unknown: {unknown})")
         run_config.update(run_kwargs)
-        _refuse_unported(run_config)
+        _refuse_unported(run_config, split)
         self._set_seeds(run_config["seed"])
         run_config["opt_direction"] = "maximize" \
             if LOSS_CLASSES[run_config["val_rec_criterion"]].BIGGER_IS_BETTER else "minimize"
@@ -393,6 +398,107 @@ class VPSuite:
         return best_val_loss
 
     # ------------------------------------------------------------------ #
+    # testing
+    def _prepare_testing(self, **run_kwargs):
+        r"""The run configuration, and for each test set the models to test
+        on it, as ``(entry, pre, post, metrics per batch)``: each loaded
+        model that is compatible with the run and the data, then a
+        CopyLastFrame baseline."""
+        run_config = self._prepare_run("test", **run_kwargs)
+        for test_set in self.test_sets:
+            test_set.set_seq_len(run_config["context_frames"], run_config["pred_frames"],
+                                 run_config["seq_step"])
+            if not test_set.is_ready():
+                raise RuntimeError("test set is not ready even though set_seq_len was called")
+
+        test_entries = []
+        for entry in self.models:
+            try:
+                check_run_and_model_compat(entry.model, run_config)
+                test_entries.append(entry)
+            except ValueError as e:
+                print(f"skipping test of model '{entry.NAME}' because of incompatibility "
+                      f"with run config: {e}")
+
+        model_lists = []
+        for test_set in self.test_sets:
+            model_list = []
+            for entry in test_entries:
+                try:
+                    pre, post = check_model_and_data_compat(entry.model, test_set)
+                    model_list.append((entry, pre, post, []))
+                except ValueError as e:
+                    print(f"skipping test of model '{entry.NAME}' on dataset "
+                          f"'{test_set.NAME}' because of incompatibility: {e}")
+            clf = build_model("copy", 0, self.device, img_shape=tuple(test_set.config["img_shape"]),
+                              action_size=0,
+                              tensor_value_range=tuple(test_set.config["tensor_value_range"]))
+            clf_entry = ModelEntry(clf, "copy", state=create_train_state(clf))
+            model_list.append((clf_entry, AdapterChain(), AdapterChain(), []))
+            model_lists.append(model_list)
+        return list(zip(self.test_sets, model_lists)), run_config
+
+    def _test_on_dataset(self, model_info_list, dataset, run_config, brief_test):
+        r"""Runs each model over the test set's first batches (one sequence
+        each, in order: at most 10 for a brief test, else all of them) and
+        returns ``{model NAME: [metrics of horizon 1, ..., of pred_frames]}``,
+        each the mean over the batches."""
+        test_data = dataset.test_data
+        test_loader = BatchLoader(test_data, batch_size=1, shuffle=False)
+        if len(test_loader) < 1:
+            raise RuntimeError("loaded dataset does not contain any data (len < 1)")
+        test_mode = "brief" if brief_test else "full"
+        eval_length = min(len(test_loader), 10) if brief_test else len(test_loader)
+
+        config = {**run_config, **dataset.config, "dataset_name": dataset.NAME}
+        cfg = {"context_frames": config["context_frames"], "pred_frames": config["pred_frames"]}
+        metric_provider = PredictionMetricProvider(config)
+        predictors = [make_predict_fn(entry.model, cfg, pre=pre, post=post)
+                      for (entry, pre, post, _) in model_info_list]
+
+        batches = iter(test_loader)
+        for batch in itertools.islice(batches, eval_length):
+            device_batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()
+                            if isinstance(v, np.ndarray)}
+            for (entry, _, _, metrics_list), predict in zip(model_info_list, predictors):
+                preds, targets = predict(device_batch)
+                metrics_list.append(metric_provider.get_metrics(preds, targets,
+                                                                all_frame_cnts=True))
+        batches.close()
+
+        out_dir = SETTINGS.OUT_PATH / timestamp("test")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        results = {}
+        if eval_length > 0:
+            logger = _TestLogger(out_dir, test_mode, no_wandb=config["no_wandb"])
+            for (entry, _, _, metrics_list) in model_info_list:
+                # each horizon keeps its own keys: FVD has values from 9 frames on
+                mean_metric_dicts = [
+                    {mk: float(np.mean([per_batch[f][mk] for per_batch in metrics_list]))
+                     for mk in metrics_list[0][f]}
+                    for f in range(len(metrics_list[0]))
+                ]
+                results[entry.NAME] = mean_metric_dicts
+                logger.log_model(entry.NAME, entry.model_dir, mean_metric_dicts)
+            logger.finish()
+            with open(out_dir / "test_metrics.json", "w") as f:
+                json.dump(results, f, indent=2)
+        return results
+
+    def test(self, brief_test=False, **run_kwargs):
+        r"""Tests every loaded model, and a CopyLastFrame baseline, on every
+        loaded test set: the measures of ``run_kwargs["metrics"]`` (a list of
+        names, or ``"all"``) for each prediction horizon 1..``pred_frames``,
+        averaged over the test batches (the first 10 with ``brief_test``).
+        Returns one ``{model NAME: [dict per horizon]}`` per test set; models
+        of the same NAME share one entry, the last one tested. The results
+        are also written to ``test_metrics.jsonl`` and ``test_metrics.json``
+        in a new directory under ``SETTINGS.OUT_PATH``."""
+        test_sets_and_model_lists, run_config = self._prepare_testing(**run_kwargs)
+        return [self._test_on_dataset(model_info_list, test_set, run_config, brief_test)
+                for test_set, model_info_list in test_sets_and_model_lists]
+
+    # ------------------------------------------------------------------ #
     # inference
     def predict(self, frames, actions=None, pred_frames: int = None, model_idx: int = -1):
         r"""Direct inference: context ``frames`` ``[b, t, h, w, c]`` (or one
@@ -438,16 +544,19 @@ class VPSuite:
         return preds[0] if squeeze else preds
 
 
-def _refuse_unported(run_config):
-    r"""Raises ``NotImplementedError`` for run options that are not ported yet."""
+def _refuse_unported(run_config, split="train"):
+    r"""Raises ``NotImplementedError`` for run options that are not ported yet;
+    ``split`` is ``"train"`` or ``"test"``, whose visualisation runs whenever
+    ``no_vis`` is False."""
+    vis = not run_config["no_vis"] and (split == "test"
+                                        or run_config["vis_every"] <= run_config["epochs"])
     unported = {
         "multihost": run_config["multihost"],
         "fsdp": run_config["fsdp"],
         "num_devices > 1": run_config["num_devices"] > 1,
         "ckpt_backend='orbax'": run_config["ckpt_backend"] == "orbax",
         "profile_dir": run_config["profile_dir"] is not None,
-        "visualisation (no_vis=False with vis_every <= epochs)":
-            not run_config["no_vis"] and run_config["vis_every"] <= run_config["epochs"],
+        "visualisation (no_vis=False)": vis,
     }
     named = [name for name, asked in unported.items() if asked]
     if named:
@@ -476,6 +585,56 @@ class _RunLogger:
             f.write(json.dumps(rec) + "\n")
         if self.wandb is not None:
             self.wandb.log(val_losses)
+
+    def finish(self):
+        if self.wandb is not None:
+            self.wandb.finish()
+
+
+class _TestLogger:
+    r"""Test-run metric sink: ``test_metrics.jsonl`` (one record per model
+    and horizon) and the console always; with wandb importable and not
+    turned off, one wandb run per tested model in the project
+    'vp-suite-testing'."""
+
+    PROJECT = "vp-suite-testing"
+
+    def __init__(self, out_dir, test_mode, no_wandb=False):
+        self.jsonl_fp = Path(out_dir) / "test_metrics.jsonl"
+        self.test_mode = test_mode
+        self.wandb = None
+        self._n_logged = 0
+        if not no_wandb:
+            try:
+                import wandb
+                self.wandb = wandb
+            except ImportError as e:   # logging is optional: test on without it
+                print(f"wandb logging is off ({e})")
+
+    def log_model(self, model_name, model_dir, mean_metric_dicts):
+        with open(self.jsonl_fp, "a") as f:
+            for fi, mmd in enumerate(mean_metric_dicts):
+                f.write(json.dumps({"model": model_name, "model_dir": str(model_dir),
+                                    "test_mode": self.test_mode,
+                                    "pred_frames": fi + 1, **mmd}) + "\n")
+        print(f"\n{model_name} (path: {model_dir}): ")
+        for fi, mmd in enumerate(mean_metric_dicts):
+            print(f"pred_frames: {fi + 1}")
+            for k, v in mmd.items():
+                print(f" -> {k}: {v}")
+        if self.wandb is not None:
+            try:
+                self.wandb.init(
+                    config={"test_mode": self.test_mode, "model_dir": str(model_dir)},
+                    project=self.PROJECT, name=f"{model_name} ({self.test_mode} test)",
+                    dir=str(SETTINGS.RUN_PATH), reinit=(self._n_logged > 0))
+                for fi, mmd in enumerate(mean_metric_dicts):
+                    self.wandb.log({"pred_frames": fi + 1, **mmd})
+            except Exception as e:   # logging is optional: the JSONL record stands
+                print(f"wandb test logging failed ({type(e).__name__}: {e}); "
+                      f"continuing with JSONL only")
+                self.wandb = None
+        self._n_logged += 1
 
     def finish(self):
         if self.wandb is not None:
