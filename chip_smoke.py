@@ -108,6 +108,22 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     EF-TrajGRU's ``predict`` and the warp forward's and backward's in its
     train step under the profiler.
 
+14. drives UNet-3D (``create_model("unet-3d", temporal_dim=3)``, features
+    8/16/32/64) and PredRNN++ (``"predrnn-pp"``: 3 ST-LSTM layers of 128,
+    4x4 patches, 5x5 filters, ``reverse_input``, so a train step runs 2b=64)
+    at b=32, 64x64, 5 -> 10, bf16, under PyTorch's default TF32 flags (a
+    user's): ``predict`` and the Adam train step with every kernel's launch
+    count set to 0 just before and held at 0 just after (neither model
+    reaches a port kernel), their latencies (median of 3 predicts, of 5
+    steps after 2) and one profiled call of each; the loss falls over 7
+    steps and PredRNN++'s schedule is exactly the one 7 steps leave; at b=2
+    in f32 (TF32 off), ``predict`` and one SGD step on the card against the
+    CPU, with UNet-3D's running statistics and PredRNN++'s schedule; then
+    one facade run per model
+    (``load_dataset("MMF")`` -> ``create_model`` -> ``train`` of 2 steps on
+    the card's batches -> ``load_model``, whose ``predict`` must equal the
+    trained entry's).
+
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
 """
@@ -464,6 +480,7 @@ def main():
     t_start = time.time()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    tf32_defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = nvidia_smi()
@@ -500,6 +517,7 @@ def main():
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
     time_paths(serve, train)
+    drive_new_models(dev, tf32_defaults)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
           f"K9) one call at each of the three layer shapes, in bf16, on {card}")
@@ -1529,6 +1547,248 @@ def drive_suite_test(run_dirs):
     SETTINGS._run_path = smoke_run_path
     shutil.rmtree(out_root, ignore_errors=True)
     print(f"[suite] the test phase took {time.time() - t_phase:.1f} s")
+
+#: the models of slice 14, at bench width: name -> (registry id, configuration).
+#: Neither reaches a port kernel: their convolutions go to cuDNN, as the JAX
+#: package leaves them to XLA.
+NEW_MODELS = {"unet3d": ("unet-3d", dict(temporal_dim=3, features=(8, 16, 32, 64))),
+              "predrnn": ("predrnn-pp", {})}
+#: steps of each new model's facade run (one epoch on the card's batches)
+NEW_SUITE_STEPS = 2
+#: UNet-3D's BatchNorm running statistics after one f32 SGD step, card against
+#: CPU: means and variances of the same f32 values summed in another order.
+STATS_ATOL = 1e-5
+#: the f32 SGD step of the new models, card against CPU, as (p0 - p1) / lr,
+#: relative to the largest of each tensor (absolute below 1): the summed MSE
+#: gives gradients of order 100, whose f32 sums in another order leave errors
+#: of order 1e-3 on their small elements; a conv bias before a BatchNorm has a
+#: gradient of 0 that both sides compute as f32 noise.
+NEW_STEP_REL = STEP_TOL
+#: frames predicted in that step, where not PRED: UNet-3D's rollout in train
+#: mode feeds each prediction back through BatchNorms that normalize by the
+#: batch's own statistics, which amplifies f32 rounding step by step, so that
+#: at 5 -> 10 two f32 runs part by some 2.5-13 of the largest (p0 - p1) / lr,
+#: the CPU against itself at another thread count or against f64 as much as
+#: the card against the CPU (``python3 -m
+#: vp_suite_tpu_torch.kernels.unet3d_variants`` prints them), while at 5 -> 1
+#: every pair holds 5e-4; its eval-mode predict holds over 10.
+NEW_STEP_PRED = {"unet3d": 1}
+
+
+def _new_model(suite, name, **kw):
+    model_id, cfg = NEW_MODELS[name]
+    return suite.create_model(model_id, img_shape=IMG, action_size=0,
+                              tensor_value_range=(0.0, 1.0), seed=SEED, **{**cfg, **kw})
+
+
+def _median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e3, times
+
+
+def _time_step(step, state, batch, n=5, warmup=2):
+    r"""Median host time of ``n`` train steps after ``warmup``, each ended by
+    a read of the loss; returns (ms, losses, times)."""
+    losses = []
+
+    def one():
+        losses.append(float(step(state, batch)[1]["total"]))   # waits for the card
+    for _ in range(warmup):
+        one()
+    ms, times = _median_ms(one, n)
+    return ms, losses, times
+
+
+def _zero_launches(name, what, counters):
+    import torch
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    print(f"[{name}] kernel launches in {what}: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(launches == _launches(), f"{name}: {what} launched port kernels: {launches}")
+
+
+def _time_new_model(name, frames, batch, run_config):
+    r"""One new model at bench width in bf16: ``predict`` and the Adam train
+    step, each launch count held at 0, their latencies and profiles, the loss
+    falling over 7 steps and the schedule after them; returns
+    ``{"predict_ms", "step_ms"}``."""
+    import numpy as np
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    suite = VPSuite()
+    model = _new_model(suite, name, compute_dtype=torch.bfloat16).model
+    counters = reset_counts()
+    preds = suite.predict(frames[:, :CTX], pred_frames=PRED)
+    _zero_launches(name, "one predict", counters)
+    check(tuple(preds.shape) == (B, PRED, IMG[1], IMG[2], IMG[0])
+          and preds.dtype == torch.float32 and bool(torch.isfinite(preds).all()),
+          f"{name}: predict gave {tuple(preds.shape)} {preds.dtype}, or non-finite values")
+    pred_ms, pred_times = _median_ms(
+        lambda: (suite.predict(frames[:, :CTX], pred_frames=PRED), torch.cuda.synchronize()),
+        3)
+    print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64: median {pred_ms:.2f} ms "
+          f"(runs {', '.join(f'{t * 1e3:.2f}' for t in pred_times)}), "
+          f"{B * PRED / pred_ms * 1e3:.0f} frames/s")
+    profile(f"predict {name}", lambda: suite.predict(frames[:, :CTX], pred_frames=PRED))
+
+    state = create_train_state(model, lr=LR, seed=SEED)
+    step = make_train_step(model, run_config)
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    _, metrics = step(state, batch)
+    _zero_launches(name, "one train step", counters)
+    losses = [float(metrics["total"])]
+    for pname, p in model.named_parameters():
+        check(p.grad is not None and p.grad.dtype == torch.float32
+              and bool(torch.isfinite(p.grad).all()),
+              f"{name}: parameter {pname} has no finite f32 gradient after a step")
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    step_ms, more, times = _time_step(step, state, batch, n=5, warmup=1)
+    losses += more
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{name}: the loss did not fall over 7 Adam steps: {losses}")
+    want_state = model.init_model_state()
+    if want_state:     # 7 steps, two mask draws a step (reverse_input), f32 decays
+        eta = np.float32(want_state["sampling_eta"])
+        for _ in range(2 * 7):
+            eta = np.float32(eta - np.float32(model.sampling_changing_rate))
+        want_state = {"training_iteration": 8, "sampling_eta": float(eta)}
+    check(state.step == 7 and state.model_state == want_state,
+          f"{name}: after 7 steps the state counts {state.step} steps and holds "
+          f"{state.model_state}, not {want_state}")
+    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, Adam lr {LR}: losses "
+          + ", ".join(f"{x:.2f}" for x in losses)
+          + f"; median step {step_ms:.2f} ms (steps "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times) + ")"
+          f", {B * (CTX + PRED) / step_ms * 1e3:.0f} frames/s, peak memory {peak:.2f} GiB "
+          f"above what was live before; model_state {state.model_state}")
+    profile(f"train step {name}", lambda: float(step(state, batch)[1]["total"]))
+    return dict(predict_ms=pred_ms, step_ms=step_ms)
+
+
+@contextlib.contextmanager
+def tf32_flags(cudnn, matmul):
+    r"""cuDNN's and cuBLAS's TF32 flags set to ``cudnn`` and ``matmul`` inside the block."""
+    import torch
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def drive_new_models(dev, tf32_defaults):
+    r"""UNet-3D and PredRNN++ at bench width (b=32, 64x64 RGB, 5 -> 10, bf16
+    over f32 parameters, random weights from the seed): ``predict`` and the
+    Adam train step with every kernel's launch count set to 0 just before and
+    held at 0 just after, their latencies and one profiled call each, under
+    PyTorch's default TF32 flags ``tf32_defaults``; the card against the CPU
+    in f32 at b=2 with TF32 off (``predict``, one SGD step, UNet-3D's running
+    statistics, PredRNN++'s schedule); and one short facade run per model
+    (``load_dataset`` -> ``create_model`` -> ``train`` -> ``load_model``)."""
+    import shutil
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t_phase = time.time()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), generator=gen)
+    batch = {"frames": frames.to(dev)}
+    run_config = {"context_frames": CTX, "pred_frames": PRED}
+    out = {}
+    with tf32_flags(*tf32_defaults):
+        for name in NEW_MODELS:
+            out[name] = _time_new_model(name, frames, batch, run_config)
+
+    # f32 at b=2 on the card (TF32 off) against the CPU: predict and one SGD step
+    lr = 1e-2
+    small = frames[:2]
+    results = {}
+    for device, kw in (("cuda", dict(compute_dtype=torch.float32)), ("cpu", {})):
+        suite = VPSuite(device=device)
+        for name in NEW_MODELS:
+            # PredRNN++ from sampling_stop_iter on: all-zero masks, so that the
+            # card's and the CPU's generators draw alike
+            extra = dict(sampling_stop_iter=0) if name == "predrnn" else {}
+            model = _new_model(suite, name, **kw, **extra).model
+            pred = suite.predict(small[:, :CTX], pred_frames=PRED, model_idx=-1).cpu()
+            p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+            state = create_train_state(model, lr=lr, optimizer="sgd")
+            step_config = {**run_config, "pred_frames": NEW_STEP_PRED.get(name, PRED)}
+            _, metrics = make_train_step(model, step_config)(state,
+                                                             {"frames": small.to(suite.device)})
+            stats = {k: v.detach().cpu().clone() for k, v in model.named_buffers()
+                     if k.endswith(("running_mean", "running_var"))}
+            results[(name, device)] = (pred, float(metrics["total"]),
+                                       {k: ((p0[k] - v.detach()) / lr).cpu()
+                                        for k, v in model.named_parameters()},
+                                       stats, state.model_state)
+    for name in NEW_MODELS:
+        card, host = results[(name, "cuda")], results[(name, "cpu")]
+        d_pred = (card[0] - host[0]).abs().max().item()
+        worst, worst_name = 0.0, ""
+        for k, want in host[2].items():
+            rel = (card[2][k] - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+            if rel > worst or not worst_name:
+                worst, worst_name = rel, k
+        d_stats = max([(card[3][k] - v).abs().max().item() for k, v in host[3].items()] or [0.0])
+        d_loss = abs(card[1] - host[1])
+        ok = (d_pred <= PREDICT_ATOL_F32 and worst <= NEW_STEP_REL
+              and d_loss <= 1e-4 * abs(host[1]) and d_stats <= STATS_ATOL
+              and card[4] == host[4])
+        print(f"[train] {name} f32 b=2, card against CPU: predict max diff {d_pred:.3g} "
+              f"(atol {PREDICT_ATOL_F32}); SGD step ({CTX}->{NEW_STEP_PRED.get(name, PRED)}) "
+              f"loss {card[1]:.6f} vs {host[1]:.6f}, "
+              f"(p0-p1)/lr max |diff| / max(max|cpu|, 1) {worst:.3g} at {worst_name} "
+              f"(limit {NEW_STEP_REL}); running statistics max diff {d_stats:.3g} "
+              f"(atol {STATS_ATOL}, {len(host[3])} buffers); model_state {card[4]} vs "
+              f"{host[4]}: {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: f32 predict or SGD step on the card disagrees with the CPU")
+
+    # the facade: load_dataset -> create_model -> train -> load_model
+    out_root = ROOT / "vp-suite-data" / "chip_smoke_new"
+    shutil.rmtree(out_root, ignore_errors=True)
+    for name in NEW_MODELS:
+        suite = VPSuite()
+        suite.load_dataset("MMF", digit_source="synthetic", img_size=IMG[1], backend="device",
+                           n_seqs={"train": B * NEW_SUITE_STEPS, "val": B, "test": B})
+        entry = suite.create_model(NEW_MODELS[name][0], compute_dtype=torch.bfloat16, seed=SEED,
+                                   **NEW_MODELS[name][1])
+        counters = reset_counts()
+        best = suite.train(epochs=1, steps_per_epoch=NEW_SUITE_STEPS, out_dir=str(out_root / name),
+                           batch_size=B, context_frames=CTX, pred_frames=PRED, no_vis=True,
+                           no_wandb=True)
+        _zero_launches(name, f"train ({NEW_SUITE_STEPS} steps and a validation)", counters)
+        check(math.isfinite(best) and entry.state.step == NEW_SUITE_STEPS,
+              f"{name}: train gave best {best} after {entry.state.step} steps")
+        loaded = VPSuite().load_model(str(out_root / name), "best_model")
+        d = (loaded.model.state_dict(), entry.model.state_dict())
+        check(d[0].keys() == d[1].keys() and all(torch.equal(d[0][k], d[1][k]) for k in d[1])
+              and loaded.state.model_state == entry.state.model_state,
+              f"{name}: load_model did not restore the parameters, buffers and schedule")
+        suite.models.append(loaded)
+        diff = (suite.predict(frames[:, :CTX], pred_frames=PRED, model_idx=-1)
+                - suite.predict(frames[:, :CTX], pred_frames=PRED, model_idx=-2)).abs().max().item()
+        print(f"[suite] {name}: train bf16 b={B} {CTX}->{PRED}, {NEW_SUITE_STEPS} steps: "
+              f"{entry.train_epoch_fps[-1]:.1f} frames/s, validation MSE {best:.2f}; "
+              f"model_state {entry.state.model_state}; load_model(best_model) predict against "
+              f"the trained entry's: max diff {diff:.3g}")
+        check(diff == 0.0, f"{name}: the loaded model predicts other frames")
+    shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[new models] the phase took {time.time() - t_phase:.1f} s")
+    return out
+
 
 def forward_ms(model, batch):
     r"""Median host time of the train step's forward and loss alone (grad mode

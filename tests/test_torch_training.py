@@ -243,7 +243,7 @@ def test_uint8_frames_are_dequantized():
 
 def test_other_regimes_are_not_ported():
     model = MODEL_CLASSES["convlstm-shi"](**KWARGS)
-    model.TRAIN_REGIME = "scheduled_sampling"
+    model.TRAIN_REGIME = "teacher_forcing"
     with pytest.raises(NotImplementedError):
         make_train_step(model, RUN_CONFIG)
 

@@ -65,7 +65,7 @@ def test_create_model_is_seeded_and_needs_required_args():
     with pytest.raises(ValueError, match="no dataset loaded"):
         suite.create_model("convlstm-shi", img_shape=(3, 16, 16))
     with pytest.raises(ValueError, match="invalid model type"):
-        suite.create_model("predrnn-pp", **KWARGS)
+        suite.create_model("phy", **KWARGS)
     with pytest.raises(TypeError, match="unknown hyperparameters"):
         suite.create_model("convlstm-shi", use_pallas=True, **KWARGS)
 

@@ -86,6 +86,12 @@ class VPModel(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    def init_model_state(self) -> dict:
+        r"""The model's training schedules (the reference's mutable
+        attributes, such as PredRNN++'s sampling eta), which the train step
+        carries in its state; none by default."""
+        return {}
+
     @staticmethod
     def unpack_data(batch: dict, config: dict, reverse: bool = False, complete: bool = False,
                     needs_complete_input: bool = False):

@@ -1,20 +1,41 @@
-r"""NHWC convolution helpers with torch ``Conv2d`` / ``ConvTranspose2d``
-semantics.
+r"""NHWC convolution and normalization helpers with torch ``Conv2d`` /
+``ConvTranspose2d`` / ``Conv3d`` / ``LayerNorm`` semantics.
 
-Activations stay NHWC (``[n, h, w, c]``, contiguous) across the port, which is
-the layout the kernels take. ``x.permute(0, 3, 1, 2)`` of such a tensor is an
-NCHW view in ``channels_last`` memory format, so cuDNN runs its NHWC kernels
-and the result permutes back without a copy. Weights keep torch's layouts
-(conv ``[out, in, kh, kw]``, convT ``[in, out, kh, kw]``) and are cast to the
-activation dtype at use, so f32 params serve bf16 activations.
+Activations stay channels-last (``[n, h, w, c]`` or ``[n, d, h, w, c]``,
+contiguous) across the port, which is the layout the kernels take.
+``x.permute(0, 3, 1, 2)`` of such a tensor is an NCHW view in ``channels_last``
+memory format, so cuDNN runs its NHWC kernels and the result permutes back
+without a copy (``channels_last_3d`` likewise for 3-D convs). Weights keep
+torch's layouts (conv ``[out, in, kh, kw]``, convT ``[in, out, kh, kw]``,
+conv3d ``[out, in, kt, kh, kw]``) and are cast to the activation dtype at
+use, so f32 params serve bf16 activations.
 """
+import torch
 import torch.nn.functional as F
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0):
-    r"""NHWC conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[out, in, kh, kw]``."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride, padding)
+def _ntuple(v, n):
+    return (v,) * n if isinstance(v, int) else tuple(v)
+
+
+def _pad_channels_first(x, padding, padding_mode):
+    r"""``x`` (an NC... view) padded by ``padding`` per spatial dim in
+    ``padding_mode`` (``"zeros"``: returns ``x`` and the conv's own padding)."""
+    if padding_mode == "zeros" or not any(padding):
+        return x, padding
+    if padding_mode != "replicate":
+        raise ValueError(f"unknown padding mode: {padding_mode}")
+    pads = [p for pp in reversed(padding) for p in (pp, pp)]
+    fmt = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
+    return F.pad(x, pads, mode="replicate").contiguous(memory_format=fmt), (0,) * len(padding)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
+    r"""NHWC conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[out, in, kh, kw]``;
+    ``padding_mode`` is ``"zeros"`` or ``"replicate"``."""
+    xc, padding = _pad_channels_first(x.permute(0, 3, 1, 2), _ntuple(padding, 2), padding_mode)
+    y = F.conv2d(xc, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), stride,
+                 padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -24,3 +45,24 @@ def conv_transpose2d(x, weight, bias=None, stride=1, padding=0, output_padding=0
                            None if bias is None else bias.to(x.dtype), stride, padding,
                            output_padding)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
+    r"""NDHWC conv: ``x`` ``[n, d, h, w, in]``, ``weight`` ``[out, in, kt, kh,
+    kw]``; ``padding_mode`` is ``"zeros"`` or ``"replicate"``. ``F.conv3d`` on
+    a ``channels_last_3d`` view; the JAX package lowers UNet-3D's 3-D convs to
+    one 2-D conv over time-in-channels instead, the same function
+    (``kernels/unet3d_variants.py`` times the two on the card)."""
+    stride, padding = _ntuple(stride, 3), _ntuple(padding, 3)
+    xc, padding = _pad_channels_first(x.permute(0, 4, 1, 2, 3), padding, padding_mode)
+    y = F.conv3d(xc, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), stride,
+                 padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def layer_norm_chw(x, weight, bias, eps=1e-5):
+    r"""torch's ``LayerNorm([c, h, w])`` on NHWC ``x``: each sample normalized
+    over all of ``(h, w, c)``; ``weight`` and ``bias`` in torch's ``[c, h, w]``
+    layout, cast to the activation dtype as the JAX package casts them."""
+    return F.layer_norm(x, x.shape[-3:], weight.permute(1, 2, 0).to(x.dtype),
+                        bias.permute(1, 2, 0).to(x.dtype), eps)

@@ -67,40 +67,81 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     accumulates gradients: the batch is split into k
     interleaved microbatches (sample j goes to microbatch j % k), each
     contributes the gradient of its mean loss / k, and ONE optimizer update
-    follows; metrics are the microbatch means.
+    follows; metrics are the microbatch means. As in the JAX package, every
+    microbatch starts from the step's ``state.model_state``, and the
+    schedules and the buffers (BatchNorm's running statistics) after the step
+    are those that microbatch 0 left.
 
-    Only the ``default`` regime is ported; ``teacher_forcing`` (PhyDNet) and
-    ``scheduled_sampling`` (PredRNN++) raise ``NotImplementedError``.
+    Regimes: ``default`` (the model's loss on its predictions plus its
+    auxiliary losses) and ``scheduled_sampling`` (PredRNN++): the complete
+    sequence goes in with a sampling mask drawn from ``state.generator`` by
+    ``model.scheduled_sampling_mask``; with ``model.reverse_input`` the
+    time-reversed sequence, with a second mask, runs in the same forward as
+    a batch of 2b (the mean loss of the two halves); ``training_iteration``
+    advances once per step. ``teacher_forcing`` (PhyDNet) raises
+    ``NotImplementedError``.
     """
     regime = getattr(model, "TRAIN_REGIME", "default")
-    if regime != "default":
+    if regime not in ("default", "scheduled_sampling"):
         raise NotImplementedError(f"the '{regime}' training regime is not ported yet")
     run_config, cfg, loss_provider = _step_config(run_config, loss_provider)
     k = run_config["accum_steps"] if accum_steps is None else accum_steps
+    ctx, pred = cfg["context_frames"], cfg["pred_frames"]
 
-    def loss_fn(batch):
-        inputs, targets, kw = _unpack(model, batch, cfg)
-        preds, aux = _apply_model(model, inputs, pred_frames=cfg["pred_frames"], train=True, **kw)
+    def losses(preds, targets, aux):
         loss_values, total = loss_provider.get_losses(preds, targets)
         for v in (aux or {}).values():
             total = total + v
         return total, loss_values
+
+    def default_loss(batch, model_state, generator):
+        inputs, targets, kw = _unpack(model, batch, cfg)
+        preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, **kw)
+        return losses(preds, targets, aux), model_state
+
+    def scheduled_sampling_loss(batch, model_state, generator):
+        inputs, targets, _ = VPModel.unpack_data(batch, cfg, needs_complete_input=True)
+        b = inputs.shape[0]
+        mask, model_state = model.scheduled_sampling_mask(model_state, generator, b, ctx, pred,
+                                                          train=True)
+        if model.reverse_input:
+            inputs_rev, targets_rev, _ = VPModel.unpack_data(batch, cfg, reverse=True,
+                                                             needs_complete_input=True)
+            mask_rev, model_state = model.scheduled_sampling_mask(model_state, generator, b, ctx,
+                                                                  pred, train=True)
+            inputs, targets = torch.cat([inputs, inputs_rev]), torch.cat([targets, targets_rev])
+            mask = torch.cat([mask, mask_rev])
+        preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, mask_true=mask)
+        model_state = {**model_state,
+                       "training_iteration": model_state["training_iteration"] + 1}
+        return losses(preds, targets, aux), model_state
+
+    loss_fn = scheduled_sampling_loss if regime == "scheduled_sampling" else default_loss
 
     def train_step(state, batch, epoch=0):
         b = batch["frames"].shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by accum_steps {k}")
         state.optimizer.zero_grad(set_to_none=True)
-        total, loss_values = 0.0, {}
+        total, loss_values, buffers = 0.0, {}, None
         for i in range(k):
             mb = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
-            t, lv = loss_fn(mb)
+            (t, lv), model_state = loss_fn(mb, state.model_state, state.generator)
             (t / k).backward()
+            if i == 0:
+                new_model_state = model_state
+                if k > 1:
+                    buffers = [buf.detach().clone() for buf in model.buffers()]
             total = total + t.detach() / k
             for name, v in lv.items():
                 loss_values[name] = loss_values.get(name, 0.0) + v.detach() / k
+        if buffers:
+            with torch.no_grad():
+                for buf, kept in zip(model.buffers(), buffers):
+                    buf.copy_(kept)
         state.optimizer.step()
         state.step += 1
+        state.model_state = new_model_state
         return state, {"total": total, **loss_values}
 
     return train_step

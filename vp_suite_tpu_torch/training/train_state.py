@@ -37,7 +37,8 @@ def create_train_state(model, lr: float = None, seed: int = None, optimizer: str
     r"""The training state of ``model`` (whose parameters are already
     initialised): ``optimizer`` is ``"adam"`` or ``"sgd"`` (plain SGD, with
     which one step shows the gradients); ``lr`` and ``seed`` default to the
-    run defaults. The generator lies on the model's device. A model with
+    run defaults. The generator lies on the model's device, and
+    ``model_state`` starts as ``model.init_model_state()``. A model with
     nothing to train gets ``optimizer=None``."""
     lr = DEFAULT_RUN_CONFIG["lr"] if lr is None else lr
     seed = DEFAULT_RUN_CONFIG["seed"] if seed is None else seed
@@ -46,4 +47,5 @@ def create_train_state(model, lr: float = None, seed: int = None, optimizer: str
     device = params[0].device if params else torch.device("cpu")
     trainable = getattr(model, "TRAINABLE", True) and params
     return TrainState(model=model, optimizer=make(params, lr) if trainable else None,
+                      model_state=model.init_model_state(),
                       generator=torch.Generator(device=device).manual_seed(seed))
