@@ -1548,11 +1548,29 @@ def drive_suite_test(run_dirs):
     shutil.rmtree(out_root, ignore_errors=True)
     print(f"[suite] the test phase took {time.time() - t_phase:.1f} s")
 
-#: the models of slice 14, at bench width: name -> (registry id, configuration).
-#: Neither reaches a port kernel: their convolutions go to cuDNN, as the JAX
-#: package leaves them to XLA.
+#: the models that reach no port kernel, at bench width: name -> (registry id,
+#: configuration). UNet-3D and PredRNN++ (slice 14), PhyDNet (slice 15, its
+#: defaults: one 7x7 PhyCell of 49 channels, ConvLSTM (128, 128, 64), DCGAN
+#: widths 32/64); their convolutions go to cuDNN, as the JAX package leaves
+#: them to XLA.
 NEW_MODELS = {"unet3d": ("unet-3d", dict(temporal_dim=3, features=(8, 16, 32, 64))),
-              "predrnn": ("predrnn-pp", {})}
+              "predrnn": ("predrnn-pp", {}),
+              "phydnet": ("phy", {})}
+#: the new models whose bf16 ``predict`` on the card is also held against the
+#: CPU's f32 one at b=2, at ``PREDICT_ATOL_BF16``: PhyDNet's GroupNorms reduce
+#: bf16 activations (cuDNN-free ``F.group_norm``, f32 statistics, one rounding).
+NEW_BF16_PREDICT = ("phydnet",)
+#: the new models whose SGD step gate runs with f64 activations on both sides
+#: (``compute_dtype=torch.float64``, f32 parameters): PhyDNet's f32 gradient at
+#: b=2 is ill-conditioned (GroupNorms over near-constant groups at the zero
+#: initial states, group variances down to 3.7e-5, beside LeakyReLU inputs
+#: within rounding of 0, whose slope f32 rounding picks), so that two f32 runs
+#: part by 1e-2 of the largest (p0 - p1) / lr: on an H100's machine the CPU's
+#: f32 from its f64 by 1.17e-2, the card's f32 by 2.34e-3 (``python3 -m
+#: vp_suite_tpu_torch.kernels.phydnet_variants`` prints both). Their f32 steps
+#: are each held against the CPU's f64 one instead: the card's no further from
+#: it than twice the CPU's own (or ``NEW_STEP_REL``).
+NEW_STEP_F64 = ("phydnet",)
 #: steps of each new model's facade run (one epoch on the card's batches)
 NEW_SUITE_STEPS = 2
 #: UNet-3D's BatchNorm running statistics after one f32 SGD step, card against
@@ -1571,8 +1589,24 @@ NEW_STEP_REL = STEP_TOL
 #: the CPU against itself at another thread count or against f64 as much as
 #: the card against the CPU (``python3 -m
 #: vp_suite_tpu_torch.kernels.unet3d_variants`` prints them), while at 5 -> 1
-#: every pair holds 5e-4; its eval-mode predict holds over 10.
+#: every pair holds 5e-4; its eval-mode predict holds over 10. The same
+#: rounding makes its bf16 Adam run at 5 -> 10 a random walk of a few units on
+#: a loss of 3922 (its card backward is not bit-reproducible, with cuDNN's
+#: deterministic algorithms too; ``unet3d_variants --descent`` prints runs),
+#: so its loss is held to fall at 5 -> 1, where 7 steps take it down by some
+#: 315, every step.
 NEW_STEP_PRED = {"unet3d": 1}
+
+
+def _worst_step_diff(got, want):
+    r"""``(rel, name)``: the largest ``max |got - want| / max(max |want|, 1)``
+    over the parameters' (p0 - p1) / lr."""
+    worst, worst_name = 0.0, ""
+    for k, w in want.items():
+        rel = (got[k] - w).abs().max().item() / max(w.abs().max().item(), 1.0)
+        if rel > worst or not worst_name:
+            worst, worst_name = rel, k
+    return worst, worst_name
 
 
 def _new_model(suite, name, **kw):
@@ -1612,11 +1646,27 @@ def _zero_launches(name, what, counters):
     check(launches == _launches(), f"{name}: {what} launched port kernels: {launches}")
 
 
+def _adam_losses(name, batch, run_config, steps=7):
+    r"""The losses of ``steps`` Adam steps of a new bf16 model on ``batch``,
+    every launch count held at 0."""
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    model = _new_model(VPSuite(), name, compute_dtype=torch.bfloat16).model
+    state = create_train_state(model, lr=LR, seed=SEED)
+    step = make_train_step(model, run_config)
+    counters = reset_counts()
+    losses = [float(step(state, batch)[1]["total"]) for _ in range(steps)]
+    _zero_launches(name, f"{steps} train steps", counters)
+    return losses
+
+
 def _time_new_model(name, frames, batch, run_config):
     r"""One new model at bench width in bf16: ``predict`` and the Adam train
     step, each launch count held at 0, their latencies and profiles, the loss
-    falling over 7 steps and the schedule after them; returns
-    ``{"predict_ms", "step_ms"}``."""
+    falling at each of 7 steps (UNet-3D's at 5 -> 1, ``NEW_STEP_PRED``) and
+    the schedule after them; returns ``{"predict_ms", "step_ms"}``."""
     import numpy as np
     import torch
     from vp_suite_tpu_torch import VPSuite
@@ -1654,8 +1704,16 @@ def _time_new_model(name, frames, batch, run_config):
     step_ms, more, times = _time_step(step, state, batch, n=5, warmup=1)
     losses += more
     peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
-    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
-          f"{name}: the loss did not fall over 7 Adam steps: {losses}")
+    check(all(map(math.isfinite, losses)), f"{name}: non-finite training loss {losses}")
+    falling, fall_of = losses, f"{CTX}->{PRED}"
+    if name in NEW_STEP_PRED:
+        fall_of = f"{CTX}->{NEW_STEP_PRED[name]}"
+        falling = _adam_losses(name, {"frames": batch["frames"][:, :CTX + NEW_STEP_PRED[name]]},
+                               {**run_config, "pred_frames": NEW_STEP_PRED[name]})
+        print(f"[train] {name} bf16 b={B} {fall_of}, Adam lr {LR}: losses "
+              + ", ".join(f"{x:.2f}" for x in falling))
+    check(all(map(math.isfinite, falling)) and all(b < a for a, b in zip(falling, falling[1:])),
+          f"{name}: the loss did not fall at each of 7 Adam steps ({fall_of}): {falling}")
     want_state = model.init_model_state()
     if want_state:     # 7 steps, two mask draws a step (reverse_input), f32 decays
         eta = np.float32(want_state["sampling_eta"])
@@ -1688,14 +1746,16 @@ def tf32_flags(cudnn, matmul):
 
 
 def drive_new_models(dev, tf32_defaults):
-    r"""UNet-3D and PredRNN++ at bench width (b=32, 64x64 RGB, 5 -> 10, bf16
-    over f32 parameters, random weights from the seed): ``predict`` and the
-    Adam train step with every kernel's launch count set to 0 just before and
-    held at 0 just after, their latencies and one profiled call each, under
-    PyTorch's default TF32 flags ``tf32_defaults``; the card against the CPU
-    in f32 at b=2 with TF32 off (``predict``, one SGD step, UNet-3D's running
-    statistics, PredRNN++'s schedule); and one short facade run per model
-    (``load_dataset`` -> ``create_model`` -> ``train`` -> ``load_model``)."""
+    r"""UNet-3D, PredRNN++ and PhyDNet at bench width (b=32, 64x64 RGB, 5 ->
+    10, bf16 over f32 parameters, random weights from the seed): ``predict``
+    and the Adam train step (PhyDNet's at epoch 0, teacher-forced) with every
+    kernel's launch count set to 0 just before and held at 0 just after,
+    their latencies and one profiled call each, under PyTorch's default TF32
+    flags ``tf32_defaults``; the card against the CPU in f32 at b=2 with TF32
+    off (``predict``, one SGD step, UNet-3D's running statistics, PredRNN++'s
+    schedule; PhyDNet's bf16 ``predict`` too); and one short facade run per
+    model (``load_dataset`` -> ``create_model`` -> ``train`` ->
+    ``load_model``)."""
     import shutil
     import torch
     from vp_suite_tpu_torch import VPSuite
@@ -1715,9 +1775,18 @@ def drive_new_models(dev, tf32_defaults):
     lr = 1e-2
     small = frames[:2]
     results = {}
-    for device, kw in (("cuda", dict(compute_dtype=torch.float32)), ("cpu", {})):
+    bf16_preds = {}
+    for name in NEW_BF16_PREDICT:
+        suite = VPSuite()
+        _new_model(suite, name, compute_dtype=torch.bfloat16)
+        bf16_preds[name] = suite.predict(small[:, :CTX], pred_frames=PRED).cpu()
+    f64 = dict(compute_dtype=torch.float64)
+    for device, precision, kw, names in (("cuda", "f32", dict(compute_dtype=torch.float32),
+                                          NEW_MODELS), ("cpu", "f32", {}, NEW_MODELS),
+                                         ("cuda", "f64", f64, NEW_STEP_F64),
+                                         ("cpu", "f64", f64, NEW_STEP_F64)):
         suite = VPSuite(device=device)
-        for name in NEW_MODELS:
+        for name in names:
             # PredRNN++ from sampling_stop_iter on: all-zero masks, so that the
             # card's and the CPU's generators draw alike
             extra = dict(sampling_stop_iter=0) if name == "predrnn" else {}
@@ -1730,18 +1799,27 @@ def drive_new_models(dev, tf32_defaults):
                                                              {"frames": small.to(suite.device)})
             stats = {k: v.detach().cpu().clone() for k, v in model.named_buffers()
                      if k.endswith(("running_mean", "running_var"))}
-            results[(name, device)] = (pred, float(metrics["total"]),
+            results[(name, device, precision)] = (pred, float(metrics["total"]),
                                        {k: ((p0[k] - v.detach()) / lr).cpu()
                                         for k, v in model.named_parameters()},
                                        stats, state.model_state)
     for name in NEW_MODELS:
-        card, host = results[(name, "cuda")], results[(name, "cpu")]
+        card, host = results[(name, "cuda", "f32")], results[(name, "cpu", "f32")]
         d_pred = (card[0] - host[0]).abs().max().item()
-        worst, worst_name = 0.0, ""
-        for k, want in host[2].items():
-            rel = (card[2][k] - want).abs().max().item() / max(want.abs().max().item(), 1.0)
-            if rel > worst or not worst_name:
-                worst, worst_name = rel, k
+        step_of = "f32"
+        if name in NEW_STEP_F64:
+            step_of = "f64 activations"
+            ref = results[(name, "cpu", "f64")][2]
+            w_card, _ = _worst_step_diff(card[2], ref)
+            w_cpu, _ = _worst_step_diff(host[2], ref)
+            print(f"[train] {name} f32 SGD step against the CPU's with f64 activations: card "
+                  f"{w_card:.3g}, CPU {w_cpu:.3g} of the largest (p0-p1)/lr (the card's limit "
+                  f"{max(2 * w_cpu, NEW_STEP_REL):.3g})")
+            check(w_card <= max(2 * w_cpu, NEW_STEP_REL),
+                  f"{name}: the card's f32 step is further from f64 than the CPU's")
+            worst, worst_name = _worst_step_diff(results[(name, "cuda", "f64")][2], ref)
+        else:
+            worst, worst_name = _worst_step_diff(card[2], host[2])
         d_stats = max([(card[3][k] - v).abs().max().item() for k, v in host[3].items()] or [0.0])
         d_loss = abs(card[1] - host[1])
         ok = (d_pred <= PREDICT_ATOL_F32 and worst <= NEW_STEP_REL
@@ -1749,12 +1827,18 @@ def drive_new_models(dev, tf32_defaults):
               and card[4] == host[4])
         print(f"[train] {name} f32 b=2, card against CPU: predict max diff {d_pred:.3g} "
               f"(atol {PREDICT_ATOL_F32}); SGD step ({CTX}->{NEW_STEP_PRED.get(name, PRED)}) "
-              f"loss {card[1]:.6f} vs {host[1]:.6f}, "
+              f"loss {card[1]:.6f} vs {host[1]:.6f}, {step_of} "
               f"(p0-p1)/lr max |diff| / max(max|cpu|, 1) {worst:.3g} at {worst_name} "
               f"(limit {NEW_STEP_REL}); running statistics max diff {d_stats:.3g} "
               f"(atol {STATS_ATOL}, {len(host[3])} buffers); model_state {card[4]} vs "
               f"{host[4]}: {'ok' if ok else 'FAIL'}")
         check(ok, f"{name}: f32 predict or SGD step on the card disagrees with the CPU")
+        if name in bf16_preds:
+            d16 = (bf16_preds[name] - host[0]).abs().max().item()
+            print(f"[predict] {name} b=2: card bf16 against the CPU f32, max diff {d16:.3g} "
+                  f"(atol {PREDICT_ATOL_BF16})")
+            check(d16 <= PREDICT_ATOL_BF16,
+                  f"{name}: bf16 predict on the card disagrees with the CPU")
 
     # the facade: load_dataset -> create_model -> train -> load_model
     out_root = ROOT / "vp-suite-data" / "chip_smoke_new"

@@ -1,4 +1,4 @@
-r"""The layers of UNet-3D and PredRNN++ on a CUDA card against the CPU.
+r"""The layers of UNet-3D, PredRNN++ and PhyDNet on a CUDA card against the CPU.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so they run on a machine that has neither:
@@ -13,15 +13,24 @@ mantissa bits, 2^-11 relative), within 5e-3 of the largest output of each
 kind: TF32 roundings of K products summed (K = 27 * 8 for the Conv3d, 25 *
 48 for the cell's input conv) stay some sqrt(K) * 2^-11 of the terms. The
 bf16 Conv3d within 2^-6 of the largest (operands and result rounded to 8
-mantissa bits).
+mantissa bits). PhyDNet's (TF32 convolutions): the DCGAN conv and transposed
+conv, the ndrplz ConvLSTM cell and the PhyCell step (its 7x7 F conv, K = 49
+* 64) within 5e-3 of the largest; ``GroupNorm`` (no convolution) in f32
+within 1e-5, in bf16 within 2^-7 of the largest of the CPU's f32 output on
+the same bf16-rounded input: the affine parameters are cast to bf16 and the
+output is rounded to bf16 (statistics in f32), each rounding at most 2^-8
+of its value.
 """
 import copy
 
 import pytest
 import torch
 
+from vp_suite_tpu_torch.model_blocks.conv import DCGANConv, DCGANConvTranspose
+from vp_suite_tpu_torch.model_blocks.conv_lstm_ndrplz import ConvLSTMCellNdrplz
+from vp_suite_tpu_torch.model_blocks.phydnet import PhyCellCell
 from vp_suite_tpu_torch.model_blocks.predrnn import SpatioTemporalLSTMCell
-from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv3d
+from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv3d, GroupNorm
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +103,57 @@ def test_st_lstm_step_matches_cpu(cuda_default_tf32):
     got = card(*[a.to(cuda_default_tf32) for a in args])
     for name, w, c in zip(("h", "c", "m", "delta_c", "delta_m"), want, got):
         assert _rel(c, w.detach()) <= TF32_REL, name
+
+
+def _seeded(module, seed):
+    for m in module.modules():
+        if hasattr(m, "reset_parameters") and m is not module:
+            m.reset_parameters(torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    return module
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_group_norm_matches_cpu(cuda_default_tf32, dtype):
+    host = _seeded(GroupNorm(7, 49), 5)
+    card = copy.deepcopy(host).to(cuda_default_tf32)
+    x = (torch.randn(4, 16, 16, 49, generator=torch.Generator().manual_seed(6)) * 2 + 0.5) \
+        .to(dtype)
+    want = host(x.float()).detach()
+    got = card(x.to(cuda_default_tf32))
+    assert got.dtype == dtype and got.is_contiguous()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _rel(got.detach(), want) <= 2 ** -7
+
+
+@pytest.mark.parametrize("block", ["conv_s1", "conv_s2", "conv_transpose_s1",
+                                   "conv_transpose_s2"])
+def test_dcgan_blocks_match_cpu(cuda_default_tf32, block):
+    kind, stride = block.rsplit("_s", 1)
+    host = _seeded((DCGANConvTranspose if kind == "conv_transpose" else DCGANConv)(
+        32, 64, int(stride)), 7)
+    card = copy.deepcopy(host).to(cuda_default_tf32)
+    x = torch.randn(2, 16, 16, 32, generator=torch.Generator().manual_seed(8))
+    assert _rel(card(x.to(cuda_default_tf32)).detach(), host(x).detach()) <= TF32_REL
+
+
+def test_phydnet_cells_match_cpu(cuda_default_tf32):
+    g = torch.Generator().manual_seed(9)
+    phy = _seeded(PhyCellCell(64, False, 0, 49, (7, 7)), 10)
+    lstm = _seeded(ConvLSTMCellNdrplz(64, 128, (3, 3)), 11)
+    frame, hidden = (torch.randn(2, 16, 16, 64, generator=g) for _ in range(2))
+    h, c = (torch.randn(2, 16, 16, 128, generator=g) * 0.5 for _ in range(2))
+    dev = cuda_default_tf32
+    want = phy(frame, None, hidden).detach()
+    got = copy.deepcopy(phy).to(dev)(frame.to(dev), None, hidden.to(dev))
+    assert _rel(got.detach(), want) <= TF32_REL
+    want = lstm(frame, (h, c))
+    got = copy.deepcopy(lstm).to(dev)(frame.to(dev), (h.to(dev), c.to(dev)))
+    for name, w, x in zip(("h", "c"), want, got):
+        assert _rel(x.detach(), w.detach()) <= TF32_REL, name

@@ -242,8 +242,9 @@ def test_uint8_frames_are_dequantized():
 
 
 def test_other_regimes_are_not_ported():
+    # every regime of the JAX package is ported: a name it lacks is refused
     model = MODEL_CLASSES["convlstm-shi"](**KWARGS)
-    model.TRAIN_REGIME = "teacher_forcing"
+    model.TRAIN_REGIME = "curriculum"
     with pytest.raises(NotImplementedError):
         make_train_step(model, RUN_CONFIG)
 

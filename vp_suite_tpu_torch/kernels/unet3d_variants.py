@@ -2,6 +2,7 @@ r"""UNet-3D's Conv3d lowerings and dtype flows side by side on one CUDA card,
 and the f32 rounding of its train-mode rollout.
 
     python3 -m vp_suite_tpu_torch.kernels.unet3d_variants [--steps N] [--skip-timing]
+    python3 -m vp_suite_tpu_torch.kernels.unet3d_variants --descent RUNS
 
 Timing: UNet-3D at bench width (features 8/16/32/64, ``temporal_dim`` 3, b=32,
 64x64 RGB, 5 -> 10, bf16 over f32 parameters, random weights from seed 0),
@@ -18,6 +19,12 @@ statistics), 5 -> 1 and 5 -> 10, on the card (TF32 off), on the CPU at two
 thread counts, and on the CPU in f64, each held against the f64 run and the
 card against the CPU: it shows how far two f32 runs of the train-mode
 rollout part, whatever runs them.
+
+Descent (:func:`descent`, ``--descent RUNS`` alone): the losses of 7 Adam
+steps (lr 1e-4) in bf16 at bench width on the smoke's frames, under PyTorch's
+default TF32 flags, ``RUNS`` times from the same seed at 5 -> 10 and at
+5 -> 1, and twice at 5 -> 10 with cuDNN's deterministic algorithms: whether
+the loss falls, and how far runs of the same step part.
 
 The lowerings compute the same function: ``"cudnn"`` is the library's
 :func:`~vp_suite_tpu_torch.model_blocks._functional.conv3d` (``F.conv3d`` on a
@@ -255,10 +262,44 @@ def rounding(runs, preds=(1, PRED)):
     return out
 
 
+def _adam_losses(pred, steps=7, lr=1e-4):
+    r"""The losses of ``steps`` Adam steps of a new bf16 UNet-3D at bench
+    width, 5 -> ``pred``, on the smoke's frames."""
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    model = VPSuite().create_model("unet-3d", seed=SEED, compute_dtype=torch.bfloat16,
+                                   **CONFIG).model
+    state = create_train_state(model, lr=lr, seed=SEED)
+    step = make_train_step(model, {"context_frames": CTX, "pred_frames": pred})
+    batch = {"frames": frames()[:, :CTX + pred].cuda()}
+    return [float(step(state, batch)[1]["total"]) for _ in range(steps)]
+
+
+def descent(runs):
+    r"""Prints :func:`_adam_losses` ``runs`` times at 5 -> 10 and 5 -> 1, and
+    twice at 5 -> 10 under ``torch.backends.cudnn.deterministic``."""
+    cases = [(PRED, False)] * runs + [(1, False)] * runs + [(PRED, True)] * 2
+    for pred, det in cases:
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = det
+        try:
+            losses = _adam_losses(pred)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        falls = all(b < a for a, b in zip(losses, losses[1:]))
+        print(f"[descent] {CTX}->{pred}{', cuDNN deterministic' if det else ''}: losses "
+              + ", ".join(f"{x:.2f}" for x in losses)
+              + f"; last - first {losses[-1] - losses[0]:+.2f}; falls at every step {falls}",
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5, help="timed train steps per variant")
     ap.add_argument("--skip-timing", action="store_true", help="only the rounding runs")
+    ap.add_argument("--descent", type=int, default=0, metavar="RUNS",
+                    help="only the Adam descent runs, RUNS of each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("this script runs on a CUDA card")
@@ -267,6 +308,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; PyTorch's TF32 defaults: cuDNN "
           f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32}")
+    if args.descent:
+        descent(args.descent)
+        return
     if not args.skip_timing:
         time_variants(args.steps)
     n = torch.get_num_threads()

@@ -8,7 +8,8 @@ memory format, so cuDNN runs its NHWC kernels and the result permutes back
 without a copy (``channels_last_3d`` likewise for 3-D convs). Weights keep
 torch's layouts (conv ``[out, in, kh, kw]``, convT ``[in, out, kh, kw]``,
 conv3d ``[out, in, kt, kh, kw]``) and are cast to the activation dtype at
-use, so f32 params serve bf16 activations.
+use, so f32 params serve bf16 activations (so are the norms' affine
+parameters).
 """
 import torch
 import torch.nn.functional as F
@@ -66,3 +67,24 @@ def layer_norm_chw(x, weight, bias, eps=1e-5):
     layout, cast to the activation dtype as the JAX package casts them."""
     return F.layer_norm(x, x.shape[-3:], weight.permute(1, 2, 0).to(x.dtype),
                         bias.permute(1, 2, 0).to(x.dtype), eps)
+
+
+def group_norm(x, weight, bias, num_groups, eps=1e-5):
+    r"""torch's ``GroupNorm`` on channels-last ``x`` ``[n, ..., c]``: each
+    sample normalized over each group of ``c / num_groups`` channels and all
+    positions, by the biased variance; ``weight`` and ``bias`` ``[c]``."""
+    perm = (0, x.dim() - 1, *range(1, x.dim() - 1))
+    y = F.group_norm(x.permute(perm), num_groups, weight.to(x.dtype), bias.to(x.dtype), eps)
+    return y.permute(0, *range(2, x.dim()), 1).contiguous()
+
+
+def dcgan_step(x, weight, bias, gn_weight, gn_bias, stride, transposed=False):
+    r"""DCGAN's 3x3 conv (padding 1) -> ``GroupNorm(16)`` -> ``LeakyReLU(0.2)``
+    on ``[n, h, w, c]``; ``transposed`` takes a transposed conv (``weight``
+    ``[in, out, 3, 3]``, output padding 1 at stride 2, so that it doubles the
+    size)."""
+    if transposed:
+        y = conv_transpose2d(x, weight, bias, stride, 1, int(stride == 2))
+    else:
+        y = conv2d(x, weight, bias, stride, 1)
+    return F.leaky_relu(group_norm(y, gn_weight, gn_bias, 16), 0.2)

@@ -1,12 +1,14 @@
-r"""UNet double convs over channels-last activations (the JAX package's
-``model_blocks/conv.py``, under the reference's ``state_dict`` names:
-``conv.0`` conv, ``conv.1`` BatchNorm, ``conv.3`` conv, ``conv.4``
-BatchNorm). The DCGAN blocks come with PhyDNet."""
+r"""UNet double convs and DCGAN convs over channels-last activations (the
+JAX package's ``model_blocks/conv.py``, under the reference's ``state_dict``
+names: a double conv's ``conv.0`` conv, ``conv.1`` BatchNorm, ``conv.3``
+conv, ``conv.4`` BatchNorm; a DCGAN block's ``main.0`` conv and ``main.1``
+GroupNorm)."""
 import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
-from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv2d, Conv3d
+from vp_suite_tpu_torch.model_blocks._functional import dcgan_step
+from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv2d, Conv3d, ConvTranspose2d, GroupNorm
 
 
 class _DoubleConv(VPModelBlock):
@@ -40,3 +42,33 @@ class DoubleConv3d(_DoubleConv):
     their statistics per channel over ``(b, t, h, w)``."""
     NAME = "DoubleConv3d"
     CONV = Conv3d
+
+
+class DCGANConv(VPModelBlock):
+    r"""DCGAN conv on ``[b, h, w, c]``: 3x3 conv -> ``GroupNorm(16)`` ->
+    ``LeakyReLU(0.2)``."""
+    NAME = "DCGAN - Conv"
+    PAPER_REFERENCE = "arxiv.org/abs/1511.06434"
+    TRANSPOSED = False
+
+    def __init__(self, in_channels, out_channels, stride):
+        super().__init__()
+        self.stride = stride
+        if self.TRANSPOSED:
+            conv = ConvTranspose2d(in_channels, out_channels, 3, stride, 1,
+                                   output_padding=int(stride == 2))
+        else:
+            conv = Conv2d(in_channels, out_channels, 3, stride, 1)
+        self.main = nn.ModuleList([conv, GroupNorm(16, out_channels), nn.LeakyReLU(0.2)])
+
+    def forward(self, x):
+        conv, gn, _ = self.main
+        return dcgan_step(x, conv.weight, conv.bias, gn.weight, gn.bias, self.stride,
+                          self.TRANSPOSED)
+
+
+class DCGANConvTranspose(DCGANConv):
+    r"""DCGAN transposed conv on ``[b, h, w, c]``: 3x3 transposed conv (output
+    padding 1 at stride 2) -> ``GroupNorm(16)`` -> ``LeakyReLU(0.2)``."""
+    NAME = "DCGAN - ConvTranspose"
+    TRANSPOSED = True

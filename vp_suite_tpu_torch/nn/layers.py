@@ -1,7 +1,7 @@
 r"""Layers over channels-last activations, holding torch-layout parameters.
 
-``Conv2d``, ``ConvTranspose2d``, ``Conv3d``, ``Dense`` (``nn.Linear``) and
-``LayerNormCHW`` (``nn.LayerNorm([c, h, w])``) are torch's own modules (same
+``Conv2d``, ``ConvTranspose2d``, ``Conv3d``, ``Dense`` (``nn.Linear``),
+``GroupNorm`` and ``LayerNormCHW`` (``nn.LayerNorm([c, h, w])``) are torch's own modules (same
 parameters, ``state_dict`` keys and default init) with a channels-last
 ``forward``; ``BatchNorm`` is flax's ``nn.BatchNorm`` under torch's
 ``BatchNorm2d/3d`` names.
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.model_blocks._functional import (conv2d, conv3d, conv_transpose2d,
-                                                         layer_norm_chw)
+                                                         group_norm, layer_norm_chw)
 
 
 def torch_default_init_(weight, bias=None, generator=None):
@@ -83,6 +83,17 @@ class LayerNormCHW(nn.LayerNorm):
 
     def forward(self, x):
         return layer_norm_chw(x, self.weight, self.bias, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    r"""``nn.GroupNorm`` on ``[n, ..., c]`` input."""
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 class BatchNorm(nn.Module):

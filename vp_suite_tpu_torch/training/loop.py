@@ -7,6 +7,7 @@ parameters stay f32 (each op casts its weights at use, so autograd returns
 f32 gradients to them) and the predictions come back as f32, so that the
 loss and its gradient start in full precision.
 """
+import numpy as np
 import torch
 
 from vp_suite_tpu_torch.base.base_model import VPModel
@@ -73,17 +74,23 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     are those that microbatch 0 left.
 
     Regimes: ``default`` (the model's loss on its predictions plus its
-    auxiliary losses) and ``scheduled_sampling`` (PredRNN++): the complete
-    sequence goes in with a sampling mask drawn from ``state.generator`` by
+    auxiliary losses); ``teacher_forcing`` (PhyDNet): the complete sequence
+    goes in and the targets are its frames from the second on; each
+    microbatch draws one coin from ``state.generator``, 1 with probability
+    ``max(0, 1 - epoch * model.teacher_forcing_decay)`` (in f32, as the JAX
+    step computes it: always 1 at epoch 0, always 0 from epoch 334 at the
+    default decay), and the model gets it as a 0-d tensor on the generator's
+    device, so that the step reads nothing back from the card; and
+    ``scheduled_sampling`` (PredRNN++): the complete sequence goes in with a
+    sampling mask drawn from ``state.generator`` by
     ``model.scheduled_sampling_mask``; with ``model.reverse_input`` the
     time-reversed sequence, with a second mask, runs in the same forward as
     a batch of 2b (the mean loss of the two halves); ``training_iteration``
-    advances once per step. ``teacher_forcing`` (PhyDNet) raises
-    ``NotImplementedError``.
+    advances once per step. Any other regime raises ``NotImplementedError``.
     """
     regime = getattr(model, "TRAIN_REGIME", "default")
-    if regime not in ("default", "scheduled_sampling"):
-        raise NotImplementedError(f"the '{regime}' training regime is not ported yet")
+    if regime not in ("default", "teacher_forcing", "scheduled_sampling"):
+        raise NotImplementedError(f"the '{regime}' training regime is not ported")
     run_config, cfg, loss_provider = _step_config(run_config, loss_provider)
     k = run_config["accum_steps"] if accum_steps is None else accum_steps
     ctx, pred = cfg["context_frames"], cfg["pred_frames"]
@@ -94,12 +101,22 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             total = total + v
         return total, loss_values
 
-    def default_loss(batch, model_state, generator):
+    def default_loss(batch, model_state, generator, epoch):
         inputs, targets, kw = _unpack(model, batch, cfg)
         preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, **kw)
         return losses(preds, targets, aux), model_state
 
-    def scheduled_sampling_loss(batch, model_state, generator):
+    def teacher_forcing_loss(batch, model_state, generator, epoch):
+        inputs, _, actions = VPModel.unpack_data(batch, cfg, complete=True)
+        decay = np.float32(epoch) * np.float32(model.teacher_forcing_decay)
+        ratio = float(max(np.float32(0.0), np.float32(1.0) - decay))
+        coin = torch.rand((), generator=generator, device=generator.device) < ratio
+        kw = {"actions": actions} if model.CAN_HANDLE_ACTIONS else {}
+        preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True,
+                                  teacher_forcing=coin, **kw)
+        return losses(preds, inputs[:, 1:], aux), model_state
+
+    def scheduled_sampling_loss(batch, model_state, generator, epoch):
         inputs, targets, _ = VPModel.unpack_data(batch, cfg, needs_complete_input=True)
         b = inputs.shape[0]
         mask, model_state = model.scheduled_sampling_mask(model_state, generator, b, ctx, pred,
@@ -116,7 +133,8 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
                        "training_iteration": model_state["training_iteration"] + 1}
         return losses(preds, targets, aux), model_state
 
-    loss_fn = scheduled_sampling_loss if regime == "scheduled_sampling" else default_loss
+    loss_fn = {"default": default_loss, "teacher_forcing": teacher_forcing_loss,
+               "scheduled_sampling": scheduled_sampling_loss}[regime]
 
     def train_step(state, batch, epoch=0):
         b = batch["frames"].shape[0]
@@ -126,7 +144,7 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
         total, loss_values, buffers = 0.0, {}, None
         for i in range(k):
             mb = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
-            (t, lv), model_state = loss_fn(mb, state.model_state, state.generator)
+            (t, lv), model_state = loss_fn(mb, state.model_state, state.generator, epoch)
             (t / k).backward()
             if i == 0:
                 new_model_state = model_state

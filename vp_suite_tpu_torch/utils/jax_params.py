@@ -1,6 +1,6 @@
 r"""Carries parameters from the JAX package's layouts into the port's: the
-weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D and PredRNN++ into the port's
-model, and the measure nets' flat dicts (LPIPS, I3D) into the port's
+weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D, PredRNN++ and PhyDNet into the
+port's model, and the measure nets' flat dicts (LPIPS, I3D) into the port's
 parameter dicts.
 
 The JAX tree (``{"enc_rnn1": {...}, "enc_stage1": {layer: {"kernel",
@@ -25,16 +25,28 @@ are the inverse of ``_import_predrnn``: ``cell{i}_{conv}_kernel`` /
 without the ``.0``), ``cell{i}_ln_{x,h,a,m,o}_scale`` / ``_bias`` ->
 ``cell_list.{i}.conv_{x,h,a,m,o}.1.weight`` / ``.bias``, and the model's
 ``conv_last``, ``adapter``, ``conv_input{1,2}``, ``action_conv_input{1,2}``
-and ``deconv_output{1,2}``.
+and ``deconv_output{1,2}``. PhyDNet's flat params are the inverse of
+``_import_phydnet``: a DCGAN block's ``{module}_{block}_conv_kernel`` /
+``_bias`` and ``_gn_scale`` / ``_gn_bias`` -> ``{module}.{block}.main.0``
+and ``.main.1`` ``weight`` / ``bias`` (transposed convs in the
+``decoder_*`` modules), ``decoder_D_upc3`` -> ``decoder_D.upc3``,
+``phycell{j}_{conv}`` -> ``phycell.cell_list.{j}.{conv}`` (``F_conv1``,
+``F_conv2`` -> ``F.conv1``, ``F.conv2``, ``F_bn1_scale`` / ``_bias`` ->
+``F.bn1.weight`` / ``.bias``; ``convgate``, ``frame_action_conv``,
+``hidden_action_conv``) and ``convcell{j}_conv`` ->
+``convcell.cell_list.{j}.conv``.
 
 Layouts: conv ``[kh, kw, in, out] -> [out, in, kh, kw]``, convT ``[kh, kw,
 in, out] -> [in, out, kh, kw]``, peephole ``[h, w, c] -> [1, c, h, w]``, 3-D
 conv ``[kt, kh, kw, in, out] -> [out, in, kt, kh, kw]``, dense ``[in, out]
 -> [out, in]``, LayerNorm ``[h, w, c] -> [c, h, w]``.
 """
+import re
+
 import numpy as np
 import torch
 
+from vp_suite_tpu_torch.models.phydnet import PhyDNet
 from vp_suite_tpu_torch.models.predrnn_v2 import PredRNN_V2
 from vp_suite_tpu_torch.models.unet3d import UNet3D
 
@@ -150,15 +162,41 @@ def predrnn_state_dict_from_jax(params) -> dict:
     return sd
 
 
+_DCGAN_KEY = re.compile(r"(encoder_E|encoder_Ep|encoder_Er|decoder_Dp|decoder_Dr|decoder_D)"
+                        r"_((?:up)?c\d)_(conv|gn)")
+_CELL_KEY = re.compile(r"(phycell|convcell)(\d+)_(\w+)")
+
+
+def phydnet_state_dict_from_jax(params) -> dict:
+    r"""The port's PhyDNet ``state_dict`` for the JAX model's flat params."""
+    sd = {}
+    for key, value in params.items():
+        name, kind = key.rsplit("_", 1)
+        transposed = name.startswith("decoder")
+        if m := _DCGAN_KEY.fullmatch(name):
+            name = f"{m[1]}.{m[2]}.main.{0 if m[3] == 'conv' else 1}"
+        elif name == "decoder_D_upc3":
+            name = "decoder_D.upc3"
+        elif m := _CELL_KEY.fullmatch(name):
+            name = f"{m[1]}.cell_list.{m[2]}.{m[3].replace('F_', 'F.')}"
+        else:
+            raise ValueError(f"not a PhyDNet parameter: {key}")
+        sd[f"{name}.{'bias' if kind == 'bias' else 'weight'}"] = _tensor(
+            value, (CONVT if transposed else CONV) if kind == "kernel" else None)
+    return sd
+
+
 def load_jax_params(model, params):
     r"""Copies JAX parameters into ``model`` (strict: every key on both sides
-    must match): a parameter tree of EF-ConvLSTM, EF-TrajGRU or PredRNN++, or
-    UNet-3D's variables ``{"params", "batch_stats"}``; the model keeps its
-    device and dtype."""
+    must match): a parameter tree of EF-ConvLSTM, EF-TrajGRU, PredRNN++ or
+    PhyDNet, or UNet-3D's variables ``{"params", "batch_stats"}``; the model
+    keeps its device and dtype."""
     if isinstance(model, UNet3D):
         sd = unet3d_state_dict_from_jax(params)
     elif isinstance(model, PredRNN_V2):
         sd = predrnn_state_dict_from_jax(params)
+    elif isinstance(model, PhyDNet):
+        sd = phydnet_state_dict_from_jax(params)
     else:
         sd = ef_state_dict_from_jax(params)
     model.load_state_dict(sd, strict=True)
