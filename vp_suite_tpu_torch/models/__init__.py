@@ -1,13 +1,16 @@
 r"""Model registry of the port (the JAX package's ids; EF-ConvLSTM,
-EF-TrajGRU, UNet-3D, PredRNN++, PhyDNet and the CopyLastFrame baseline are
-ported so far; LSTM, ST-Phy, MinConvRNN, PredFormer and SimVP are not)."""
+EF-TrajGRU, UNet-3D, PredRNN++, PhyDNet, MinConvRNN, SimVP, PredFormer and
+the CopyLastFrame baseline are ported so far; LSTM and ST-Phy are not)."""
 import torch
 
 from vp_suite_tpu_torch.models.copy_last_frame import CopyLastFrame
+from vp_suite_tpu_torch.models.min_conv_rnn import MinConvRNN
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_conv_lstm import EF_ConvLSTM
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_traj_gru import EF_TrajGRU
 from vp_suite_tpu_torch.models.phydnet import PhyDNet
+from vp_suite_tpu_torch.models.pred_former import PredFormer
 from vp_suite_tpu_torch.models.predrnn_v2 import PredRNN_V2
+from vp_suite_tpu_torch.models.simvp import SimVP
 from vp_suite_tpu_torch.models.unet3d import UNet3D
 
 MODEL_CLASSES = {
@@ -17,6 +20,9 @@ MODEL_CLASSES = {
     "trajgru": EF_TrajGRU,
     "predrnn-pp": PredRNN_V2,
     "phy": PhyDNet,
+    "min-conv-rnn": MinConvRNN,
+    "pred-former": PredFormer,
+    "simvp": SimVP,
 }
 AVAILABLE_MODELS = MODEL_CLASSES.keys()
 

@@ -1,0 +1,110 @@
+r"""MinConvRNN (the JAX package's ``models/min_conv_rnn.py``): a convolutional
+RNN whose gates read only the input, so that the recurrence is linear in the
+hidden state and the whole context window is encoded as one batch.
+
+A strided conv encoder (two 3x3 stride-2 convs with ReLU) takes each frame
+to ``h/4 x w/4 x hidden_dim``; each of ``num_layers`` layers computes the
+gates ``f = sigmoid(conv3x3(z))`` and ``u = (1 - f) * tanh(conv3x3(z))`` of
+all context frames at once, runs ``h_t = f_t * h_{t-1} + u_t`` over time
+(:func:`linear_recurrence_scan`) and adds a 1x1 ``out`` conv of ``h`` to its
+input; two k4 s2 p1 transposed convs (ReLU between) decode a frame. The
+first prediction decodes the last context step; each later one encodes the
+previous prediction and advances every layer's state by one step.
+
+The model has no dtype of its own: it computes in its input's dtype (the
+train step casts the input to ``compute_dtype``), so under bf16 the gates,
+``1 - f`` and the recurrence run in bf16, as in the JAX package. Parameters:
+``enc1``, ``enc2``, ``layers.{i}.f`` / ``.g`` / ``.out``, ``dec1``, ``dec2``
+(torch layouts). The JAX package's ``context_mesh`` (the context scan
+sharded over devices) is not ported: a non-None value raises.
+"""
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vp_suite_tpu_torch.base.base_model import VPModel
+from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
+
+
+def linear_recurrence_scan(f, u, h0=None):
+    r"""``h_t = f_t * h_{t-1} + u_t`` over the first axis of ``f`` and ``u``
+    (``[t, ...]``), ``h_{-1} = h0`` (zeros by default); returns ``h``
+    ``[t, ...]``. A t-step loop: the JAX package's log-depth
+    ``associative_scan`` computes the same values with another rounding."""
+    h = u[0] if h0 is None else u[0] + f[0] * h0
+    hs = [h]
+    for t in range(1, f.shape[0]):
+        h = u[t] + f[t] * h
+        hs.append(h)
+    return torch.stack(hs)
+
+
+class _GatedLayer(nn.Module):
+    r"""One linear-recurrence layer: the gate convs ``f``, ``g`` and the 1x1 ``out``."""
+
+    def __init__(self, hd):
+        super().__init__()
+        self.f = Conv2d(hd, hd, 3, 1, 1)
+        self.g = Conv2d(hd, hd, 3, 1, 1)
+        self.out = Conv2d(hd, hd, 1)
+
+    def gates(self, z):
+        f = torch.sigmoid(self.f(z))
+        return f, (1.0 - f) * torch.tanh(self.g(z))
+
+
+class MinConvRNN(VPModel):
+    NAME = "MinConvRNN (time-parallel)"
+    PAPER_REFERENCE = "https://arxiv.org/abs/2006.12077"
+    MATCHES_REFERENCE = "N/A (no reference analog; TPU-native extra)"
+
+    num_layers = 2
+    hidden_dim = 64
+    context_mesh = None             #: not ported: must stay None
+
+    def __init__(self, **hparams):
+        super().__init__(**hparams)
+        if self.context_mesh is not None:
+            raise ValueError("MinConvRNN's context_mesh (the context scan sharded over "
+                             "devices) is not ported yet")
+        c, hd = self.img_c, self.hidden_dim
+        self.enc1 = Conv2d(c, hd // 2, 3, 2, 1)
+        self.enc2 = Conv2d(hd // 2, hd, 3, 2, 1)
+        self.layers = nn.ModuleList([_GatedLayer(hd) for _ in range(self.num_layers)])
+        self.dec1 = ConvTranspose2d(hd, hd // 2, 4, 2, 1)
+        self.dec2 = ConvTranspose2d(hd // 2, c, 4, 2, 1)
+
+    def _encode(self, frames):      # [n, h, w, c] -> [n, h/4, w/4, hd]
+        return F.relu(self.enc2(F.relu(self.enc1(frames))))
+
+    def _decode(self, z):           # [n, h/4, w/4, hd] -> [n, h, w, c]
+        return self.dec2(F.relu(self.dec1(z)))
+
+    def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False, **kwargs):
+        b, t_in = x.shape[:2]
+        c, ih, iw = self.img_shape
+        if tuple(x.shape[2:]) != (ih, iw, c):
+            raise ValueError(f"input image does not match specified size "
+                             f"(input: {tuple(x.shape[2:])}, required: {(ih, iw, c)})")
+        # the context, all steps at once, time-major [t, b, h/4, w/4, hd]
+        z = self._encode(x.reshape(b * t_in, ih, iw, c))
+        z = z.reshape(b, t_in, *z.shape[1:]).transpose(0, 1)
+        shape, flat = z.shape, (t_in * b, *z.shape[2:])
+        hs = []
+        for layer in self.layers:
+            f, u = layer.gates(z.reshape(flat))
+            h = linear_recurrence_scan(f.reshape(shape), u.reshape(shape))
+            hs.append(h[-1])
+            z = z + layer.out(h.reshape(flat)).reshape(shape)
+        # the rollout: one step of every layer per predicted frame
+        frame = self._decode(z[-1])
+        preds = [frame]
+        for _ in range(pred_frames - 1):
+            zz = self._encode(frame)
+            for i, layer in enumerate(self.layers):
+                f, u = layer.gates(zz)
+                hs[i] = f * hs[i] + u
+                zz = zz + layer.out(hs[i])
+            frame = self._decode(zz)
+            preds.append(frame)
+        return torch.stack(preds, dim=1), None

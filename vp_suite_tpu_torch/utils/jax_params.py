@@ -1,7 +1,9 @@
 r"""Carries parameters from the JAX package's layouts into the port's: the
-weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D, PredRNN++ and PhyDNet into the
-port's model, and the measure nets' flat dicts (LPIPS, I3D) into the port's
-parameter dicts.
+weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D, PredRNN++, PhyDNet, MinConvRNN,
+SimVP and PredFormer into the port's model, and the measure nets' flat dicts
+(LPIPS, I3D) into the port's parameter dicts; and the last three back into
+the JAX package's trees (``*_params_to_jax``), which have no torch mapping
+there.
 
 The JAX tree (``{"enc_rnn1": {...}, "enc_stage1": {layer: {"kernel",
 "bias"}}, ..., "dec_rnn1", ...}``, nested dicts of arrays) maps onto the
@@ -34,7 +36,15 @@ and ``.main.1`` ``weight`` / ``bias`` (transposed convs in the
 ``F_conv2`` -> ``F.conv1``, ``F.conv2``, ``F_bn1_scale`` / ``_bias`` ->
 ``F.bn1.weight`` / ``.bias``; ``convgate``, ``frame_action_conv``,
 ``hidden_action_conv``) and ``convcell{j}_conv`` ->
-``convcell.cell_list.{j}.conv``.
+``convcell.cell_list.{j}.conv``. MinConvRNN's and SimVP's flat names
+(``{name}_kernel`` / ``_bias``, GroupNorm ``{name}_scale`` / ``_bias``) keep
+``name``, but for MinConvRNN's ``l{i}_{f,g,out}`` -> ``layers.{i}.{f,g,out}``
+and SimVP's ``t{i}_{red,mid,exp,gn1,gn2}`` -> ``translator.{i}.{...}``; the
+``dec*`` convs are transposed. PredFormer's nested tree keeps its names
+(``block{i}`` -> ``blocks.{i}``; LayerNorm ``scale`` -> ``weight``); an
+attention's ``query`` / ``key`` / ``value`` kernels ``[d, heads, head_dim]``
+become ``[heads * head_dim, d]`` (biases flattened) and its ``out`` kernel
+``[heads, head_dim, d]`` becomes ``[d, heads * head_dim]``.
 
 Layouts: conv ``[kh, kw, in, out] -> [out, in, kh, kw]``, convT ``[kh, kw,
 in, out] -> [in, out, kh, kw]``, peephole ``[h, w, c] -> [1, c, h, w]``, 3-D
@@ -46,14 +56,23 @@ import re
 import numpy as np
 import torch
 
+from vp_suite_tpu_torch.models.min_conv_rnn import MinConvRNN
 from vp_suite_tpu_torch.models.phydnet import PhyDNet
+from vp_suite_tpu_torch.models.pred_former import PredFormer
 from vp_suite_tpu_torch.models.predrnn_v2 import PredRNN_V2
+from vp_suite_tpu_torch.models.simvp import SimVP
 from vp_suite_tpu_torch.models.unet3d import UNet3D
 
 
 def _tensor(a, axes=None):
     a = np.array(a, dtype=np.float32)  # a writable copy
     return torch.from_numpy(np.ascontiguousarray(a if axes is None else a.transpose(axes)))
+
+
+def _array(t):
+    r"""An f32 numpy copy of a tensor (a copy: JAX may read a numpy array
+    without copying it, after the port has updated the tensor in place)."""
+    return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
 TRAJGRU_CONVS = ("i2h", "i2f_conv1", "h2f_conv1", "flows_conv", "ret")
@@ -186,17 +205,144 @@ def phydnet_state_dict_from_jax(params) -> dict:
     return sd
 
 
+def _flat_conv_state_dict(params, group):
+    r"""The port's ``state_dict`` for flat conv and GroupNorm params
+    (``{name}_kernel``, ``_bias``, ``_scale``; ``dec*`` kernels transposed),
+    with the blocks ``{jax}{i}_{name}`` of ``group = (jax, port)`` as
+    ``{port}.{i}.{name}``."""
+    jax_group, port_group = group
+    sd = {}
+    for key, value in params.items():
+        name, kind = key.rsplit("_", 1)
+        m = re.fullmatch(rf"{jax_group}(\d+)_(\w+)", name)
+        port = f"{port_group}.{m[1]}.{m[2]}" if m else name
+        if kind == "kernel":
+            sd[f"{port}.weight"] = _tensor(value, CONVT if name.startswith("dec") else CONV)
+        else:
+            sd[f"{port}.{'weight' if kind == 'scale' else 'bias'}"] = _tensor(value)
+    return sd
+
+
+def _flat_conv_params(state_dict, group):
+    r"""The inverse of :func:`_flat_conv_state_dict`: flat JAX params (f32 numpy)."""
+    jax_group, port_group = group
+    params = {}
+    for key, value in state_dict.items():
+        port, kind = key.rsplit(".", 1)
+        m = re.fullmatch(rf"{port_group}\.(\d+)\.(\w+)", port)
+        name = f"{jax_group}{m[1]}_{m[2]}" if m else port
+        v = _array(value)
+        if v.ndim == 4:
+            perm = CONVT if name.startswith("dec") else CONV
+            params[f"{name}_kernel"] = v.transpose(np.argsort(perm))
+        else:
+            params[f"{name}_{'scale' if kind == 'weight' else 'bias'}"] = v
+    return params
+
+
+def min_conv_rnn_state_dict_from_jax(params) -> dict:
+    r"""The port's MinConvRNN ``state_dict`` for the JAX model's flat params."""
+    return _flat_conv_state_dict(params, ("l", "layers"))
+
+
+def min_conv_rnn_params_to_jax(state_dict) -> dict:
+    r"""The JAX MinConvRNN's flat params for the port's ``state_dict``."""
+    return _flat_conv_params(state_dict, ("l", "layers"))
+
+
+def simvp_state_dict_from_jax(params) -> dict:
+    r"""The port's SimVP ``state_dict`` for the JAX model's flat params."""
+    return _flat_conv_state_dict(params, ("t", "translator"))
+
+
+def simvp_params_to_jax(state_dict) -> dict:
+    r"""The JAX SimVP's flat params for the port's ``state_dict``."""
+    return _flat_conv_params(state_dict, ("t", "translator"))
+
+
+def _flax_layers(sd, prefix, tree):
+    r"""Adds the port's entries for a flax subtree: an attention (``query``,
+    ``key``, ``value``, ``out`` DenseGenerals), a LayerNorm (``scale``), a
+    Dense (``kernel``), or a dict of those."""
+    if "query" in tree:
+        d, heads, hd = np.shape(tree["query"]["kernel"])
+        for proj in ("query", "key", "value"):
+            sd[f"{prefix}.{proj}.weight"] = _tensor(
+                np.reshape(tree[proj]["kernel"], (d, heads * hd)), DENSE)
+            sd[f"{prefix}.{proj}.bias"] = _tensor(np.reshape(tree[proj]["bias"], -1))
+        sd[f"{prefix}.out.weight"] = _tensor(np.reshape(tree["out"]["kernel"], (heads * hd, d)),
+                                             DENSE)
+        sd[f"{prefix}.out.bias"] = _tensor(tree["out"]["bias"])
+    elif "scale" in tree:
+        sd[f"{prefix}.weight"] = _tensor(tree["scale"])
+        sd[f"{prefix}.bias"] = _tensor(tree["bias"])
+    elif "kernel" in tree:
+        _weight_bias(sd, prefix, tree, DENSE)
+    else:
+        for name, sub in tree.items():
+            _flax_layers(sd, f"{prefix}.{name}", sub)
+
+
+def pred_former_state_dict_from_jax(params) -> dict:
+    r"""The port's PredFormer ``state_dict`` for the JAX model's params."""
+    sd = {}
+    for name, value in params.items():
+        if name.startswith("pos_"):
+            sd[name] = _tensor(value)
+        else:
+            _flax_layers(sd, f"blocks.{name[5:]}" if name.startswith("block") else name, value)
+    return sd
+
+
+def pred_former_params_to_jax(state_dict, heads) -> dict:
+    r"""The JAX PredFormer's params (nested dicts of f32 numpy) for the port's
+    ``state_dict`` of a model with ``heads`` attention heads."""
+    params = {}
+    for key, value in state_dict.items():
+        v = _array(value)
+        path = key.split(".")
+        if path[0] == "blocks":
+            path = [f"block{path[1]}"] + path[2:]
+        *parents, kind = path
+        if not parents:                     # pos_spatial, pos_temporal
+            params[kind] = v
+            continue
+        leaf = "kernel" if kind == "weight" else "bias"
+        if len(parents) > 1 and parents[-2].startswith("attn"):
+            if kind == "bias":
+                v = v if parents[-1] == "out" else v.reshape(heads, -1)
+            elif parents[-1] == "out":      # [d, heads * hd] -> [heads, hd, d]
+                v = v.T.reshape(heads, -1, v.shape[0])
+            else:                           # [heads * hd, d] -> [d, heads, hd]
+                v = v.T.reshape(v.shape[1], heads, -1)
+        elif parents[-1].startswith("ln"):
+            leaf = "scale" if kind == "weight" else "bias"
+        elif kind == "weight":
+            v = v.T
+        node = params
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = v
+    return params
+
+
 def load_jax_params(model, params):
     r"""Copies JAX parameters into ``model`` (strict: every key on both sides
-    must match): a parameter tree of EF-ConvLSTM, EF-TrajGRU, PredRNN++ or
-    PhyDNet, or UNet-3D's variables ``{"params", "batch_stats"}``; the model
-    keeps its device and dtype."""
+    must match): a parameter tree of EF-ConvLSTM, EF-TrajGRU, PredRNN++,
+    PhyDNet, MinConvRNN, SimVP or PredFormer, or UNet-3D's variables
+    ``{"params", "batch_stats"}``; the model keeps its device and dtype."""
     if isinstance(model, UNet3D):
         sd = unet3d_state_dict_from_jax(params)
     elif isinstance(model, PredRNN_V2):
         sd = predrnn_state_dict_from_jax(params)
     elif isinstance(model, PhyDNet):
         sd = phydnet_state_dict_from_jax(params)
+    elif isinstance(model, MinConvRNN):
+        sd = min_conv_rnn_state_dict_from_jax(params)
+    elif isinstance(model, SimVP):
+        sd = simvp_state_dict_from_jax(params)
+    elif isinstance(model, PredFormer):
+        sd = pred_former_state_dict_from_jax(params)
     else:
         sd = ef_state_dict_from_jax(params)
     model.load_state_dict(sd, strict=True)
