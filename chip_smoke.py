@@ -112,7 +112,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     8/16/32/64), PredRNN++ (``"predrnn-pp"``: 3 ST-LSTM layers of 128,
     4x4 patches, 5x5 filters, ``reverse_input``, so a train step runs 2b=64),
     PhyDNet (``"phy"``), MinConvRNN (``"min-conv-rnn"``), SimVP (``"simvp"``,
-    ``in_frames=5``) and PredFormer (``"pred-former"``)
+    ``in_frames=5``), PredFormer (``"pred-former"``), ST-Phy (``"st-phy"``)
+    and the encoder-LSTM-decoder (``"lstm"``)
     at b=32, 64x64, 5 -> 10, bf16, under PyTorch's default TF32 flags (a
     user's): ``predict`` and the Adam train step with every kernel's launch
     count set to 0 just before and held at 0 just after (no such model
@@ -120,8 +121,12 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     steps after 2) and one profiled call of each; the loss falls at each of 7
     steps and PredRNN++'s schedule is exactly the one 7 steps leave; at b=2
     in f32 (TF32 off), ``predict`` and one SGD step on the card against the
-    CPU, with UNet-3D's running statistics and PredRNN++'s schedule, and the
-    bf16 ``predict`` of PhyDNet and the last three against the CPU's f32; then
+    CPU, with UNet-3D's running statistics and PredRNN++'s schedule (PhyDNet's
+    step with f64 activations on both sides; PhyDNet's and ST-Phy's f32
+    steps' distances from each other and from f64), and the bf16 ``predict``
+    of PhyDNet and the last five against the CPU's f32; ST-Phy's and LSTM's
+    action-conditional f32 ``predict`` (3 action channels) on the card
+    against the CPU; then
     one facade run per model
     (``load_dataset("MMF")`` -> ``create_model`` -> ``train`` of 2 steps on
     the card's batches -> ``load_model``, whose ``predict`` must equal the
@@ -1557,14 +1562,39 @@ def drive_suite_test(run_dirs):
 #: widths 32/64), and MinConvRNN (2 layers of 64 channels at
 #: 16x16), SimVP (hid_s 64, hid_t 256, 4 blocks, ``in_frames=5`` as
 #: ``bench.py`` sets it) and PredFormer (8x8 patches, dim 256, depth 4, 4
-#: heads) at their defaults; their convolutions and matmuls go to cuDNN and
-#: cuBLAS, as the JAX package leaves them to XLA.
+#: heads), ST-Phy (3 layers of 64-channel ST-LSTM cells and 7x7 PhyCells of
+#: 49 on 12x12 codes) and the encoder-LSTM-decoder (a 1024 bottleneck, 3 LSTM
+#: layers of 1024) at their defaults; their convolutions and matmuls go to
+#: cuDNN and cuBLAS, as the JAX package leaves them to XLA.
 NEW_MODELS = {"unet3d": ("unet-3d", dict(temporal_dim=3, features=(8, 16, 32, 64))),
               "predrnn": ("predrnn-pp", {}),
               "phydnet": ("phy", {}),
               "min_conv_rnn": ("min-conv-rnn", {}),
               "simvp": ("simvp", dict(in_frames=5)),
-              "pred_former": ("pred-former", {})}
+              "pred_former": ("pred-former", {}),
+              "st_phy": ("st-phy", {}),
+              "lstm": ("lstm", {})}
+#: the new models that take actions: their f32 ``predict`` with
+#: ``action_conditional=True`` and 3 action channels, card against CPU at b=2
+NEW_ACTIONS = ("st_phy", "lstm")
+
+
+def no_gradient(name, model):
+    r"""The parameters of new model ``name`` that no output or loss of a train
+    step reads, so that they get no gradient: ST-Phy's layers all read the
+    step's code and each layer's hidden conv replaces the latent of the one
+    before it (as in the JAX model), so the PhyCells and hidden convs below
+    the last layer feed nothing but the first PhyCell's F conv weight, which
+    the moment loss reads."""
+    if name != "st_phy":
+        return set()
+    top = model.num_layers - 1
+    return {k for k, _ in model.named_parameters()
+            if k.startswith(("phycell_list.", "hidden_conv_list."))
+            and not k.startswith((f"phycell_list.{top}.", f"hidden_conv_list.{top}."))
+            and k != "phycell_list.0.F.conv1.weight"}
+
+
 #: the new models whose bf16 ``predict`` on the card is also held against the
 #: CPU's f32 one at b=2, within ``PREDICT_ATOL_BF16`` times the largest |f32
 #: prediction| where that exceeds 1 (bf16 rounds relative to the values, and
@@ -1572,8 +1602,10 @@ NEW_MODELS = {"unet3d": ("unet-3d", dict(temporal_dim=3, features=(8, 16, 32, 64
 #: GroupNorms reduce bf16 activations (cuDNN-free ``F.group_norm``, f32
 #: statistics, one rounding); MinConvRNN's gates, ``1 - f`` and recurrence run
 #: in bf16; SimVP's GroupNorms; PredFormer's softmax in bf16, its LayerNorms'
-#: f32 statistics.
-NEW_BF16_PREDICT = ("phydnet", "min_conv_rnn", "simvp", "pred_former")
+#: f32 statistics; ST-Phy's LayerNorms over its bf16 gate convs (f32
+#: statistics) and its bf16 cells; LSTM's bf16 cells and its 16,384-long bf16
+#: products (cuBLAS accumulates them in f32 and rounds once).
+NEW_BF16_PREDICT = ("phydnet", "min_conv_rnn", "simvp", "pred_former", "st_phy", "lstm")
 #: the new models whose SGD step gate runs with f64 activations on both sides
 #: (``compute_dtype=torch.float64``, f32 parameters): PhyDNet's f32 gradient at
 #: b=2 is ill-conditioned (GroupNorms over near-constant groups at the zero
@@ -1585,6 +1617,13 @@ NEW_BF16_PREDICT = ("phydnet", "min_conv_rnn", "simvp", "pred_former")
 #: are each held against the CPU's f64 one instead: the card's no further from
 #: it than twice the CPU's own (or ``NEW_STEP_REL``).
 NEW_STEP_F64 = ("phydnet",)
+#: the new models whose step also runs on the CPU with f64 activations and in
+#: f32 on one thread, and whose f32 steps' distances from each other and from
+#: f64 are printed: the witness of their conditioning. ST-Phy's f32 steps lie
+#: 2.7e-4 and 3.3e-4 (CPU, card) of the largest from f64, but its f32 runs
+#: part by only 1.3e-5 (the CPU on one thread and on eight) and 6.2e-5 (the
+#: card and the CPU) on an H100's machine, so its gate is the direct one.
+NEW_STEP_WITNESS = NEW_STEP_F64 + ("st_phy",)
 #: steps of each new model's facade run (one epoch on the card's batches)
 NEW_SUITE_STEPS = 2
 #: UNet-3D's BatchNorm running statistics after one f32 SGD step, card against
@@ -1625,8 +1664,9 @@ def _worst_step_diff(got, want):
 
 def _new_model(suite, name, **kw):
     model_id, cfg = NEW_MODELS[name]
-    return suite.create_model(model_id, img_shape=IMG, action_size=0,
-                              tensor_value_range=(0.0, 1.0), seed=SEED, **{**cfg, **kw})
+    return suite.create_model(model_id, **{"img_shape": IMG, "action_size": 0,
+                                           "tensor_value_range": (0.0, 1.0), "seed": SEED,
+                                           **cfg, **kw})
 
 
 def _median_ms(fn, n):
@@ -1709,7 +1749,11 @@ def _time_new_model(name, frames, batch, run_config):
     _, metrics = step(state, batch)
     _zero_launches(name, "one train step", counters)
     losses = [float(metrics["total"])]
+    unread = no_gradient(name, model)
     for pname, p in model.named_parameters():
+        if pname in unread:
+            check(p.grad is None, f"{name}: parameter {pname}, which nothing reads, has a gradient")
+            continue
         check(p.grad is not None and p.grad.dtype == torch.float32
               and bool(torch.isfinite(p.grad).all()),
               f"{name}: parameter {pname} has no finite f32 gradient after a step")
@@ -1760,15 +1804,17 @@ def tf32_flags(cudnn, matmul):
 
 
 def drive_new_models(dev, tf32_defaults):
-    r"""UNet-3D, PredRNN++, PhyDNet, MinConvRNN, SimVP and PredFormer at bench
-    width (b=32, 64x64 RGB, 5 -> 10, bf16 over f32 parameters, random weights
-    from the seed): ``predict`` and the Adam train step (PhyDNet's at epoch 0,
-    teacher-forced) with every kernel's launch count set to 0 just before and
-    held at 0 just after, their latencies and one profiled call each, under
+    r"""UNet-3D, PredRNN++, PhyDNet, MinConvRNN, SimVP, PredFormer, ST-Phy and
+    LSTM at bench width (b=32, 64x64 RGB, 5 -> 10, bf16 over f32 parameters,
+    random weights from the seed): ``predict`` and the Adam train step
+    (PhyDNet's and ST-Phy's at epoch 0, teacher-forced) with every kernel's
+    launch count set to 0 just before and held at 0 just after, their
+    latencies and one profiled call each, under
     PyTorch's default TF32 flags ``tf32_defaults``; the card against the CPU
     in f32 at b=2 with TF32 off (``predict``, one SGD step, UNet-3D's running
     statistics, PredRNN++'s schedule; the bf16 ``predict`` of
-    ``NEW_BF16_PREDICT`` too); and one short facade run per model
+    ``NEW_BF16_PREDICT`` too; the action-conditional ``predict`` of
+    ``NEW_ACTIONS``); and one short facade run per model
     (``load_dataset`` -> ``create_model`` -> ``train`` -> ``load_model``)."""
     import shutil
     import torch
@@ -1798,7 +1844,11 @@ def drive_new_models(dev, tf32_defaults):
     for device, precision, kw, names in (("cuda", "f32", dict(compute_dtype=torch.float32),
                                           NEW_MODELS), ("cpu", "f32", {}, NEW_MODELS),
                                          ("cuda", "f64", f64, NEW_STEP_F64),
-                                         ("cpu", "f64", f64, NEW_STEP_F64)):
+                                         ("cpu", "f64", f64, NEW_STEP_WITNESS),
+                                         ("cpu", "f32 one thread", {}, NEW_STEP_WITNESS)):
+        threads = torch.get_num_threads()
+        if precision == "f32 one thread":
+            torch.set_num_threads(1)
         suite = VPSuite(device=device)
         for name in names:
             # PredRNN++ from sampling_stop_iter on: all-zero masks, so that the
@@ -1817,18 +1867,25 @@ def drive_new_models(dev, tf32_defaults):
                                        {k: ((p0[k] - v.detach()) / lr).cpu()
                                         for k, v in model.named_parameters()},
                                        stats, state.model_state)
+        torch.set_num_threads(threads)
     for name in NEW_MODELS:
         card, host = results[(name, "cuda", "f32")], results[(name, "cpu", "f32")]
         d_pred = (card[0] - host[0]).abs().max().item()
         step_of = "f32"
-        if name in NEW_STEP_F64:
-            step_of = "f64 activations"
+        if name in NEW_STEP_WITNESS:
             ref = results[(name, "cpu", "f64")][2]
             w_card, _ = _worst_step_diff(card[2], ref)
             w_cpu, _ = _worst_step_diff(host[2], ref)
+            w_one, _ = _worst_step_diff(results[(name, "cpu", "f32 one thread")][2], host[2])
+            w_direct, _ = _worst_step_diff(card[2], host[2])
             print(f"[train] {name} f32 SGD step against the CPU's with f64 activations: card "
-                  f"{w_card:.3g}, CPU {w_cpu:.3g} of the largest (p0-p1)/lr (the card's limit "
-                  f"{max(2 * w_cpu, NEW_STEP_REL):.3g})")
+                  f"{w_card:.3g}, CPU {w_cpu:.3g} of the largest (p0-p1)/lr; f32 runs apart: "
+                  f"the CPU on one thread from the CPU on {torch.get_num_threads()} threads "
+                  f"{w_one:.3g}, the card from the CPU {w_direct:.3g}")
+        if name in NEW_STEP_F64:
+            step_of = "f64 activations"
+            print(f"[train] {name}: the card's f32 step from f64 within "
+                  f"{max(2 * w_cpu, NEW_STEP_REL):.3g} (twice the CPU's, or {NEW_STEP_REL})")
             check(w_card <= max(2 * w_cpu, NEW_STEP_REL),
                   f"{name}: the card's f32 step is further from f64 than the CPU's")
             worst, worst_name = _worst_step_diff(results[(name, "cuda", "f64")][2], ref)
@@ -1854,6 +1911,29 @@ def drive_new_models(dev, tf32_defaults):
             print(f"[predict] {name} b=2: card bf16 against the CPU f32, max diff {d16:.3g} "
                   f"(limit {limit:.3g}: {PREDICT_ATOL_BF16} x max(1, |f32| max {largest:.3g}))")
             check(d16 <= limit, f"{name}: bf16 predict on the card disagrees with the CPU")
+
+    # the action-conditional models, f32 b=2: the card's predict against the CPU's
+    actions = torch.rand((2, CTX + PRED, 3), generator=gen)
+    for name in NEW_ACTIONS:
+        preds = []
+        for device in ("cuda", "cpu"):
+            suite = VPSuite(device=device)
+            _new_model(suite, name, action_conditional=True, action_size=3,
+                       compute_dtype=torch.float32)
+            counters = reset_counts()
+            preds.append(suite.predict(small[:, :CTX], actions=actions, pred_frames=PRED).cpu())
+            if device == "cuda":
+                _zero_launches(name, "one action-conditional predict", counters)
+        unconditioned = suite.predict(small[:, :CTX], actions=torch.zeros_like(actions),
+                                      pred_frames=PRED)
+        d_act = (preds[0] - preds[1]).abs().max().item()
+        moved = (preds[1] - unconditioned).abs().max().item()
+        print(f"[predict] {name} action-conditional (3 channels) f32 b=2, card against CPU: "
+              f"max diff {d_act:.3g} (atol {PREDICT_ATOL_F32}); the actions move the CPU's "
+              f"prediction by {moved:.3g}")
+        check(d_act <= PREDICT_ATOL_F32 and moved > 0.0,
+              f"{name}: the action-conditional predict on the card disagrees with the CPU, or "
+              f"ignores the actions")
 
     # the facade: load_dataset -> create_model -> train -> load_model
     out_root = ROOT / "vp-suite-data" / "chip_smoke_new"

@@ -1,4 +1,5 @@
-r"""The layers of UNet-3D, PredRNN++ and PhyDNet on a CUDA card against the CPU.
+r"""The layers of UNet-3D, PredRNN++ and PhyDNet, and ST-Phy and the
+encoder-LSTM-decoder whole, on a CUDA card against the CPU.
 
 These tests need an NVIDIA card and skip without one. They import neither
 JAX nor the JAX package, so they run on a machine that has neither:
@@ -19,7 +20,9 @@ conv, the ndrplz ConvLSTM cell and the PhyCell step (its 7x7 F conv, K = 49
 within 1e-5, in bf16 within 2^-7 of the largest of the CPU's f32 output on
 the same bf16-rounded input: the affine parameters are cast to bf16 and the
 output is rounded to bf16 (statistics in f32), each rounding at most 2^-8
-of its value.
+of its value. ST-Phy and LSTM at their defaults (64x64, 5 -> 10, b=2), plain
+and with 3 action channels, their eval-mode f32 forward with TF32 off within
+1e-4 of the CPU's.
 """
 import copy
 
@@ -30,6 +33,7 @@ from vp_suite_tpu_torch.model_blocks.conv import DCGANConv, DCGANConvTranspose
 from vp_suite_tpu_torch.model_blocks.conv_lstm_ndrplz import ConvLSTMCellNdrplz
 from vp_suite_tpu_torch.model_blocks.phydnet import PhyCellCell
 from vp_suite_tpu_torch.model_blocks.predrnn import SpatioTemporalLSTMCell
+from vp_suite_tpu_torch.models import build_model
 from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv3d, GroupNorm
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +161,31 @@ def test_phydnet_cells_match_cpu(cuda_default_tf32):
     got = copy.deepcopy(lstm).to(dev)(frame.to(dev), (h.to(dev), c.to(dev)))
     for name, w, x in zip(("h", "c"), want, got):
         assert _rel(x.detach(), w.detach()) <= TF32_REL, name
+
+
+@pytest.fixture()
+def cuda_no_tf32():
+    r"""The card, with TF32 off in cuDNN and cuBLAS while the test runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("ac", [False, True], ids=["plain", "action_conditional"])
+@pytest.mark.parametrize("model_id", ["st-phy", "lstm"])
+def test_new_models_match_cpu(cuda_no_tf32, model_id, ac):
+    kw = dict(img_shape=(3, 64, 64), action_size=3 if ac else 0, tensor_value_range=(0.0, 1.0),
+              action_conditional=ac)
+    host = build_model(model_id, 0, "cpu", **kw)
+    card = build_model(model_id, 0, cuda_no_tf32, **kw)
+    g = torch.Generator().manual_seed(12)
+    x, actions = torch.rand((2, 5, 64, 64, 3), generator=g), torch.rand((2, 15, 3), generator=g)
+    with torch.no_grad():
+        want, _ = host(x, pred_frames=10, actions=actions)
+        got, _ = card(x.to(cuda_no_tf32), pred_frames=10, actions=actions.to(cuda_no_tf32))
+    assert got.shape == want.shape == (2, 10, 64, 64, 3)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -43,7 +43,7 @@ from vp_suite_tpu.ops.image import resize_bilinear as jax_resize
 from vp_suite_tpu.utils import torch_import
 from vp_suite_tpu_torch.kernels.phydnet_variants import UniformPhyDNet
 from vp_suite_tpu_torch.model_blocks import phydnet as blocks
-from vp_suite_tpu_torch.model_blocks._functional import group_norm
+from vp_suite_tpu_torch.nn.functional import group_norm
 from vp_suite_tpu_torch.model_blocks.conv import DCGANConv, DCGANConvTranspose
 from vp_suite_tpu_torch.model_blocks.conv_lstm_ndrplz import (ConvLSTMCellNdrplz,
                                                               convlstm_ndrplz_gates)

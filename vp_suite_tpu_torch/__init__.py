@@ -6,10 +6,11 @@ models take ``img_shape=(c, h, w)`` and :meth:`VPSuite.predict` returns
 with the reference vp-suite's ``state_dict`` names and layouts where it has
 the model, activations stay NHWC, and the ConvLSTM and TrajGRU hot paths run
 hand-written Hopper kernels (:mod:`vp_suite_tpu_torch.ops`). Ported so far:
-nine of the JAX package's eleven registry models (EF-ConvLSTM, EF-TrajGRU,
-UNet-3D, PredRNN++, PhyDNet, MinConvRNN, SimVP, PredFormer and the
-CopyLastFrame baseline; not LSTM and ST-Phy) with their training regimes
-(:mod:`vp_suite_tpu_torch.training`), and the facade on on-the-fly Moving
+all eleven registry models of the JAX package (EF-ConvLSTM, EF-TrajGRU,
+UNet-3D, PredRNN++, PhyDNet, ST-Phy, MinConvRNN, SimVP, PredFormer, the
+encoder-LSTM-decoder and the CopyLastFrame baseline) with their training
+regimes (:mod:`vp_suite_tpu_torch.training`), the block registry
+(:mod:`vp_suite_tpu_torch.model_blocks`), and the facade on on-the-fly Moving
 MNIST: :meth:`VPSuite.load_dataset`, :meth:`VPSuite.create_model`,
 :meth:`VPSuite.train`, :meth:`VPSuite.load_model`, :meth:`VPSuite.test` with
 the whole measure set, and :meth:`VPSuite.predict`.

@@ -27,7 +27,7 @@ default TF32 flags, ``RUNS`` times from the same seed at 5 -> 10 and at
 the loss falls, and how far runs of the same step part.
 
 The lowerings compute the same function: ``"cudnn"`` is the library's
-:func:`~vp_suite_tpu_torch.model_blocks._functional.conv3d` (``F.conv3d`` on a
+:func:`~vp_suite_tpu_torch.nn.functional.conv3d` (``F.conv3d`` on a
 ``channels_last_3d`` view), ``"banded"`` the JAX package's time-in-channels
 lowering (:func:`conv3d_banded`), which covers UNet-3D's two kernel shapes only.
 """
@@ -37,7 +37,7 @@ import time
 
 import torch
 
-from vp_suite_tpu_torch.model_blocks._functional import conv2d, conv3d
+from vp_suite_tpu_torch.nn.functional import conv2d, conv3d
 from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv3d
 
 B, CTX, PRED, IMG, SEED = 32, 5, 10, (3, 64, 64), 0
@@ -68,7 +68,7 @@ def _banded_kernel(weight, td, padding_mode):
 
 
 def conv3d_banded(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
-    r""":func:`~vp_suite_tpu_torch.model_blocks._functional.conv3d` as one 2-D
+    r""":func:`~vp_suite_tpu_torch.nn.functional.conv3d` as one 2-D
     conv over ``[n, h, w, d*in]``: the kernels ``(d, 1, 1)`` without padding
     (the time-collapsing skip, a 1x1 conv) and ``(3, kh, kw)`` with depth
     padding 1 (:func:`_banded_kernel`), stride 1."""

@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
-from vp_suite_tpu_torch.model_blocks._functional import dcgan_step
+from vp_suite_tpu_torch.nn.functional import dcgan_step
 from vp_suite_tpu_torch.nn.layers import BatchNorm, Conv2d, Conv3d, ConvTranspose2d, GroupNorm
 
 

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
-from vp_suite_tpu_torch.model_blocks._functional import conv2d
+from vp_suite_tpu_torch.nn.functional import conv2d
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.cells import convlstm_gate_fuse
 from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_fused

@@ -30,27 +30,11 @@ import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
-from vp_suite_tpu_torch.model_blocks.conv import DCGANConv, DCGANConvTranspose
 from vp_suite_tpu_torch.model_blocks.conv_lstm_ndrplz import ConvLSTMCellNdrplz
+from vp_suite_tpu_torch.model_blocks.enc import (DCGANDecoder, DCGANEncoder, DecoderSplit,
+                                                 EncoderSplit)
 from vp_suite_tpu_torch.model_blocks.phydnet import (PhyCell, inflate_action, k2m_matrices,
                                                      moment_constraints, moment_loss)
-from vp_suite_tpu_torch.nn.layers import ConvTranspose2d
-from vp_suite_tpu_torch.ops.image import resize_bilinear
-
-
-class _Blocks(nn.Module):
-    r"""Named blocks applied in order (the reference's encoder and decoder
-    modules: ``c1``, ``c2``, ... or ``upc1``, ``upc2``, ...)."""
-
-    def __init__(self, **blocks):
-        super().__init__()
-        for name, block in blocks.items():
-            self.add_module(name, block)
-
-    def forward(self, x):
-        for block in self.children():
-            x = block(x)
-        return x
 
 
 class _CellList(nn.Module):
@@ -81,17 +65,12 @@ class PhyDNet(VPModel):
     def __init__(self, **hparams):
         super().__init__(**hparams)
         c, ac = self.img_c, self.action_conditional
-        self.encoder_E = _Blocks(c1=DCGANConv(c, 32, 2), c2=DCGANConv(32, 32, 1),
-                                 c3=DCGANConv(32, 64, 2))
-        self.encoder_Ep = _Blocks(c1=DCGANConv(64, 64, 1), c2=DCGANConv(64, 64, 1))
-        self.encoder_Er = _Blocks(c1=DCGANConv(64, 64, 1), c2=DCGANConv(64, 64, 1))
-        self.decoder_Dp = _Blocks(upc1=DCGANConvTranspose(64, 64, 1),
-                                  upc2=DCGANConvTranspose(64, 64, 1))
-        self.decoder_Dr = _Blocks(upc1=DCGANConvTranspose(64, 64, 1),
-                                  upc2=DCGANConvTranspose(64, 64, 1))
-        self.decoder_D = _Blocks(upc1=DCGANConvTranspose(64, 32, 2),
-                                 upc2=DCGANConvTranspose(32, 32, 1),
-                                 upc3=ConvTranspose2d(32, c, 3, 2, 1, output_padding=1))
+        self.encoder_E = DCGANEncoder(c, 32)
+        self.encoder_Ep = EncoderSplit(64, 64)
+        self.encoder_Er = EncoderSplit(64, 64)
+        self.decoder_Dp = DecoderSplit(64, 64)
+        self.decoder_Dr = DecoderSplit(64, 64)
+        self.decoder_D = DCGANDecoder((self.img_h, self.img_w), c, 32)
         self.phycell = PhyCell(64, ac, self.action_size, self.phycell_channels,
                                self.phycell_n_layers, self.phycell_kernel_size)
         cells, in_dim = [], 64 + (self.action_size if ac else 0)
@@ -134,10 +113,7 @@ class PhyDNet(VPModel):
         return phy_h, new_h, new_c
 
     def _decode(self, phy, conv):
-        y = self.decoder_D(self.decoder_Dp(phy) + self.decoder_Dr(conv))
-        if y.shape[1:3] != (self.img_h, self.img_w):
-            y = resize_bilinear(y, (self.img_h, self.img_w))
-        return torch.sigmoid(y)
+        return torch.sigmoid(self.decoder_D(self.decoder_Dp(phy) + self.decoder_Dr(conv)))
 
     def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False,
                 teacher_forcing=False, **kwargs):

@@ -21,33 +21,39 @@ import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
-from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
+from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, max_pool_2d
 from vp_suite_tpu_torch.utils.models import conv_output_shape, convtransp_output_shape
 
 
 class ConvStage(nn.Module):
     r"""A conv subnet stage built from string-keyed layer specs
     ``(name, (in_c, out_c, k, s, p))``, as the reference's ``_make_layers``.
-    Names choose the op and activation: 'deconv*' or 'conv*', and 'identity'
-    (skipped); '*leaky*' adds LeakyReLU(0.2), '*relu*' ReLU. Input and output
-    are ``[n, h, w, c]``."""
+    Names choose the op and activation: 'pool*' (a max pool, spec ``(window,
+    stride, padding)``), 'deconv*' or 'conv*', and 'identity' (skipped);
+    '*leaky*' adds LeakyReLU(0.2), '*relu*' ReLU. Input and output are
+    ``[n, h, w, c]``."""
 
     def __init__(self, layers):
         super().__init__()
-        self.layer_names = []
+        self.layer_names, self.pools = [], {}
         for name, v in layers:
             if "identity" in name:
                 continue
-            if "deconv" in name:
+            if "pool" in name:
+                self.pools[name] = tuple(v[:3])
+            elif "deconv" in name:
                 self.add_module(name, ConvTranspose2d(v[0], v[1], v[2], v[3], v[4]))
             elif "conv" in name:
                 self.add_module(name, Conv2d(v[0], v[1], v[2], v[3], v[4]))
             else:
-                raise NotImplementedError(f"unknown or unported layer spec name: {name}")
+                raise NotImplementedError(f"unknown layer spec name: {name}")
             self.layer_names.append(name)
 
     def forward(self, x):
         for name in self.layer_names:
+            if name in self.pools:
+                x = max_pool_2d(x, *self.pools[name])
+                continue
             x = getattr(self, name)(x)
             if "relu" in name:
                 x = F.relu(x)

@@ -86,9 +86,7 @@ class UNet3D(VPModel):
             cur = torch.cat([cur, inflated], dim=-1)
         cur = self.bottleneck(cur, train)
         for up_t, up_c, skip in zip(self.ups[0::2], self.ups[1::2], reversed(skips)):
-            cur = up_t(cur)
-            if cur.shape[1:3] != skip.shape[1:3]:
-                cur = resize_bilinear(cur, skip.shape[1:3])
+            cur = resize_bilinear(up_t(cur), skip.shape[1:3])
             cur = up_c(torch.cat([skip, cur], dim=-1), train)
         return self.final_conv(cur)
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vp_suite_tpu_torch.model_blocks._functional import (conv2d, conv3d, conv_transpose2d,
+from vp_suite_tpu_torch.nn.functional import (conv2d, conv3d, conv_transpose2d,
                                                          group_norm, layer_norm_chw)
 
 
@@ -146,9 +146,9 @@ class BatchNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
-def max_pool_2d(x, window=2):
-    r"""Max pooling over ``(h, w)`` of ``[..., h, w, c]``, window = stride,
-    no padding (odd sizes are floored)."""
+def max_pool_2d(x, window=2, strides=None, padding=0):
+    r"""Max pooling over ``(h, w)`` of ``[..., h, w, c]``; ``strides``
+    defaults to ``window``; ``padding`` pads with -inf (sizes are floored)."""
     *lead, h, w, c = x.shape
-    y = F.max_pool2d(x.reshape(-1, h, w, c).permute(0, 3, 1, 2), window)
+    y = F.max_pool2d(x.reshape(-1, h, w, c).permute(0, 3, 1, 2), window, strides, padding)
     return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[2:], c)

@@ -1,9 +1,9 @@
 r"""Carries parameters from the JAX package's layouts into the port's: the
-weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D, PredRNN++, PhyDNet, MinConvRNN,
-SimVP and PredFormer into the port's model, and the measure nets' flat dicts
-(LPIPS, I3D) into the port's parameter dicts; and the last three back into
-the JAX package's trees (``*_params_to_jax``), which have no torch mapping
-there.
+weights of EF-ConvLSTM, EF-TrajGRU, UNet-3D, PredRNN++, PhyDNet, ST-Phy,
+LSTM, MinConvRNN, SimVP and PredFormer into the port's model, and the
+measure nets' flat dicts (LPIPS, I3D) into the port's parameter dicts; and
+the last five models' weights and the model blocks' back into the JAX
+package's trees (``*_params_to_jax``, ``block_params_to_jax``).
 
 The JAX tree (``{"enc_rnn1": {...}, "enc_stage1": {layer: {"kernel",
 "bias"}}, ..., "dec_rnn1", ...}``, nested dicts of arrays) maps onto the
@@ -44,7 +44,9 @@ and SimVP's ``t{i}_{red,mid,exp,gn1,gn2}`` -> ``translator.{i}.{...}``; the
 (``block{i}`` -> ``blocks.{i}``; LayerNorm ``scale`` -> ``weight``); an
 attention's ``query`` / ``key`` / ``value`` kernels ``[d, heads, head_dim]``
 become ``[heads * head_dim, d]`` (biases flattened) and its ``out`` kernel
-``[heads, head_dim, d]`` becomes ``[d, heads * head_dim]``.
+``[heads, head_dim, d]`` becomes ``[d, heads * head_dim]``. ST-Phy's and
+LSTM's flat names map by the rules ``ST_PHY_KEYS`` and ``LSTM_KEYS``, both
+ways: the inverses of ``_import_st_phy`` and ``_import_lstm``.
 
 Layouts: conv ``[kh, kw, in, out] -> [out, in, kh, kw]``, convT ``[kh, kw,
 in, out] -> [in, out, kh, kw]``, peephole ``[h, w, c] -> [1, c, h, w]``, 3-D
@@ -56,12 +58,15 @@ import re
 import numpy as np
 import torch
 
+from vp_suite_tpu_torch.models.lstm import LSTM
 from vp_suite_tpu_torch.models.min_conv_rnn import MinConvRNN
 from vp_suite_tpu_torch.models.phydnet import PhyDNet
 from vp_suite_tpu_torch.models.pred_former import PredFormer
 from vp_suite_tpu_torch.models.predrnn_v2 import PredRNN_V2
 from vp_suite_tpu_torch.models.simvp import SimVP
+from vp_suite_tpu_torch.models.st_phy import STPhy
 from vp_suite_tpu_torch.models.unet3d import UNet3D
+from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, GroupNorm
 
 
 def _tensor(a, axes=None):
@@ -326,10 +331,133 @@ def pred_former_params_to_jax(state_dict, heads) -> dict:
     return params
 
 
+#: ``{name}`` placeholders of the key rules below and what each matches
+_FIELDS = {"i": r"\d+", "n": r"\d+", "l": "[xhamo]", "d": "[hw]", "g": "ih|hh",
+           "c": "convgate|frame_action_conv|hidden_action_conv",
+           "lin": "to_linear|from_linear|action_inflate"}
+
+
+def _layer(jax, port, axes):
+    return [(f"{jax}_kernel", f"{port}.weight", axes), (f"{jax}_bias", f"{port}.bias", None)]
+
+
+def _norm(jax, port, axes):
+    return [(f"{jax}_scale", f"{port}.weight", axes), (f"{jax}_bias", f"{port}.bias", axes)]
+
+
+#: (JAX key, port key, the JAX -> port transpose) of ST-Phy's flat params
+ST_PHY_KEYS = [
+    *_layer("ae_enc_conv{n}", "autoencoder.encoder.conv{n}", CONV),
+    *_layer("ae_enc_mean", "autoencoder.encoder.mean_layer", CONV),
+    *_layer("ae_dec_fc1", "autoencoder.decoder.fc1", CONV),
+    *_layer("ae_dec_conv{n}", "autoencoder.decoder.conv{n}", CONVT),
+    *_layer("st_cell{i}_conv_last", "st_cell_list.{i}.conv_last", CONV),
+    *_layer("st_cell{i}_conv_{l}", "st_cell_list.{i}.conv_{l}.0", CONV),
+    *_norm("st_cell{i}_ln_{l}", "st_cell_list.{i}.conv_{l}.1", LN_CHW),
+    *_layer("phycell{i}_F_conv{n}", "phycell_list.{i}.F.conv{n}", CONV),
+    *_norm("phycell{i}_F_bn1", "phycell_list.{i}.F.bn1", None),
+    *_layer("phycell{i}_{c}", "phycell_list.{i}.{c}", CONV),
+    *_layer("hidden_conv{i}", "hidden_conv_list.{i}", CONV),
+    ("adapter_kernel", "adapter.weight", CONV),
+    ("action_inflate_kernel", "action_inflate.weight", DENSE),
+    ("action_conv_{d}_kernel", "action_conv_{d}.weight", CONV),
+]
+#: the same for LSTM's
+LSTM_KEYS = [
+    *_layer("enc{n}", "enc{n}", CONV),
+    *_layer("dec{n}", "dec{n}", CONVT),
+    *_layer("{lin}", "{lin}", DENSE),
+    ("lstm{i}_w_{g}", "rnn_layers.{i}.weight_{g}", DENSE),
+    ("lstm{i}_b_{g}", "rnn_layers.{i}.bias_{g}", None),
+]
+
+
+def _key_pattern(fmt):
+    parts = re.split(r"\{(\w+)\}", fmt)
+    return "".join(re.escape(p) if k % 2 == 0 else f"(?P<{p}>{_FIELDS[p]})"
+                   for k, p in enumerate(parts))
+
+
+def _rename(key, rules, src):
+    r"""``(key on the other side, JAX -> port transpose)`` of ``key`` on side
+    ``src`` (0 JAX, 1 port) by the first rule that matches it."""
+    for rule in rules:
+        if m := re.fullmatch(_key_pattern(rule[src]), key):
+            return rule[1 - src].format(**m.groupdict()), rule[2]
+    raise ValueError(f"no rule maps the parameter {key}")
+
+
+def _state_dict_by_rules(params, rules):
+    sd = {}
+    for key, value in params.items():
+        port, axes = _rename(key, rules, 0)
+        sd[port] = _tensor(value, axes)
+    return sd
+
+
+def _params_by_rules(state_dict, rules):
+    params = {}
+    for key, value in state_dict.items():
+        name, axes = _rename(key, rules, 1)
+        v = _array(value)
+        params[name] = v if axes is None else v.transpose(np.argsort(axes))
+    return params
+
+
+def st_phy_state_dict_from_jax(params) -> dict:
+    r"""The port's ST-Phy ``state_dict`` for the JAX model's flat params (the
+    inverse of the JAX package's ``torch_import._import_st_phy``)."""
+    return _state_dict_by_rules(params, ST_PHY_KEYS)
+
+
+def st_phy_params_to_jax(state_dict) -> dict:
+    r"""The JAX ST-Phy's flat params (f32 numpy copies) for the port's ``state_dict``."""
+    return _params_by_rules(state_dict, ST_PHY_KEYS)
+
+
+def lstm_state_dict_from_jax(params) -> dict:
+    r"""The port's LSTM ``state_dict`` for the JAX model's flat params (the
+    inverse of ``torch_import._import_lstm``)."""
+    return _state_dict_by_rules(params, LSTM_KEYS)
+
+
+def lstm_params_to_jax(state_dict) -> dict:
+    r"""The JAX LSTM's flat params (f32 numpy copies) for the port's ``state_dict``."""
+    return _params_by_rules(state_dict, LSTM_KEYS)
+
+
+def block_params_to_jax(block) -> dict:
+    r"""The JAX counterpart's params (f32 numpy copies) of a port model block
+    built of ``Conv2d``, ``ConvTranspose2d`` and ``GroupNorm`` layers (the
+    blocks of ``model_blocks/enc.py`` and ``conv.py``'s DCGAN convs, nested
+    flax trees, a DCGAN conv's ``main.0`` / ``main.1`` as ``conv`` / ``gn``;
+    ``ConvLSTMNdrplz``, whose ``cell_list.{i}.conv`` is ``cell{i}_conv``)."""
+    params = {}
+    for name, module in block.named_modules():
+        if isinstance(module, GroupNorm):
+            leaf = {"scale": _array(module.weight), "bias": _array(module.bias)}
+        elif isinstance(module, (Conv2d, ConvTranspose2d)):
+            axes = CONVT if isinstance(module, ConvTranspose2d) else CONV
+            leaf = {"kernel": _array(module.weight).transpose(np.argsort(axes))}
+            if module.bias is not None:
+                leaf["bias"] = _array(module.bias)
+        else:
+            continue
+        if m := re.fullmatch(r"cell_list\.(\d+)\.conv", name):
+            params.update({f"cell{m[1]}_conv_{k}": v for k, v in leaf.items()})
+            continue
+        *parents, last = name.replace("main.0", "conv").replace("main.1", "gn").split(".")
+        node = params
+        for parent in parents:
+            node = node.setdefault(parent, {})
+        node[last] = leaf
+    return params
+
+
 def load_jax_params(model, params):
     r"""Copies JAX parameters into ``model`` (strict: every key on both sides
     must match): a parameter tree of EF-ConvLSTM, EF-TrajGRU, PredRNN++,
-    PhyDNet, MinConvRNN, SimVP or PredFormer, or UNet-3D's variables
+    PhyDNet, ST-Phy, LSTM, MinConvRNN, SimVP or PredFormer, or UNet-3D's variables
     ``{"params", "batch_stats"}``; the model keeps its device and dtype."""
     if isinstance(model, UNet3D):
         sd = unet3d_state_dict_from_jax(params)
@@ -337,6 +465,10 @@ def load_jax_params(model, params):
         sd = predrnn_state_dict_from_jax(params)
     elif isinstance(model, PhyDNet):
         sd = phydnet_state_dict_from_jax(params)
+    elif isinstance(model, STPhy):
+        sd = st_phy_state_dict_from_jax(params)
+    elif isinstance(model, LSTM):
+        sd = lstm_state_dict_from_jax(params)
     elif isinstance(model, MinConvRNN):
         sd = min_conv_rnn_state_dict_from_jax(params)
     elif isinstance(model, SimVP):
