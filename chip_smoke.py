@@ -97,7 +97,22 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     every measure on the card against the CPU on one (pred, target) pair of
     the run; prints each ``test`` call's wall time and the device time of
     LPIPS, FVD (I3D) and SSIM on one batch under the profiler;
-13. times each kernel at the shapes its path gives it, beside its plain
+13. drives the file-backed data layer: writes a KTH tree at KTH's shape (6
+    classes x 22 persons, 40 64x64 frames each; grey and RGB PNGs whose rows
+    cycle through all five PNG filters), a BAIR tree (272 sequences of 30
+    64x64 frames and 4-d actions) and a KITTI raw tree (3 drives of 30
+    375x1242 PNGs) under ``vp-suite-data/chip_smoke/``; reads a sample of the
+    PNGs back bit for bit; ``load_dataset("KTH")`` -> ``create_model`` (bf16)
+    -> ``train`` (b=32, 5 -> 10, 2 epochs) with ``hbm_cache="on"`` (the
+    training and validation sets staged in the card's memory) and again with
+    ``"off"`` (the host loader), K1/K2 counts held exactly, frames/s of each;
+    one epoch of cached batches against the host loader's on the card; the
+    same on BAIR on the fused path (K3s/K4), then a brief ``test`` of its
+    checkpoint (K3 for each of 10 batches); KITTI items at 128x160 (ms per
+    item); and one epoch of on-the-fly Moving MNIST's native backend (the C
+    generator; an item the same read twice and from two threads) beside the
+    numpy and device backends; then deletes what it wrote;
+14. times each kernel at the shapes its path gives it, beside its plain
     version, its bound and the one PyTorch call that computes the same
     function (``F.grid_sample`` for the warp, ``torch.einsum`` for K9's
     forward; for K8, whose fused function no one call computes,
@@ -108,7 +123,7 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     EF-TrajGRU's ``predict`` and the warp forward's and backward's in its
     train step under the profiler.
 
-14. drives UNet-3D (``create_model("unet-3d", temporal_dim=3)``, features
+15. drives UNet-3D (``create_model("unet-3d", temporal_dim=3)``, features
     8/16/32/64), PredRNN++ (``"predrnn-pp"``: 3 ST-LSTM layers of 128,
     4x4 patches, 5x5 filters, ``reverse_input``, so a train step runs 2b=64),
     PhyDNet (``"phy"``), MinConvRNN (``"min-conv-rnn"``), SimVP (``"simvp"``,
@@ -521,6 +536,7 @@ def main():
     serve = drive_serving(suite, scan_launches)
     train = drive_training()
     drive_suite_test(drive_suite_train(dev))
+    drive_file_datasets(dev)
 
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
@@ -1555,6 +1571,289 @@ def drive_suite_test(run_dirs):
     SETTINGS._run_path = smoke_run_path
     shutil.rmtree(out_root, ignore_errors=True)
     print(f"[suite] the test phase took {time.time() - t_phase:.1f} s")
+
+#: the file-backed phase (``drive_file_datasets``): its datasets are written
+#: under ``vp-suite-data/chip_smoke/data`` in each loader's own format.
+#: KTH at its own shape: 6 classes x (20 training + 2 test persons), one
+#: video of 40 64x64 frames each (96 sequences train, 24 validate); a third of
+#: the videos grey PNGs, the rest RGB.
+KTH_PERSONS = (20, 2)
+KTH_FRAMES = 40
+#: BAIR: 256 training and 16 test sequences of 30 64x64 RGB frames, 4-d actions
+#: (245 train, 11 validate).
+BAIR_SEQS = (256, 16)
+#: KITTI raw: 3 drives of 30 frames at 375x1242 (one drive per split), read at
+#: PredNet's 128x160.
+KITTI_DRIVES, KITTI_FRAMES, KITTI_IMG = 3, 30, (128, 160)
+#: PNG filter types the smoke's encoder cycles through, row by row
+PNG_FILTERS = 5
+#: epochs of each KTH and BAIR run, with the cache and without (the last one's
+#: frames/s is reported: the first of a run also stages the cache)
+FILE_EPOCHS = 2
+
+
+def encode_png(pixels):
+    r"""A PNG file's bytes for ``[h, w]`` (grey) or ``[h, w, 3]`` (RGB) uint8
+    pixels: row y filtered with type y mod 5 (None, Sub, Up, Average, Paeth),
+    so that a reader must undo every filter, one IDAT chunk."""
+    import struct
+    import zlib
+    import numpy as np
+    grey = pixels.ndim == 2
+    h, w = pixels.shape[:2]
+    c = 1 if grey else pixels.shape[2]
+    x = pixels.reshape(h, w * c).astype(np.int16)
+    a, b, ul = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, c:], b[1:], ul[1:, c:] = x[:, :-c], x[:-1], x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    kinds = np.arange(h) % PNG_FILTERS
+    rows = ((x - preds[kinds, np.arange(h)]) % 256).astype(np.uint8)
+    body = np.concatenate([kinds[:, None].astype(np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(body, 1)) + chunk(b"IEND", b""))
+
+
+def _moving_pattern(rng, frames, h, w, grey):
+    r"""``frames`` frames of a random coarse pattern (8x8 cells) drifting by a
+    few pixels a frame, with a little noise: uint8 ``[t, h, w(, 3)]``."""
+    import numpy as np
+    cell = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 1 if grey else 3)).astype(np.uint8)
+    base = np.kron(cell, np.ones((8, 8, 1), np.uint8))
+    dy, dx = rng.integers(-3, 4, 2)
+    out = np.stack([np.roll(base, (t * dy, t * dx), axis=(0, 1))[:h, :w] for t in range(frames)])
+    out = np.clip(out.astype(np.int16) + rng.integers(-8, 9, out.shape), 0, 255).astype(np.uint8)
+    return out[..., 0] if grey else out
+
+
+def write_file_datasets(root):
+    r"""Writes the KTH, BAIR and KITTI trees under ``root``; returns
+    ``{path: pixels}`` of a sample of the PNGs written (each KTH video's first
+    and last frames, each KITTI drive's first), and the seconds each took."""
+    import numpy as np
+    from vp_suite_tpu_torch.datasets.kth import KTHActionsDataset, build_kth_metadata
+    rng = np.random.default_rng(SEED + 19)
+    sample, seconds = {}, {}
+    t0 = time.time()
+    processed = root / "kth" / "processed"
+    for ci, c in enumerate(KTHActionsDataset.CLASSES):
+        persons = list(range(1, KTH_PERSONS[0] + 1)) + list(range(21, 21 + KTH_PERSONS[1]))
+        for person in persons:
+            vid_dir = processed / c / f"person{person:02d}_{c}_d1"
+            vid_dir.mkdir(parents=True)
+            video = _moving_pattern(rng, KTH_FRAMES, 64, 64, grey=(person + ci) % 3 == 0)
+            for f, frame in enumerate(video):
+                fp = vid_dir / f"image-{f + 1:03d}_64x64.png"
+                fp.write_bytes(encode_png(frame))
+                if f in (0, KTH_FRAMES - 1):
+                    sample[fp] = frame
+    build_kth_metadata(processed, KTHActionsDataset.CLASSES)
+    seconds["KTH"] = time.time() - t0
+
+    t0 = time.time()
+    for split, n in zip(("train", "test"), BAIR_SEQS):
+        d = root / "bair" / "softmotion30_44k" / split
+        d.mkdir(parents=True)
+        for i in range(n):
+            np.save(d / f"seq_{i:05d}_obs.npy", _moving_pattern(rng, 30, 64, 64, grey=False))
+            np.save(d / f"seq_{i:05d}_actions.npy", rng.standard_normal((30, 4)).astype(np.float32))
+    seconds["BAIR"] = time.time() - t0
+
+    t0 = time.time()
+    for drive in range(KITTI_DRIVES):
+        d = (root / "kitti" / "2011_09_26" / f"2011_09_26_drive_{drive + 1:04d}_sync"
+             / "image_02" / "data")
+        d.mkdir(parents=True)
+        video = _moving_pattern(rng, KITTI_FRAMES, 375, 1242, grey=False)
+        for f, frame in enumerate(video):
+            fp = d / f"{f:010d}.png"
+            fp.write_bytes(encode_png(frame))
+            if f == 0:
+                sample[fp] = frame
+    seconds["KITTI"] = time.time() - t0
+    return sample, seconds
+
+
+def drive_file_datasets(dev):
+    r"""The file-backed data layer on the card: writes KTH, BAIR and KITTI
+    trees in their loaders' formats (PNGs by :func:`encode_png`), reads a
+    sample of the PNGs back bit for bit; ``load_dataset("KTH")`` ->
+    ``create_model("convlstm-shi")`` (bf16, full width) -> ``train`` (b=32,
+    5 -> 10) for one epoch through the device-memory cache (``hbm_cache="on"``)
+    and one through the host loader (``"off"``), with K1/K2 counts held
+    exactly, and one epoch's cached batches against the host loader's on the
+    card; the same on BAIR on the fused path (K3s/K4), then ``test`` of its
+    checkpoint (K3); KITTI items at 128x160; one epoch of MMF's native
+    backend beside the numpy and device backends. Deletes what it wrote."""
+    import concurrent.futures as cf
+    import shutil
+    import numpy as np
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.datasets import KITTIRawDataset, MovingMNISTOnTheFly
+    from vp_suite_tpu_torch.defaults import SETTINGS
+    from vp_suite_tpu_torch.training.data import BatchLoader, HBMCachedLoader, device_prefetch
+    from vp_suite_tpu_torch.utils.image_io import read_png
+    t_phase = time.time()
+    root = ROOT / "vp-suite-data" / "chip_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    sample, seconds = write_file_datasets(data)
+    print("[files] wrote KTH (" + f"{6 * sum(KTH_PERSONS) * KTH_FRAMES} PNGs of 64x64), BAIR ("
+          f"{sum(BAIR_SEQS)} sequences), KITTI ({KITTI_DRIVES * KITTI_FRAMES} PNGs of 375x1242) "
+          f"in " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+
+    # the decoder: every filter type, grey and RGB, bit for bit
+    for fp, pixels in sample.items():
+        got = read_png(fp)
+        check(got.dtype == np.uint8 and np.array_equal(got, pixels),
+              f"read_png({fp}) is not the encoded pixels")
+        rgb = read_png(fp, color=True)
+        check(np.array_equal(rgb, np.repeat(pixels[..., None], 3, -1) if pixels.ndim == 2
+                             else pixels), f"read_png({fp}, color=True) is not the pixels in RGB")
+    print(f"[files] read_png: {len(sample)} PNGs (grey and RGB, rows filtered with all "
+          f"{PNG_FILTERS} types) equal the encoded pixels bit for bit")
+
+    smoke_run_path = SETTINGS._run_path
+    run_kw = dict(batch_size=B, context_frames=CTX, pred_frames=PRED, no_vis=True,
+                  no_wandb=True, epochs=FILE_EPOCHS)
+    runs = {}
+    for name, dataset_id, path in (("KTH", "KTH", "per_step"), ("BAIR", "BAIR", "fused_scan")):
+        suite = VPSuite()
+        wrapper = suite.load_dataset(dataset_id, data_dir=str(data / name.lower()),
+                                     img_size=IMG[1])
+        entry = suite.create_model(PATHS[path][0], compute_dtype=torch.bfloat16, seed=SEED,
+                                   **PATHS[path][1])
+        check(entry.model.img_shape == IMG, f"{name}: the model took img_shape "
+              f"{entry.model.img_shape} from the dataset, not {IMG}")
+        steps = len(wrapper.train_data) // B
+        fps = {}
+        for cache in ("on", "off"):
+            out = root / "runs" / f"{name}_{cache}"
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            suite.train(hbm_cache=cache, out_dir=str(out), **run_kw)
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            want = want_suite_launches(path, FILE_EPOCHS, steps)
+            print(f"[files] train {name} hbm_cache={cache!r}, {FILE_EPOCHS} epochs of {steps} "
+                  f"steps: kernel "
+                  "launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+            check(launches == want, f"{name} hbm_cache={cache!r}: train launched {launches}, "
+                  f"not {want}")
+            with open(out / "metrics.jsonl") as f:
+                val = [json.loads(line)["mse"] for line in f]
+            check(len(val) == FILE_EPOCHS and all(map(math.isfinite, val)),
+                  f"{name}: validation losses {val}")
+            fps[cache] = entry.train_epoch_fps[-1]
+            runs.setdefault(name, out)
+        print(f"[files] train {name} ({path}) bf16 b={B} {CTX}->{PRED} at {IMG[1]}x{IMG[2]}, "
+              f"{len(wrapper.train_data)} training sequences: frames/s of the last epoch "
+              f"{fps['on']:.1f} through the device-memory cache, {fps['off']:.1f} through the "
+              f"host loader ({fps['on'] / fps['off']:.2f}x)")
+
+        # one epoch's cached batches against the host loader's, on the card
+        train_data = wrapper.train_data
+        cache = HBMCachedLoader(train_data, B, suite.device)
+        order = cache.epoch_order(SEED + 1)
+        host = device_prefetch((BatchLoader(train_data, B, uint8_frames=True)._stack(
+            [train_data[int(i)] for i in order[s:s + B]]) for s in range(0, steps * B, B)),
+            suite.device)
+        n = 0
+        for got, want in zip(cache.epoch_iterator(SEED + 1), host):
+            check(got["frames"].device == suite.device and got["frames"].dtype == torch.uint8,
+                  f"{name}: a cached batch is {got['frames'].dtype} on {got['frames'].device}")
+            check(torch.equal(got["frames"].float() / 255.0, want["frames"].float() / 255.0)
+                  and torch.equal(got["actions"], want["actions"]),
+                  f"{name}: cached batch {n} is not the host loader's")
+            n += 1
+        check(n == steps, f"{name}: {n} cached batches, not {steps}")
+        print(f"[files] {name}: the {n} cached batches of an epoch equal the host loader's "
+              f"batches of the same sequences on the card, bit for bit after dequantisation "
+              f"({cache.nbytes / 2**20:.1f} MB staged)")
+        del cache
+
+    # test of BAIR's fused checkpoint: K3 for each of the 10 batches
+    suite = VPSuite()
+    entry = suite.load_model(str(runs["BAIR"]), "best_model")
+    suite.load_dataset("BAIR", split="test", data_dir=str(data / "bair"), img_size=IMG[1])
+    SETTINGS._run_path = root / "test_runs"
+    try:
+        torch.cuda.synchronize()
+        counters = reset_counts()
+        t0 = time.perf_counter()
+        (results,) = suite.test(brief_test=True, context_frames=CTX, pred_frames=PRED,
+                                metrics="all", no_vis=True, no_wandb=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        SETTINGS._run_path = smoke_run_path
+    print(f"[files] test BAIR (fused) brief: kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()) + f"; {wall:.2f} s")
+    check(launches == WANT_TEST_LAUNCHES["fused_scan"],
+          f"BAIR test launched {launches}, not {WANT_TEST_LAUNCHES['fused_scan']}")
+    check(list(results) == [entry.NAME, "CopyLastFrame"] and all(
+        len(h) == PRED and all(math.isfinite(v) for d in h for v in d.values())
+        for h in results.values()), f"BAIR test results {results}")
+    print(f"[files] test BAIR: {entry.NAME} at horizon {PRED}: "
+          + ", ".join(f"{k.split()[0]} {v:.4g}" for k, v in results[entry.NAME][-1].items()))
+
+    # KITTI items at PredNet's size
+    kitti = KITTIRawDataset("train", data_dir=str(data / "kitti"), img_size=KITTI_IMG)
+    kitti.set_seq_len(CTX, PRED, 1)
+    t0 = time.perf_counter()
+    items = [kitti[i] for i in range(len(kitti))]
+    per_item = (time.perf_counter() - t0) / len(items) * 1e3
+    for it in items:
+        f = it["frames"]
+        check(f.shape == (CTX + PRED, *KITTI_IMG, 3) and f.dtype == np.float32
+              and np.isfinite(f).all() and 0.0 <= f.min() and f.max() <= 1.0,
+              f"KITTI item frames {f.shape} {f.dtype} in [{f.min()}, {f.max()}]")
+    print(f"[files] KITTI: {len(items)} items of {CTX + PRED} 375x1242 PNGs resized to "
+          f"{KITTI_IMG[0]}x{KITTI_IMG[1]}: {per_item:.1f} ms per item "
+          f"({per_item / (CTX + PRED):.2f} ms per frame, one thread)")
+
+    # MMF's native backend: one epoch beside the numpy and device backends
+    n_seqs = 4 * B
+    rates = {}
+    for backend in ("numpy", "native"):
+        ds = MovingMNISTOnTheFly("train", img_size=IMG[1], digit_source="synthetic",
+                                 backend=backend, n_seqs=n_seqs)
+        ds.set_seq_len(CTX, PRED, 1)
+        t0 = time.perf_counter()
+        n = sum(b["frames"].shape[0] for b in BatchLoader(ds, B, shuffle=True, drop_last=True,
+                                                           uint8_frames=True))
+        rates[backend] = n * (CTX + PRED) / (time.perf_counter() - t0)
+        if backend == "native":
+            once, twice = ds[7]["frames"], ds[7]["frames"]
+            with cf.ThreadPoolExecutor(max_workers=2) as pool:
+                a, b = pool.map(lambda i: ds[i]["frames"], (7, 7))
+            check(np.array_equal(once, twice) and np.array_equal(a, once)
+                  and np.array_equal(b, once) and once.max() > 0.1,
+                  "native MMF item 7 differs between reads or threads")
+    ds = MovingMNISTOnTheFly("train", img_size=IMG[1], digit_source="synthetic",
+                             backend="device", n_seqs=n_seqs)
+    ds.set_seq_len(CTX, PRED, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(b["frames"].shape[0] for b in ds.device_batch_iterator(B, n_seqs // B, SEED, dev))
+    torch.cuda.synchronize()
+    rates["device"] = n * (CTX + PRED) / (time.perf_counter() - t0)
+    print(f"[files] MMF one epoch of {n_seqs} sequences ({CTX + PRED} 64x64 frames, b={B}): "
+          + ", ".join(f"{k} {v:.1f} frames/s" for k, v in rates.items())
+          + " (numpy and native: BatchLoader's 4 threads and uint8 stacking; device: the card's "
+          "generator); native item 7 the same read twice and from two threads")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[files] the file-backed phase took {time.time() - t_phase:.1f} s")
 
 #: the models that reach no port kernel, at bench width: name -> (registry id,
 #: configuration). UNet-3D and PredRNN++ (slice 14), PhyDNet (slice 15, its

@@ -118,10 +118,11 @@ def test_mmf_errors_equal_jax():
             cls("train", digit_source="synthetic", img_size=(16, 32))
         with pytest.raises(ValueError, match="num_channels"):
             cls("train", digit_source="synthetic", num_channels=2)
-    with pytest.raises(NotImplementedError, match="native"):
-        MovingMNISTOnTheFly("train", digit_source="synthetic", backend="native")
-    with pytest.raises(NotImplementedError, match="crop"):
-        MovingMNISTOnTheFly("train", digit_source="synthetic", crop=object())
+    for cls in (JaxMMF, MovingMNISTOnTheFly):
+        with pytest.raises(ValueError, match="'crop'"):
+            cls("train", digit_source="synthetic", crop=object())
+    with pytest.raises(ValueError, match="backend"):
+        MovingMNISTOnTheFly("train", digit_source="synthetic", backend="cuda")
 
 
 def test_preprocess_and_postprocess_equal_jax():

@@ -10,10 +10,13 @@ all eleven registry models of the JAX package (EF-ConvLSTM, EF-TrajGRU,
 UNet-3D, PredRNN++, PhyDNet, ST-Phy, MinConvRNN, SimVP, PredFormer, the
 encoder-LSTM-decoder and the CopyLastFrame baseline) with their training
 regimes (:mod:`vp_suite_tpu_torch.training`), the block registry
-(:mod:`vp_suite_tpu_torch.model_blocks`), and the facade on on-the-fly Moving
-MNIST: :meth:`VPSuite.load_dataset`, :meth:`VPSuite.create_model`,
-:meth:`VPSuite.train`, :meth:`VPSuite.load_model`, :meth:`VPSuite.test` with
-the whole measure set, and :meth:`VPSuite.predict`.
+(:mod:`vp_suite_tpu_torch.model_blocks`), the datasets but for the three
+that decode videos (on-the-fly and stored Moving MNIST, BAIR, KTH, KITTI raw,
+SynPick; :mod:`vp_suite_tpu_torch.datasets`), and the facade:
+:meth:`VPSuite.load_dataset`, :meth:`VPSuite.create_model`,
+:meth:`VPSuite.train` (file-backed sets staged in the card's memory),
+:meth:`VPSuite.load_model`, :meth:`VPSuite.test` with the whole measure set,
+and :meth:`VPSuite.predict`.
 """
 from vp_suite_tpu_torch.__about__ import __version__
 from vp_suite_tpu_torch.vpsuite import VPSuite

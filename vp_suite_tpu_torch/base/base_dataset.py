@@ -91,13 +91,20 @@ class VPDataset:
         transforms = []
         set_from_kwarg(self, dataset_kwargs, "value_range_min")
         set_from_kwarg(self, dataset_kwargs, "value_range_max")
-        for name in ("crop", "augmentations"):
-            if dataset_kwargs.get(name):
-                raise NotImplementedError(f"the '{name}' transforms are not ported yet "
-                                          f"(they come with the file-backed datasets)")
+
+        crop = dataset_kwargs.get("crop", None)
+        crop_out_hw = None
+        if crop is not None:
+            if type(crop) not in T.CROPS:
+                raise ValueError(f"for the parameter 'crop', only the following transforms "
+                                 f"are allowed: {T.CROPS}")
+            transforms.append(crop)
+            crop_out_hw = crop.size
 
         img_size = dataset_kwargs.get("img_size", None)
         h, w, c = self.DATASET_FRAME_SHAPE
+        if crop_out_hw is not None:
+            h, w = crop_out_hw
         if img_size is None:
             h_, w_ = h, w
         elif isinstance(img_size, int):
@@ -110,6 +117,13 @@ class VPDataset:
         self.img_shape = (c, h_, w_)
         if (h, w) != (h_, w_):
             transforms.append(T.Resize((h_, w_)))
+
+        augmentations = dataset_kwargs.get("augmentations", [])
+        for aug in augmentations:
+            if type(aug) not in T.SHAPE_PRESERVING_AUGMENTATIONS:
+                raise ValueError(f"within the parameter 'augmentations', only the following "
+                                 f"transformations are allowed: {T.SHAPE_PRESERVING_AUGMENTATIONS}")
+            transforms.append(aug)
 
         self.transform = T.Identity() if len(transforms) == 0 else T.Compose(transforms)
         self.ready_for_usage = False

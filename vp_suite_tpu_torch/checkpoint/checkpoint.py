@@ -21,7 +21,7 @@ import torch
 
 from vp_suite_tpu_torch.models import MODEL_CLASSES, build_model
 from vp_suite_tpu_torch.training.train_state import create_train_state
-from vp_suite_tpu_torch.utils.utils import torch_dtype
+from vp_suite_tpu_torch.utils.utils import resolve_device, torch_dtype
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
@@ -59,9 +59,11 @@ def save_checkpoint(ckpt_dir, state, model_id: str, model_config: dict, run_conf
             json.dump(_jsonable(run_config), f, indent=2, default=str)
 
 
-def model_from_config(model_id: str, model_config: dict, device="cpu"):
+def model_from_config(model_id: str, model_config: dict, device="cuda"):
     r"""A registry model built from a configuration dict (``VPModel.config``
-    or its JSON form); its parameters are freshly initialised."""
+    or its JSON form) on ``device`` (the card unless the caller asks for the
+    CPU; raises without one); its parameters are freshly initialised."""
+    device = resolve_device(device, "model_from_config")
     cls = MODEL_CLASSES[model_id]
     names = set(cls.hparam_names())
     kwargs = {}
@@ -76,8 +78,10 @@ def model_from_config(model_id: str, model_config: dict, device="cpu"):
     return build_model(model_id, 0, device, **kwargs)
 
 
-def load_checkpoint(ckpt_dir, device="cpu"):
-    r"""``(model, state, model_id)`` from a checkpoint directory, on ``device``."""
+def load_checkpoint(ckpt_dir, device="cuda"):
+    r"""``(model, state, model_id)`` from a checkpoint directory, on ``device``
+    (the card unless the caller asks for the CPU; raises without one)."""
+    device = resolve_device(device, "load_checkpoint")
     ckpt_dir = Path(ckpt_dir)
     with open(ckpt_dir / "model_config.json", "r") as f:
         cfg = json.load(f)

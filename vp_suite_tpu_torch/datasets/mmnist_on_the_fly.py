@@ -7,17 +7,20 @@ reference), the same speed-sampling loops and bounce physics. Digit templates
 larger than the frame are shrunk by :func:`~vp_suite_tpu_torch.utils.transforms.area_resize`,
 which computes what the JAX package's ``cv2.resize(..., INTER_AREA)`` does.
 
-Backends: ``"numpy"`` draws every item on the host; ``"device"`` makes
+Backends: ``"numpy"`` draws every item on the host; ``"native"`` renders
+each item with the C generator (``native/mmnist_gen.c``, built at first use;
+without a C compiler the dataset raises), seeded by the split and the item's
+index, so an item does not depend on the order of reads; ``"device"`` makes
 ``VPSuite.train`` synthesise the training batches on the card
 (:mod:`~vp_suite_tpu_torch.datasets.mmnist_device`), while items (validation)
-still come from the numpy path. The JAX package's ``"native"`` C generator is
-not ported: it raises.
+still come from the numpy path.
 """
 import numpy as np
 
 from vp_suite_tpu_torch.base.base_dataset import VPData, VPDataset
 from vp_suite_tpu_torch.datasets._digits import open_digit_source
 from vp_suite_tpu_torch.defaults import SETTINGS
+from vp_suite_tpu_torch.native import generate_sequence_native, load_native
 from vp_suite_tpu_torch.utils.transforms import area_resize
 
 
@@ -32,7 +35,7 @@ class MovingMNISTOnTheFly(VPDataset):
     DEFAULT_N_SEQS = {"train": 9600, "val": 400, "test": 1000}
     SPLIT_SEED_OFFSETS = {"train": lambda x: 3 * x + 2, "val": lambda x: 3 * x + 1,
                           "test": lambda x: 3 * x}
-    BACKENDS = ("numpy", "device")
+    BACKENDS = ("numpy", "native", "device")
 
     min_speed = 2
     max_speed = 5
@@ -43,7 +46,8 @@ class MovingMNISTOnTheFly(VPDataset):
     rng_seed = 4115
     n_seqs = None
     digit_source = "auto"  #: 'auto' | 'mnist' | 'synthetic'
-    backend = "numpy"      #: 'numpy' | 'device' (training batches made on the card)
+    backend = "numpy"      #: 'numpy' | 'native' (the C generator) | 'device' (training
+    #: batches made on the card)
 
     def __init__(self, split, **dataset_kwargs):
         super().__init__(split, **dataset_kwargs)
@@ -54,11 +58,10 @@ class MovingMNISTOnTheFly(VPDataset):
                      "min_speed", "max_speed", "min_acc", "max_acc", "backend"]:
             if attr in dataset_kwargs:
                 setattr(self, attr, dataset_kwargs[attr])
-        if self.backend == "native":
-            raise NotImplementedError("MMF's backend='native' (the C generator) is not ported yet "
-                                      "(ROADMAP §1, the native generator)")
         if self.backend not in self.BACKENDS:
             raise ValueError(f"backend must be one of {self.BACKENDS}, not '{self.backend}'")
+        if self.backend == "native":
+            load_native()   # builds the C generator now; raises without a compiler
 
         if self.num_channels not in [1, 3]:
             raise ValueError("num_channels for dataset needs to be in [1, 3].")
@@ -74,6 +77,7 @@ class MovingMNISTOnTheFly(VPDataset):
             self.n_seqs = self.n_seqs.get(self.split)
         self.n_seqs = self.n_seqs or self.DEFAULT_N_SEQS[self.split]
         self.digit_id_rng = self.speed_rng = self.acc_rng = self.pos_rng = None
+        self._native_templates = None
         self.reset_rng()
 
     @classmethod
@@ -113,6 +117,8 @@ class MovingMNISTOnTheFly(VPDataset):
         if not self.ready_for_usage:
             raise RuntimeError("Dataset is not yet ready for usage "
                                "(maybe you forgot to call set_seq_len()).")
+        if self.backend == "native":
+            return self._getitem_native(i)
         digits, next_poses, speeds, digit_size = [], [], [], None
         for _ in range(self.num_digits):
             digit, pos, speed, digit_size = self._sample_digit()
@@ -136,6 +142,21 @@ class MovingMNISTOnTheFly(VPDataset):
 
         actions = np.zeros((self.total_frames, 1), dtype=np.float32)
         return {"frames": frames, "actions": actions, "origin": "generated on-the-fly"}
+
+    def _getitem_native(self, i) -> VPData:
+        r"""Item ``i`` from the C generator, seeded with ``(split seed << 20)
+        ^ (i + 1)``: the same for the same index whatever the order of reads."""
+        split_seed = self.SPLIT_SEED_OFFSETS[self.split](self.rng_seed)
+        if self._native_templates is None:   # shrunk once, as the frame size is fixed
+            self._native_templates = self._digit_templates()
+        seq = generate_sequence_native(
+            self._native_templates, self.seq_len, self.img_shape[1], self.num_channels,
+            self.num_digits, self.min_speed, self.max_speed,
+            seed=(split_seed << 20) ^ (i + 1))
+        frames = self.preprocess(seq.astype(np.float64) * 255.0)
+        actions = np.zeros((self.total_frames, 1), dtype=np.float32)
+        return {"frames": frames, "actions": actions,
+                "origin": "generated on-the-fly (native)"}
 
     def _digit_templates(self):
         r"""The digit bank as uint8 ``[n, ds, ds]``, shrunk as the numpy path

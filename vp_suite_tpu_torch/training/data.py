@@ -5,6 +5,8 @@ items that a thread pool fetches (numpy releases the interpreter lock), with
 the same seeded shuffle, ``drop_last`` and uint8 quantisation.
 ``device_prefetch`` copies each batch into pinned host memory and from there
 to the device without blocking, ``depth`` batches ahead of the consumer.
+``HBMCachedLoader`` stages a whole file-backed dataset in device memory once
+and serves each batch by a gather on the device.
 """
 import collections
 import concurrent.futures as cf
@@ -81,6 +83,71 @@ class BatchLoader:
                     pending.append(submit(starts[si]))
                     si += 1
                 yield self._stack([f.result() for f in futs])
+
+
+def estimate_cache_bytes(dataset, uint8_frames: bool) -> int:
+    r"""Device memory that :class:`HBMCachedLoader` takes for ``dataset``,
+    reckoned from its first item (``set_seq_len`` makes every item alike)."""
+    item = dataset[0]
+    frames = np.asarray(item["frames"])
+    actions = np.asarray(item["actions"])
+    frame_bytes = frames.size * (1 if uint8_frames else frames.dtype.itemsize)
+    return len(dataset) * (frame_bytes + actions.nbytes)
+
+
+class HBMCachedLoader:
+    r"""A small file-backed dataset held in the device's memory (the JAX
+    package's name; here the card's HBM).
+
+    Every item is read once, by the same thread pool as :class:`BatchLoader`;
+    the frames are stacked and quantised to uint8 exactly as ``BatchLoader``'s
+    ``uint8_frames`` path does it (the train step dequantises them), the
+    actions are stacked, and both are copied to ``device`` once. Each batch is
+    then an ``index_select`` on the device: per step the host sends only the
+    ``[b]`` indices, and epochs after the first never read a file.
+    """
+
+    def __init__(self, dataset, batch_size, device, *, uint8_frames=True, drop_last=True,
+                 num_workers=4):
+        n = len(dataset)
+        with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
+            items = list(pool.map(dataset.__getitem__, range(n)))
+        frames = np.stack([np.asarray(it["frames"]) for it in items], axis=0)
+        if uint8_frames and frames.dtype != np.uint8:
+            frames = np.clip(np.rint(frames * 255.0), 0, 255).astype(np.uint8)
+        actions = np.stack([np.asarray(it["actions"]) for it in items], axis=0)
+        self.device = torch.device(device)
+        self._frames = torch.from_numpy(frames).to(self.device)
+        self._actions = torch.from_numpy(actions).to(self.device)
+        self.nbytes = frames.nbytes + actions.nbytes
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.n = n
+
+    def __len__(self):
+        if self.drop_last:
+            return self.n // self.batch_size
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def epoch_order(self, seed, shuffle=True) -> np.ndarray:
+        r"""The epoch's item order: ``np.random.default_rng(seed).shuffle``
+        of ``arange(n)``, as the JAX package draws it."""
+        idx = np.arange(self.n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        return idx
+
+    def epoch_iterator(self, seed, shuffle=True):
+        r"""Yields one epoch's ``{"frames", "actions"}`` batches, gathered on
+        the device in :meth:`epoch_order`."""
+        idx = self.epoch_order(seed, shuffle)
+        stop = self.n - self.batch_size + 1 if self.drop_last else self.n
+        for s in range(0, stop, self.batch_size):
+            ids = torch.from_numpy(np.ascontiguousarray(idx[s:s + self.batch_size]))
+            if self.device.type == "cuda":
+                ids = ids.pin_memory().to(self.device, non_blocking=True)
+            yield {"frames": self._frames.index_select(0, ids),
+                   "actions": self._actions.index_select(0, ids)}
 
 
 def device_prefetch(iterator, device, depth=2):

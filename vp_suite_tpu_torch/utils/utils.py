@@ -1,5 +1,8 @@
 r"""Core utilities of the kwargs-based configuration system (the JAX
 package's ``utils/utils.py``, the parts that the datasets and the facade use)."""
+import random
+import signal
+import sys
 from datetime import datetime
 
 import torch
@@ -7,6 +10,65 @@ import torch
 
 class PytestExpectedException(Exception):
     r"""Raised instead of downloading datasets when running under pytest."""
+
+
+def most(lst, factor=0.67):
+    r"""True iff at least ``factor`` of the entries of ``lst`` are truthy."""
+    lst = list(lst)
+    if len(lst) == 0:
+        return False
+    return sum(1 for x in lst if x) >= factor * len(lst)
+
+
+def seeded_shuffle_split(items, ratio, seed, at_least_one=False):
+    r"""``(first, second)``: a copy of ``items`` shuffled by
+    ``random.Random(seed)``, cut at ``int(len * ratio)`` (at least 1 with
+    ``at_least_one``); the split membership of the path-globbing datasets."""
+    pool = list(items)
+    random.Random(seed).shuffle(pool)
+    cut = int(len(pool) * ratio)
+    if at_least_one:
+        cut = max(1, cut)
+    return pool[:cut], pool[cut:]
+
+
+def timed_input(prompt: str, default=None, secs: int = 60):
+    r"""Asks for a value on the terminal, taking ``default`` after ``secs``
+    seconds, or at once when the input is not a terminal."""
+    if not sys.stdin.isatty():
+        return default
+
+    def _timeout(signum, frame):
+        raise TimeoutError
+
+    old = signal.signal(signal.SIGALRM, _timeout)
+    signal.alarm(secs)
+    try:
+        result = input(f"{prompt} (default: {default}, {secs}s timeout): ").strip()
+        return result if result else default
+    except TimeoutError:
+        print(f"\n... timed out, using default: {default}")
+        return default
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def resolve_device(device, who: str) -> torch.device:
+    r"""``device`` (``"cuda"``, ``"cuda:N"`` or ``"cpu"``) as a
+    ``torch.device``, a bare ``"cuda"`` pinned to the current card. Raises when
+    a CUDA device is asked for and none is available: the CPU runs only when
+    the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device is available "
+                               f"(pass device='cpu' to run on the CPU)")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"{who} runs on 'cuda' or 'cpu', not '{device}'")
+    return device
 
 
 def timestamp(program: str = "") -> str:

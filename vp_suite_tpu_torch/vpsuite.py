@@ -6,8 +6,9 @@ dataset into train/val (or test) splits; ``create_model`` takes REQUIRED_ARGS
 missing from its keywords from the last loaded dataset; ``train`` runs the
 epochs with the JAX package's control flow (run config over the defaults,
 unknown keywords refused, strict compatibility checks, a seeded shuffling
-host loader or, for on-the-fly Moving MNIST with ``backend="device"``,
-batches made on the card, validation through the host loader,
+host loader, a file-backed set staged in the card's memory (``hbm_cache``)
+or, for on-the-fly Moving MNIST with ``backend="device"``, batches made on
+the card, validation through the host loader or the staged set,
 ReduceLROnPlateau, best and final checkpoints, ``metrics.jsonl``);
 ``load_model`` rebuilds a checkpointed model; ``test`` runs every loaded
 model and the CopyLastFrame baseline over each test set, batch by batch, and
@@ -39,14 +40,15 @@ from vp_suite_tpu_torch.measure import LOSS_CLASSES
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
 from vp_suite_tpu_torch.measure.metric_provider import PredictionMetricProvider
 from vp_suite_tpu_torch.models import AVAILABLE_MODELS, MODEL_CLASSES, build_model
-from vp_suite_tpu_torch.training.data import BatchLoader, device_prefetch
+from vp_suite_tpu_torch.training.data import (BatchLoader, HBMCachedLoader, device_prefetch,
+                                             estimate_cache_bytes)
 from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
 from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
 from vp_suite_tpu_torch.training.train_state import create_train_state
 from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
                                                     check_run_and_model_compat)
 from vp_suite_tpu_torch.utils.dataset_wrapper import VPDatasetWrapper
-from vp_suite_tpu_torch.utils.utils import timestamp, torch_dtype
+from vp_suite_tpu_torch.utils.utils import resolve_device, timestamp, torch_dtype
 
 
 class ModelEntry:
@@ -77,16 +79,7 @@ class VPSuite:
         r"""device: ``"cuda"`` (default; the current card), ``"cuda:N"`` or
         ``"cpu"``. Raises when a CUDA device is asked for and none is
         available: the CPU runs only when the caller asks for it."""
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("VPSuite: no CUDA device is available "
-                                   "(pass device='cpu' to run on the CPU)")
-            if device.index is None:
-                device = torch.device("cuda", torch.cuda.current_device())
-        elif device.type != "cpu":
-            raise ValueError(f"VPSuite runs on 'cuda' or 'cpu', not '{device}'")
-        self.device = device
+        self.device = resolve_device(device, "VPSuite")
         self.clear_models()
         self.clear_datasets()
 
@@ -314,6 +307,9 @@ class VPSuite:
         val_bs = max(1, min(val_bs, len(val_data)))
         val_loader = BatchLoader(val_data, batch_size=val_bs, shuffle=False, drop_last=True,
                                  uint8_frames=uint8_ok)
+        train_cache, val_cache = self._stage_caches(run_config, train_data, val_data,
+                                                    batch_size, val_bs, uint8_ok,
+                                                    with_training)
 
         scheduler = ReduceLROnPlateau(
             run_config["lr"], mode="max" if run_config["opt_direction"] == "maximize" else "min")
@@ -340,6 +336,8 @@ class VPSuite:
                     batches = train_data.device_batch_iterator(
                         batch_size, steps_cap or len(train_loader),
                         seed=run_config["seed"] * 9973 + epoch, device=self.device)
+                elif train_cache is not None:
+                    batches = train_cache.epoch_iterator(seed=run_config["seed"] * 9973 + epoch)
                 else:
                     batches = device_prefetch(train_loader, self.device,
                                               depth=run_config["prefetch_batches"])
@@ -364,8 +362,9 @@ class VPSuite:
 
             val_losses = {}
             if with_validation:
-                agg = [eval_step(state, batch)
-                       for batch in device_prefetch(val_loader, self.device, depth=1)]
+                val_batches = val_cache.epoch_iterator(seed=0, shuffle=False) \
+                    if val_cache is not None else device_prefetch(val_loader, self.device, depth=1)
+                agg = [eval_step(state, batch) for batch in val_batches]
                 if not agg:
                     raise RuntimeError("validation set is empty")
                 val_losses = {k: float(np.mean([float(a[k]) for a in agg]))
@@ -396,6 +395,38 @@ class VPSuite:
         save(out_path / "final_model")
         logger.finish()
         return best_val_loss
+
+    def _stage_caches(self, run_config, train_data, val_data, batch_size, val_bs, uint8_ok,
+                      with_training):
+        r"""``(train cache, val cache)``: :class:`HBMCachedLoader` s of the
+        training and validation sets, or None. ``hbm_cache="auto"`` stages the
+        training set when :func:`estimate_cache_bytes` is within
+        ``hbm_cache_mb``, ``"on"`` raises when it is not, ``"off"`` stages
+        nothing; on-the-fly datasets, which make new sequences at each read,
+        are never staged. The validation set is staged within what is left of
+        the budget."""
+        mode = run_config["hbm_cache"]
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"hbm_cache must be 'auto', 'on' or 'off', not '{mode}'")
+        if mode == "off" or not with_training or getattr(train_data, "ON_THE_FLY", False):
+            return None, None
+        budget = run_config["hbm_cache_mb"] * 2 ** 20
+        est = estimate_cache_bytes(train_data, uint8_ok)
+        if est > budget:
+            if mode == "on":
+                raise ValueError(
+                    f"hbm_cache='on' but the training set needs ~{est / 2**20:.0f} MB > "
+                    f"hbm_cache_mb={run_config['hbm_cache_mb']} — raise the budget or use "
+                    f"hbm_cache='auto'/'off'")
+            return None, None
+        train_cache = HBMCachedLoader(train_data, batch_size, self.device, uint8_frames=uint8_ok)
+        print(f"staged training set into device memory ({train_cache.nbytes / 2**20:.1f} MB, "
+              f"{train_cache.n} sequences)")
+        val_cache = None
+        if len(val_data) and estimate_cache_bytes(val_data, uint8_ok) \
+                <= budget - train_cache.nbytes:
+            val_cache = HBMCachedLoader(val_data, val_bs, self.device, uint8_frames=uint8_ok)
+        return train_cache, val_cache
 
     # ------------------------------------------------------------------ #
     # testing
