@@ -145,7 +145,27 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     one facade run per model
     (``load_dataset("MMF")`` -> ``create_model`` -> ``train`` of 2 steps on
     the card's batches -> ``load_model``, whose ``predict`` must equal the
-    trained entry's).
+    trained entry's);
+16. drives the facade's tooling (``drive_tooling``), every kernel count set to
+    0 just before each part and held exactly just after: ``train`` (1 epoch of
+    3 steps, ``vis_every=1``, ``n_vis=2``) and a brief ``test`` with
+    ``vis_compare`` on the per-step and fused paths, the visualisations'
+    predictions counted (each PNG read back bit for bit by ``read_png``, each
+    GIF's header, 15 frames, NETSCAPE2.0 loop and delays checked);
+    ``hyperopt`` of 3 trials of 2 steps on the fused path (``lr`` on a log
+    scale and the loss mix; K3s and K4 6 a step) with its ``best_params``;
+    ``train`` with ``profile_dir`` (epoch 2's Chrome trace names K1's and K2's
+    kernels); ``count_flops`` of ``predict`` and the train step, equal on the
+    card and the CPU for every registry model at a small size, and at bench
+    shapes for paths (a)-(c) and the eight other models with TFLOP per call and
+    the share of 989 TFLOP/s at the latencies measured above; the
+    ``torch.export`` programs of the three paths at b=32 and
+    batch-polymorphic (b=8 and 32), whose graphs call the kernels' operators
+    and whose every call launches K1 45, K3 6 or the warp forward 45 times,
+    within the bf16 gate of ``predict`` and timed beside it; and a
+    reference-named stand-in module and its ``state_dict`` through
+    ``load_torch_model`` and ``model_from_import``, whose ``predict`` is
+    bit-equal to the source model's.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -540,8 +560,9 @@ def main():
 
     kernels = time_kernels(serve, train, gate_inputs, scan_inputs, warp_inputs, rnd, errs)
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
-    time_paths(serve, train)
-    drive_new_models(dev, tf32_defaults)
+    predict_ms = time_paths(serve, train)
+    new_times = drive_new_models(dev, tf32_defaults)
+    drive_tooling(dev, card, serve, train, predict_ms, new_times)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
           f"K9) one call at each of the three layer shapes, in bf16, on {card}")
@@ -2268,6 +2289,377 @@ def drive_new_models(dev, tf32_defaults):
     return out
 
 
+#: the tooling phase (``drive_tooling``): the visualised runs' training steps and items
+VIS_STEPS, N_VIS = 3, 2
+#: hyperopt on the fused path: trials, and steps of each trial's one epoch
+HYPEROPT_TRIALS, HYPEROPT_STEPS = 3, 2
+#: the profiled run (per-step path): epochs and steps per epoch; epoch 2 is traced,
+#: and its trace must name K1's and K2's Triton kernels
+PROFILE_EPOCHS, PROFILE_STEPS = 2, 2
+PROFILE_KERNELS = ("_convlstm_gate_fwd", "_convlstm_gate_bwd")
+#: the batches a batch-polymorphic exported program is run at
+EXPORT_POLY_BATCHES = (8, B)
+#: the kernel operator each path's exported graph calls
+EXPORT_OPS = {"per_step": "convlstm_gate_forward", "fused_scan": "convlstm_scan_forward",
+              "trajgru": "warp_sample_forward"}
+#: the registry models at a small size (b=2, 16x16 unless set, 3 -> 3), where the card's
+#: FLOP count of ``predict`` and of the train step must equal the CPU's
+FLOP_SMALL = {
+    "per_step": ("convlstm-shi", {}), "fused_scan": ("convlstm-shi", PATHS["fused_scan"][1]),
+    "trajgru": ("trajgru", {}), "unet3d": ("unet-3d", dict(temporal_dim=3, features=(4, 8))),
+    "predrnn": ("predrnn-pp", dict(num_hidden=(8, 8, 8))),
+    "phydnet": ("phy", dict(convlstm_hidden_dims=(16, 64))),
+    "min_conv_rnn": ("min-conv-rnn", dict(hidden_dim=16)),
+    "simvp": ("simvp", dict(hid_s=8, hid_t=16, n_trans=2, in_frames=3)),
+    "pred_former": ("pred-former", dict(patch_size=8, dim=32, depth=2, heads=2)),
+    "st_phy": ("st-phy", dict(img_shape=(3, 32, 32), num_layers=2, st_cell_channels=8,
+                              phycell_channels=9, phycell_kernel_size=(3, 3))),
+    "lstm": ("lstm", dict(img_shape=(3, 32, 32), bottleneck_dim=32, lstm_hidden_dim=32,
+                          lstm_num_layers=2)),
+}
+
+
+def drive_tooling(dev, card, serve, train, predict_ms, new_times):
+    r"""The facade's tooling on the card, each part with its launch counts set
+    to 0 just before and held exactly just after: visualisation during
+    ``train`` and ``test``, ``hyperopt``, ``profile_dir``, FLOP counts of every
+    model, the ``torch.export`` programs and the import of reference
+    checkpoints. ``predict_ms`` and ``new_times`` are the latencies the
+    smoke measured (``time_paths``, ``drive_new_models``); run directories go
+    under ``vp-suite-data/chip_smoke/tooling``, deleted at the end."""
+    import shutil
+    from vp_suite_tpu_torch.defaults import SETTINGS
+    t_phase = time.time()
+    out_root = ROOT / "vp-suite-data" / "chip_smoke" / "tooling"
+    shutil.rmtree(out_root, ignore_errors=True)
+    smoke_run_path = SETTINGS._run_path
+    try:
+        parts = (("visualisation", lambda: _tooling_vis(out_root)),
+                 ("hyperopt", lambda: _tooling_hyperopt(out_root)),
+                 ("profile_dir", lambda: _tooling_profile(out_root)),
+                 ("FLOPs", lambda: _tooling_flops(dev, card, serve, train, predict_ms,
+                                                  new_times)),
+                 ("export", lambda: _tooling_export(dev, serve, out_root)),
+                 ("reference checkpoints", lambda: _tooling_reference(out_root)))
+        for name, part in parts:
+            t0 = time.time()
+            part()
+            print(f"[tooling] {name}: {time.time() - t0:.1f} s")
+    finally:
+        SETTINGS._run_path = smoke_run_path
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[tooling] the phase took {time.time() - t_phase:.1f} s")
+
+
+def _mmf_suite(train_seqs):
+    r"""A ``VPSuite`` on the card with on-the-fly Moving MNIST at 64x64 (the
+    card's batches for training)."""
+    from vp_suite_tpu_torch import VPSuite
+    suite = VPSuite()
+    suite.load_dataset("MMF", digit_source="synthetic", img_size=IMG[1], backend="device",
+                       n_seqs={"train": train_seqs, "val": B, "test": B})
+    return suite
+
+
+def _tooling_vis(out_root):
+    r"""``train`` (1 epoch of ``VIS_STEPS``, ``vis_every=1``) and a brief
+    ``test`` with ``vis_compare`` on the per-step and fused paths, ``n_vis`` 2:
+    K1 or K3 counted exactly with the visualisations' predictions (one
+    sequence each; CopyLastFrame launches none); every PNG read back by
+    ``read_png`` bit for bit against the array written, every GIF's header,
+    frame count, loop block and delays."""
+    import numpy as np
+    import torch
+    import vp_suite_tpu_torch.utils.visualization as vis
+    from vp_suite_tpu_torch.defaults import SETTINGS
+    from vp_suite_tpu_torch.utils.image_io import read_gif, read_png
+    written = {"png": [], "gif": []}
+    real_png, real_gif = vis.write_png, vis.write_gif
+
+    def png(fp, img):
+        written["png"].append((Path(fp), np.array(img)))
+        real_png(fp, img)
+
+    def gif(fp, frames, fps=4):
+        written["gif"].append((Path(fp), len(frames), fps))
+        real_gif(fp, frames, fps=fps)
+
+    run_kw = dict(batch_size=B, context_frames=CTX, pred_frames=PRED, no_wandb=True)
+    vis.write_png, vis.write_gif = png, gif
+    try:
+        for path in ("per_step", "fused_scan"):
+            suite = _mmf_suite(B * VIS_STEPS)
+            suite.create_model(PATHS[path][0], compute_dtype=torch.bfloat16, seed=SEED,
+                               **PATHS[path][1])
+            run = out_root / f"vis_{path}"
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            suite.train(epochs=1, steps_per_epoch=VIS_STEPS, out_dir=str(run), vis_every=1,
+                        n_vis=N_VIS, **run_kw)
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            want = {k: v + N_VIS * WANT_PREDICT_LAUNCHES[path][k]
+                    for k, v in want_suite_launches(path, 1, VIS_STEPS).items()}
+            print(f"[tooling] train {path} with vis_every=1, n_vis={N_VIS}: kernel launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+            check(launches == want, f"{path}: train with visualisation launched {launches}, "
+                                    f"not {want}")
+            gifs = sorted(p.name for p in (run / "vis_ep_001").iterdir())
+            check(gifs == [f"vis_{i}.gif" for i in range(N_VIS)],
+                  f"{path}: train wrote {gifs} to vis_ep_001")
+
+            suite.load_dataset("MMF", split="test", digit_source="synthetic", img_size=IMG[1],
+                               n_seqs=TEST_SEQS)
+            SETTINGS._run_path = run / "test_runs"
+            counters = reset_counts()
+            t0 = time.perf_counter()
+            suite.test(brief_test=True, metrics=["mse"], vis_compare=True, n_vis=N_VIS,
+                       **{k: v for k, v in run_kw.items() if k != "batch_size"})
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            want = {k: (TEST_BATCHES + N_VIS) * v for k, v in WANT_PREDICT_LAUNCHES[path].items()}
+            print(f"[tooling] test {path} with vis_compare, n_vis={N_VIS}: "
+                  f"{time.perf_counter() - t0:.2f} s, kernel launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+            check(launches == want, f"{path}: test with visualisation launched {launches}, "
+                                    f"not {want}")
+            (test_dir,) = (run / "test_runs" / "output").iterdir()
+            files = {p.name for p in test_dir.iterdir()}
+            check({"vis_info.txt", "compare_0.png", "compare_1.png",
+                   "vis_0_EF-ConvLSTM_(Shi_et_al.).gif", "vis_1_CopyLastFrame.gif"} <= files,
+                  f"{path}: test wrote {sorted(files)}")
+    finally:
+        vis.write_png, vis.write_gif = real_png, real_gif
+    for fp, img in written["png"]:
+        check(np.array_equal(read_png(fp), img), f"{fp} does not read back bit for bit")
+    for fp, n, fps in written["gif"]:
+        head = fp.read_bytes()[:200]
+        frames, info = read_gif(fp)
+        check(head[:6] == b"GIF89a" and b"NETSCAPE2.0" in head and info["loop"] == 0
+              and len(frames) == n == CTX + PRED
+              and info["delays_ms"] == [round(100 / fps) * 10] * n,
+              f"{fp}: header {head[:6]}, {len(frames)} frames of {n}, {info}")
+    print(f"[tooling] {len(written['png'])} PNGs read back bit for bit with read_png; "
+          f"{len(written['gif'])} GIFs: GIF89a, {CTX + PRED} frames each, NETSCAPE2.0 loop 0, "
+          f"250 ms a frame")
+
+
+def _tooling_hyperopt(out_root):
+    r"""``hyperopt`` on the fused path: ``HYPEROPT_TRIALS`` trials of one
+    epoch of ``HYPEROPT_STEPS`` steps, searching ``lr`` (log scale) and the
+    loss mix; K3s and K4 exactly 6 a step, K3 6 per trial's validation batch."""
+    import torch
+    suite = _mmf_suite(B * HYPEROPT_STEPS)
+    suite.create_model(PATHS["fused_scan"][0], compute_dtype=torch.bfloat16, seed=SEED,
+                       **PATHS["fused_scan"][1])
+    space = {"lr": {"min": 1e-5, "max": 1e-3, "scale": "log"},
+             "losses_and_scales": {"choices": [{"mse": 1.0}, {"mse": 1.0, "l1": 1.0}]}}
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    best = suite.hyperopt(space, n_trials=HYPEROPT_TRIALS, epochs=1,
+                          steps_per_epoch=HYPEROPT_STEPS, batch_size=B, context_frames=CTX,
+                          pred_frames=PRED, no_vis=True, no_wandb=True,
+                          out_dir=str(out_root / "hyperopt"))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    want = {k: HYPEROPT_TRIALS * v
+            for k, v in want_suite_launches("fused_scan", 1, HYPEROPT_STEPS).items()}
+    print(f"[tooling] hyperopt fused_scan, {HYPEROPT_TRIALS} trials of {HYPEROPT_STEPS} steps: "
+          f"kernel launches " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; best_params {best}")
+    check(launches == want, f"hyperopt launched {launches}, not {want}")
+    check(set(best) == set(space) and 1e-5 <= best["lr"] <= 1e-3, f"best_params {best}")
+
+
+def _tooling_profile(out_root):
+    r"""``train`` with ``profile_dir`` on the per-step path: launches exact,
+    one Chrome trace (epoch 2's training loop) that names K1's and K2's
+    kernels."""
+    import torch
+    suite = _mmf_suite(B * PROFILE_STEPS)
+    suite.create_model(PATHS["per_step"][0], compute_dtype=torch.bfloat16, seed=SEED,
+                       **PATHS["per_step"][1])
+    prof = out_root / "profile"
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    suite.train(epochs=PROFILE_EPOCHS, steps_per_epoch=PROFILE_STEPS, batch_size=B,
+                context_frames=CTX, pred_frames=PRED, no_vis=True, no_wandb=True,
+                out_dir=str(out_root / "profiled"), profile_dir=str(prof))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    want = want_suite_launches("per_step", PROFILE_EPOCHS, PROFILE_STEPS)
+    check(launches == want, f"train with profile_dir launched {launches}, not {want}")
+    traces = sorted(prof.iterdir())
+    check([t.name for t in traces] == ["trace_epoch_002.json"], f"profile_dir holds {traces}")
+    text = traces[0].read_text()
+    named = {k: text.count(k) for k in PROFILE_KERNELS}
+    print(f"[tooling] profile_dir: {traces[0].name}, {len(text) / 2 ** 20:.1f} MiB; kernel "
+          f"names in it: " + ", ".join(f"{k} {v}" for k, v in named.items()))
+    check(all(named.values()), f"the trace does not name the gate kernels: {named}")
+
+
+def _tooling_flops(dev, card, serve, train, predict_ms, new_times):
+    r"""FLOPs of ``count_flops``: at ``FLOP_SMALL``'s sizes the card's count
+    of ``predict`` and of the train step equals the CPU's; at bench shapes,
+    for paths (a)-(c) and the eight other models, TFLOP per call and the
+    achieved share of the bf16 peak at the latencies the smoke measured."""
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    from vp_suite_tpu_torch.utils.flops import count_flops
+    small_cfg = {"context_frames": 3, "pred_frames": 3}
+    for name, (model_id, kw) in FLOP_SMALL.items():
+        kw = {**dict(img_shape=(3, 16, 16), action_size=0, tensor_value_range=(0.0, 1.0)), **kw}
+        _, h, w = kw["img_shape"]
+        frames = torch.rand((2, 6, h, w, 3), generator=torch.Generator().manual_seed(SEED))
+        counts = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = build_model(model_id, SEED, device, **kw)
+            batch = {"frames": frames.to(device), "actions": torch.zeros(2, 6, 1, device=device)}
+            step = make_train_step(model, small_cfg) if model.TRAINABLE else None
+            counts[where] = (
+                count_flops(make_predict_fn(model, small_cfg), batch),
+                count_flops(step, create_train_state(model), batch) if step else 0)
+        print(f"[flops] {name} at b=2 {h}x{w} 3->3: predict, train step on the card "
+              f"{counts['card']}, on the CPU {counts['cpu']}")
+        check(counts["card"] == counts["cpu"], f"{name}: the card counts {counts['card']} FLOPs, "
+                                               f"the CPU {counts['cpu']}")
+
+    frames = serve["frames"]
+    rows = []
+    for i, name in enumerate(PATHS):
+        s = train["steps"][name]
+        rows.append((name, count_flops(serve["suite"].predict, frames, pred_frames=PRED,
+                                       model_idx=i), predict_ms[name],
+                     count_flops(s["step"], s["state"], train["batch"]), s["lat"]))
+    run_config = {"context_frames": CTX, "pred_frames": PRED}
+    batch = {"frames": torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED))}
+    for name in NEW_MODELS:
+        suite = VPSuite()
+        model = _new_model(suite, name, compute_dtype=torch.bfloat16).model
+        pred = count_flops(suite.predict, batch["frames"][:, :CTX], pred_frames=PRED)
+        step = make_train_step(model, run_config)
+        rows.append((name, pred, new_times[name]["predict_ms"],
+                     count_flops(step, create_train_state(model, lr=LR, seed=SEED), batch),
+                     new_times[name]["step_ms"]))
+        del suite, model, step
+    for name, pred, pred_ms, step, step_ms in rows:
+        print(f"[flops] {name} bf16 b={B} {CTX}->{PRED} at {IMG[1]}x{IMG[2]} on {card}: predict "
+              f"{pred / 1e12:.4f} TFLOP in {pred_ms:.2f} ms ({pred / pred_ms / 1e9:.2f} TFLOP/s, "
+              f"{pred / pred_ms * 1e3 / BF16_TENSOR_FLOPS:.2%} of 989); train step "
+              f"{step / 1e12:.4f} TFLOP in {step_ms:.2f} ms ({step / step_ms / 1e9:.2f} TFLOP/s, "
+              f"{step / step_ms * 1e3 / BF16_TENSOR_FLOPS:.2%} of 989)")
+        check(step > pred > 0, f"{name}: {pred} FLOPs a predict, {step} a train step")
+
+
+def _tooling_export(dev, serve, out_root):
+    r"""``export_predictor`` -> ``save_predictor`` -> ``load_predictor`` of
+    each path's bf16 model, at b=32 and batch-polymorphic (run at b=8 and
+    b=32): the graph calls the kernel's operator, each call launches K1 45,
+    K3 6 or the warp forward 45 times, the output matches ``VPSuite.predict``
+    within the bf16 gate, and the loaded program's latency beside
+    ``predict``'s."""
+    import torch
+    from vp_suite_tpu_torch.serving import export_predictor, load_predictor, save_predictor
+    suite, frames = serve["suite"], serve["frames"]
+    x = frames.to(dev)
+    for i, name in enumerate(PATHS):
+        model = suite.models[i].model
+        for batch_size in (B, None):
+            t0 = time.time()
+            exported = export_predictor(model, None, CTX, PRED, batch_size=batch_size)
+            t_export = time.time() - t0
+            ops = {str(n.target) for n in exported.graph.nodes
+                   if "vp_suite_tpu_torch" in str(n.target)}
+            check(ops == {f"vp_suite_tpu_torch.{EXPORT_OPS[name]}.default"},
+                  f"{name}: the exported graph calls {ops}")
+            path = save_predictor(exported, out_root / f"{name}_{batch_size or 'poly'}.pt2")
+            predict = load_predictor(path)
+            for b in ((B,) if batch_size else EXPORT_POLY_BATCHES):
+                want = suite.predict(frames[:b], pred_frames=PRED, model_idx=i)
+                torch.cuda.synchronize()
+                counters = reset_counts()
+                got = predict(x[:b])
+                torch.cuda.synchronize()
+                launches = read_counts(counters)
+                check(launches == WANT_PREDICT_LAUNCHES[name],
+                      f"{name}: one call of the exported program launched {launches}")
+                diff = (got - want).abs().max().item()
+                check(tuple(got.shape) == tuple(want.shape) and got.dtype == torch.float32
+                      and diff <= PREDICT_ATOL_BF16,
+                      f"{name}: the exported program gives {tuple(got.shape)} {got.dtype}, "
+                      f"max diff {diff:.3g} from predict")
+                prog_ms, _ = _median_ms(lambda: (predict(x[:b]), torch.cuda.synchronize()), 3)
+                pred_ms, _ = _median_ms(lambda: (suite.predict(frames[:b], pred_frames=PRED,
+                                                               model_idx=i),
+                                                 torch.cuda.synchronize()), 3)
+                mib = path.stat().st_size / 2 ** 20
+                print(f"[export] {name} bf16 {'b=' + str(B) if batch_size else 'batch-polymorphic'}"
+                      f" (exported in {t_export:.1f} s, {mib:.1f} MiB) at b={b}: launches "
+                      + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+                      + f"; max diff from predict {diff:.3g} (atol {PREDICT_ATOL_BF16}); loaded "
+                      f"program median {prog_ms:.2f} ms, predict {pred_ms:.2f} ms (its frames "
+                      f"copied from the host)")
+
+
+def _standin_class(base, name):
+    r"""A subclass of the port's model class ``base`` named as the reference's
+    class, registered in this module so that ``torch.save`` pickles it by name."""
+    cls = type(name, (base,), {"__module__": __name__, "__qualname__": name})
+    globals()[name] = cls
+    return cls
+
+
+def _tooling_reference(out_root):
+    r"""A reference-named stand-in module (an f32 EF-ConvLSTM on the card)
+    and its ``state_dict``, ``torch.save`` d; ``load_torch_model`` of the
+    module and ``model_from_import`` of the state dict: ``predict`` bit-equal
+    to the source model's, with cuDNN's deterministic algorithms."""
+    import copy
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.utils.torch_import import (import_state_dict, import_torch_model,
+                                                       model_from_import)
+    src_suite = VPSuite()
+    src = src_suite.create_model("convlstm-shi", img_shape=IMG, action_size=0,
+                                 tensor_value_range=(0.0, 1.0), seed=SEED + 5).model
+    ckpt = out_root / "reference"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    standin = copy.deepcopy(src)
+    standin.__class__ = _standin_class(type(src), "EF_ConvLSTM")
+    torch.save(standin, ckpt / "best_model.pth")
+    torch.save(src.state_dict(), ckpt / "state_dict.pth")
+    frames = torch.rand((B, CTX, IMG[1], IMG[2], IMG[0]),
+                        generator=torch.Generator().manual_seed(SEED + 6))
+    # f32 convolutions may take a cuDNN algorithm that sums in another order from call to
+    # call (one model's predict twice differs by 1.5e-8 on an H100): deterministic ones here
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = src_suite.predict(frames, pred_frames=PRED)
+        again = src_suite.predict(frames, pred_frames=PRED)
+        suite = VPSuite()
+        entry = suite.load_torch_model(str(ckpt))
+        got = suite.predict(frames, pred_frames=PRED)
+        model_id, kwargs, _ = import_torch_model(standin)
+        sd = import_state_dict(model_id, torch.load(ckpt / "state_dict.pth"))
+        suite.models.append(type(entry)(model_from_import(model_id, kwargs, sd,
+                                                          device=suite.device), model_id))
+        got_sd = suite.predict(frames, pred_frames=PRED)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    print(f"[tooling] reference checkpoint ({type(standin).__name__}, {model_id}), f32 with "
+          f"cuDNN's deterministic algorithms: the source's predict twice max diff "
+          f"{(again - want).abs().max().item():.3g}, load_torch_model's "
+          f"{(got - want).abs().max().item():.3g}, the state dict's "
+          f"{(got_sd - want).abs().max().item():.3g} (must be 0)")
+    check(entry.model_id == "convlstm-shi" and torch.equal(got, want) and torch.equal(got_sd, want),
+          "an imported reference checkpoint predicts other frames than its source")
+
+
 def forward_ms(model, batch):
     r"""Median host time of the train step's forward and loss alone (grad mode
     on, so the forward saves what the backward needs; no backward)."""
@@ -2583,9 +2975,11 @@ def report_scan(kid, side, enc, steps, with_x, ms, plain, nbytes, ops):
 
 
 def time_paths(serve, train):
-    r"""``predict`` and the train step, each under the profiler once more."""
+    r"""``predict`` and the train step, each under the profiler once more;
+    returns the median ``predict`` latency of each path in ms."""
     import torch
     suite, frames = serve["suite"], serve["frames"]
+    predict_ms = {}
     for i, name in enumerate(PATHS):
         suite.predict(frames, pred_frames=PRED, model_idx=i)
         torch.cuda.synchronize()
@@ -2597,7 +2991,7 @@ def time_paths(serve, train):
             suite.predict(frames, pred_frames=PRED, model_idx=i)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        lat = sorted(times)[len(times) // 2] * 1e3
+        lat = predict_ms[name] = sorted(times)[len(times) // 2] * 1e3
         peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
         print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64: median {lat:.2f} ms "
               f"(runs {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
@@ -2612,6 +3006,7 @@ def time_paths(serve, train):
         profile(f"train step {name}",
                 lambda: float(s["step"](s["state"], train["batch"])[1]["total"]),
                 pick=("warp_fwd_kernel", "warp_bwd_kernel") if name == "trajgru" else ())
+    return predict_ms
 
 
 def profile(name, fn, pick=()):

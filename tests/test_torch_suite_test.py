@@ -12,9 +12,10 @@ r"""``VPSuite.test`` of the port against the JAX package's, on the CPU.
   Both loaders run with one worker: MMF's items draw from RNGs that all
   items share, so with threads which sequence lands in which batch would
   depend on timing.
-- ``no_vis=False`` and unknown options raise before any work; no kernel
-  launches on CPU tensors; ``create_model("copy")`` followed by ``train``
-  runs validation only, and its checkpoint loads again.
+- ``num_devices > 1`` and unknown options raise before any work;
+  ``no_vis=False`` writes the videos; no kernel launches on CPU tensors;
+  ``create_model("copy")`` followed by ``train`` runs validation only, and
+  its checkpoint loads again.
 """
 import functools
 import json
@@ -159,17 +160,27 @@ def test_copy_model_trains_validation_only(tmp_path):
     assert loaded.model.img_shape == (3, 16, 16) and loaded.state.step == 0
 
 
-@pytest.mark.parametrize("kw,error", [(dict(no_vis=False), NotImplementedError),
-                                      (dict(vis_every=1, no_vis=False), NotImplementedError),
+@pytest.mark.parametrize("kw,error", [(dict(no_vis=False), None),
+                                      (dict(vis_every=1, no_vis=False), None),
                                       (dict(num_devices=2), NotImplementedError),
                                       (dict(learning_rate=1e-3), ValueError)],
                          ids=["vis", "vis_every", "num_devices", "unknown"])
 def test_test_refuses_before_any_work(monkeypatch, tmp_path, kw, error):
+    r"""Unported and unknown options raise before any work. Visualisation,
+    refused here until it was ported, now writes each model's videos
+    (``vis_every`` is a training option, which ``test`` ignores)."""
     monkeypatch.setattr(SETTINGS, "_run_path", tmp_path)
     suite = VPSuite(device="cpu")
     suite.load_dataset("MMF", **MMF)
     suite.create_model("convlstm-shi")
     before = _launches()
+    if error is None:
+        suite.test(**{**TEST, "metrics": ["mse"], "n_vis": 1, **kw})
+        (run_dir,) = (tmp_path / "output").iterdir()
+        assert {"vis_0_EF-ConvLSTM_(Shi_et_al.).gif", "vis_0_CopyLastFrame.gif",
+                "vis_info.txt"} <= {p.name for p in run_dir.iterdir()}
+        assert _launches() == before
+        return
     with pytest.raises(error):
         suite.test(**{**TEST, **kw})
     assert not (tmp_path / "output").exists() and _launches() == before

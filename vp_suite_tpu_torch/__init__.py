@@ -16,7 +16,11 @@ SynPick; :mod:`vp_suite_tpu_torch.datasets`), and the facade:
 :meth:`VPSuite.load_dataset`, :meth:`VPSuite.create_model`,
 :meth:`VPSuite.train` (file-backed sets staged in the card's memory),
 :meth:`VPSuite.load_model`, :meth:`VPSuite.test` with the whole measure set,
-and :meth:`VPSuite.predict`.
+and :meth:`VPSuite.predict`, and its tooling: visualisation, ``hyperopt``,
+``profile_dir``, ``export_model`` (:mod:`vp_suite_tpu_torch.serving`),
+``load_torch_model`` (:mod:`vp_suite_tpu_torch.utils.torch_import`) and
+:func:`~vp_suite_tpu_torch.utils.flops.count_flops`. The kernels are
+``torch.library`` operators in the ``vp_suite_tpu_torch`` namespace.
 """
 from vp_suite_tpu_torch.__about__ import __version__
 from vp_suite_tpu_torch.vpsuite import VPSuite

@@ -103,7 +103,7 @@ class DefaultRunConfig:
     steps_per_epoch: int = 0        #: 0 = a full pass over the training set
     val_batch_size: int = 0         #: 0 = batch_size
     log_every: int = 50             #: logging cadence (steps)
-    profile_dir: str = None         #: not ported
+    profile_dir: str = None         #: a torch.profiler Chrome trace of epoch 2's training loop
 
 
 SETTINGS = _PackageSettings()

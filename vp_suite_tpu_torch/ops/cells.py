@@ -38,6 +38,9 @@ shares K1's gate addressing.
 import functools
 
 import torch
+from torch import Tensor
+
+from vp_suite_tpu_torch.ops.library import check_device, define_op
 
 #: ``triton.language``, bound at the first launch (Triton is imported only then).
 tl = None
@@ -64,10 +67,8 @@ def _check(gates, c, wci, wcf, wco, *grads):
 
 
 def _check_kernel_operands(name, c, tensors):
-    r"""What the Triton kernels take: CUDA tensors, all float32 or all
-    bfloat16, contiguous, with int32 offsets."""
-    if c.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {c.device}")
+    r"""What the Triton kernels take: all float32 or all bfloat16,
+    contiguous, with int32 offsets."""
     if c.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != c.dtype for t in tensors):
         raise TypeError(f"{name} needs all its tensors float32 or all bfloat16, "
                         f"got {[t.dtype for t in tensors]}")
@@ -203,14 +204,13 @@ def _launch(kernel, c, *args):
                                    BLOCK=_BLOCK, num_warps=4)
 
 
-def convlstm_gate_forward(gates, c, wci, wcf, wco):
-    r"""The gate block's forward with no autograd: ``(h_new, c_new)`` in
-    ``c.dtype``. On CPU tensors it computes :func:`convlstm_gate_reference`;
-    on CUDA tensors it launches K1, which takes contiguous bf16 or f32
-    tensors of one dtype, and raises on anything else."""
+def _gate_forward_cpu(gates: Tensor, c: Tensor, wci: Tensor, wcf: Tensor,
+                      wco: Tensor) -> tuple[Tensor, Tensor]:
+    return convlstm_gate_reference(gates, c, wci, wcf, wco)
+
+
+def _gate_forward_cuda(gates, c, wci, wcf, wco):
     _check(gates, c, wci, wcf, wco)
-    if c.device.type == "cpu":
-        return convlstm_gate_reference(gates, c, wci, wcf, wco)
     tensors = (gates, c, wci, wcf, wco)
     _check_kernel_operands("convlstm_gate_fuse", c, tensors)
     h_out = torch.empty_like(c)
@@ -221,15 +221,18 @@ def convlstm_gate_forward(gates, c, wci, wcf, wco):
     return h_out, c_out
 
 
-def convlstm_gate_backward(gates, c, wci, wcf, wco, dh, dc_out):
-    r"""The gate block's backward: ``(dgates [b, h, w, 4c], dc_in)`` in
-    ``c.dtype``. On CPU tensors it computes
-    :func:`convlstm_gate_backward_reference`; on CUDA tensors it launches K2,
-    which takes contiguous bf16 or f32 tensors of one dtype, and raises on
-    anything else."""
+def _gate_forward_fake(gates, c, wci, wcf, wco):
+    _check(gates, c, wci, wcf, wco)
+    return torch.empty_like(c), torch.empty_like(c)
+
+
+def _gate_backward_cpu(gates: Tensor, c: Tensor, wci: Tensor, wcf: Tensor, wco: Tensor,
+                       dh: Tensor, dc_out: Tensor) -> tuple[Tensor, Tensor]:
+    return convlstm_gate_backward_reference(gates, c, wci, wcf, wco, dh, dc_out)
+
+
+def _gate_backward_cuda(gates, c, wci, wcf, wco, dh, dc_out):
     _check(gates, c, wci, wcf, wco, dh, dc_out)
-    if c.device.type == "cpu":
-        return convlstm_gate_backward_reference(gates, c, wci, wcf, wco, dh, dc_out)
     tensors = (gates, c, wci, wcf, wco, dh, dc_out)
     _check_kernel_operands("convlstm_gate_backward", c, tensors)
     dgates = torch.empty_like(gates)
@@ -238,6 +241,38 @@ def convlstm_gate_backward(gates, c, wci, wcf, wco, dh, dc_out):
         _launch(_gate_kernels()[1], c, *tensors, dgates, dc_in)
         convlstm_gate_backward.launches += 1
     return dgates, dc_in
+
+
+def _gate_backward_fake(gates, c, wci, wcf, wco, dh, dc_out):
+    _check(gates, c, wci, wcf, wco, dh, dc_out)
+    return torch.empty_like(gates), torch.empty_like(c)
+
+
+# elementwise work: their FLOP formula is 0
+_GATE_FWD = define_op("convlstm_gate_forward", _gate_forward_cpu, _gate_forward_cuda,
+                      _gate_forward_fake)
+_GATE_BWD = define_op("convlstm_gate_backward", _gate_backward_cpu, _gate_backward_cuda,
+                      _gate_backward_fake)
+
+
+def convlstm_gate_forward(gates, c, wci, wcf, wco):
+    r"""The gate block's forward with no autograd: ``(h_new, c_new)`` in
+    ``c.dtype``. The operator ``vp_suite_tpu_torch::convlstm_gate_forward``:
+    on CPU tensors it computes :func:`convlstm_gate_reference`; on CUDA
+    tensors it launches K1, which takes contiguous bf16 or f32 tensors of one
+    dtype, and raises on anything else."""
+    check_device("convlstm_gate_fuse", c)
+    return _GATE_FWD(gates, c, wci, wcf, wco)
+
+
+def convlstm_gate_backward(gates, c, wci, wcf, wco, dh, dc_out):
+    r"""The gate block's backward: ``(dgates [b, h, w, 4c], dc_in)`` in
+    ``c.dtype``. The operator ``vp_suite_tpu_torch::convlstm_gate_backward``:
+    on CPU tensors it computes :func:`convlstm_gate_backward_reference`; on
+    CUDA tensors it launches K2, which takes contiguous bf16 or f32 tensors
+    of one dtype, and raises on anything else."""
+    check_device("convlstm_gate_backward", c)
+    return _GATE_BWD(gates, c, wci, wcf, wco, dh, dc_out)
 
 
 class GateFunction(torch.autograd.Function):

@@ -25,10 +25,14 @@ TPU kernels ``ops/pallas_convlstm.py:_make_scan_kernel`` (both forms of
 first use (:mod:`vp_suite_tpu_torch.kernels.build`) and called through
 ``ctypes``.
 """
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from vp_suite_tpu_torch.kernels import build
+from vp_suite_tpu_torch.ops.library import check_device, define_op
 
 
 def _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len):
@@ -106,22 +110,15 @@ def convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco
     return result + (torch.stack(zs), torch.stack(c_prevs)) if save_gates else result
 
 
-def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
-                          save_gates=False):
-    r"""The forward scan with no autograd: ``(h_seq [T, b, sh, sw, enc],
-    c_last)`` in the activation dtype (``h0``'s), and with ``save_gates``
-    also the residuals ``(z_seq [T, b, sh, sw, 4enc], c_prev_seq [T, b, sh,
-    sw, enc])`` in the activation dtype. On CPU tensors it computes
-    :func:`convlstm_scan_forward_reference`; on CUDA tensors it launches K3
-    (K3s with ``save_gates``), which needs ``enc`` a multiple of 16 (and in
-    bf16 at most 288, since a block keeps its channels' weights resident in
-    shared memory), and raises on anything it does not take."""
+def _scan_forward_cpu(i2h_t: Optional[Tensor], h0: Tensor, c0: Tensor, h_kernel: Tensor,
+                      bias: Tensor, wci: Tensor, wcf: Tensor, wco: Tensor, seq_len: int,
+                      save_gates: bool) -> list[Tensor]:
+    return list(convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco,
+                                                seq_len, save_gates))
+
+
+def _scan_forward_cuda(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates):
     _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
-    if h0.device.type == "cpu":
-        return convlstm_scan_forward_reference(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco,
-                                               seq_len, save_gates)
-    if h0.device.type != "cuda":
-        raise ValueError(f"convlstm_scan_fused runs on CPU or CUDA tensors, not {h0.device}")
     dt = h0.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"convlstm_scan_fused takes bfloat16 or float32 activations, not {dt}")
@@ -156,9 +153,46 @@ def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
                            f"{lib.vp_cuda_error_string(err).decode()} ({err})")
     if save_gates:
         convlstm_scan_fused.save_gates_launches += 1
-        return h_seq, c.to(dt), z_seq, c_prev_seq
+        return [h_seq, c.to(dt), z_seq, c_prev_seq]
     convlstm_scan_fused.launches += 1
-    return h_seq, c.to(dt)
+    return [h_seq, c.to(dt)]
+
+
+def _scan_forward_fake(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates):
+    _check(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len)
+    b, sh, sw, enc = h0.shape
+    h_seq = h0.new_empty((seq_len, b, sh, sw, enc))
+    if not save_gates:
+        return [h_seq, h0.new_empty(h0.shape)]
+    return [h_seq, h0.new_empty(h0.shape), h0.new_empty((seq_len, b, sh, sw, 4 * enc)),
+            h0.new_empty((seq_len, b, sh, sw, enc))]
+
+
+def _scan_flops(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates=False, *,
+                out_shape=None, **kwargs):
+    r"""The hidden 3x3 convolution's products at 2 per multiply-add:
+    ``2 T b sh sw 9 enc 4enc``."""
+    b, sh, sw, enc = h0
+    return 2 * seq_len * b * sh * sw * 9 * enc * 4 * enc
+
+
+_SCAN_FWD = define_op("convlstm_scan_forward", _scan_forward_cpu, _scan_forward_cuda,
+                      _scan_forward_fake, _scan_flops)
+
+
+def convlstm_scan_forward(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len,
+                          save_gates=False):
+    r"""The forward scan with no autograd: ``(h_seq [T, b, sh, sw, enc],
+    c_last)`` in the activation dtype (``h0``'s), and with ``save_gates``
+    also the residuals ``(z_seq [T, b, sh, sw, 4enc], c_prev_seq [T, b, sh,
+    sw, enc])`` in the activation dtype. The operator
+    ``vp_suite_tpu_torch::convlstm_scan_forward``: on CPU tensors it computes
+    :func:`convlstm_scan_forward_reference`; on CUDA tensors it launches K3
+    (K3s with ``save_gates``), which needs ``enc`` a multiple of 16 (and in
+    bf16 at most 288, since a block keeps its channels' weights resident in
+    shared memory), and raises on anything it does not take."""
+    check_device("convlstm_scan_fused", h0)
+    return tuple(_SCAN_FWD(i2h_t, h0, c0, h_kernel, bias, wci, wcf, wco, seq_len, save_gates))
 
 
 def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco,
@@ -200,33 +234,15 @@ def convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kerne
     return torch.stack(dzs[::-1]), dh.contiguous(), dc
 
 
-def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco,
-                           dh_last=None):
-    r"""The scan's reverse-time backward from its residuals.
+def _scan_backward_cpu(z_seq: Tensor, c_prev_seq: Tensor, dh_seq: Tensor, dc_last: Tensor,
+                       h_kernel: Tensor, wci: Tensor, wcf: Tensor, wco: Tensor,
+                       dh_last: Optional[Tensor]) -> tuple[Tensor, Tensor, Tensor]:
+    return convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
+                                            wci, wcf, wco, dh_last)
 
-    Args:
-        z_seq, c_prev_seq: the forward's residuals (``convlstm_scan_forward``
-            with ``save_gates``); their dtype is the activation dtype.
-        dh_seq: ``[T, b, sh, sw, enc]`` gradient of ``h_seq``.
-        dc_last: ``[b, sh, sw, enc]`` gradient of ``c_last``.
-        h_kernel, wci, wcf, wco: the forward's weights and peepholes.
-        dh_last: ``[b, sh, sw, enc]`` gradient of ``h_last``, or None
-            (zeros). It is taken in the activation dtype and starts the f32
-            ``dh`` carry, to which ``dh_seq[-1]`` is then added in f32, as in
-            the JAX kernel.
 
-    Returns ``(dz_seq [T, b, sh, sw, 4enc]`` in the activation dtype, ``dh0``,
-    ``dc0)``, the last two f32. On CPU tensors it computes
-    :func:`convlstm_scan_backward_reference`; on CUDA tensors it launches K4,
-    which needs ``enc`` a multiple of 16, and raises on anything it does not
-    take.
-    """
+def _scan_backward_cuda(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last):
     _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
-    if z_seq.device.type == "cpu":
-        return convlstm_scan_backward_reference(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel,
-                                                wci, wcf, wco, dh_last)
-    if z_seq.device.type != "cuda":
-        raise ValueError(f"convlstm_scan_backward runs on CPU or CUDA tensors, not {z_seq.device}")
     dt = z_seq.dtype
     if dt not in (torch.float32, torch.bfloat16) or c_prev_seq.dtype != dt:
         raise TypeError(f"convlstm_scan_backward takes bfloat16 or float32 residuals of one "
@@ -258,6 +274,49 @@ def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wc
                            f"{lib.vp_cuda_error_string(err).decode()} ({err})")
     convlstm_scan_backward.launches += 1
     return dz_seq, dh0, dc
+
+
+def _scan_backward_fake(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last):
+    _check_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
+    f32 = dict(dtype=torch.float32)
+    return torch.empty_like(z_seq), dc_last.new_empty(dc_last.shape, **f32), \
+        dc_last.new_empty(dc_last.shape, **f32)
+
+
+def _scan_backward_flops(z_seq, *args, out_shape=None, **kwargs):
+    r"""The transposed 3x3 convolution's products: the forward's count."""
+    T, b, sh, sw, enc4 = z_seq
+    return 2 * T * b * sh * sw * 9 * enc4 * (enc4 // 4)
+
+
+_SCAN_BWD = define_op("convlstm_scan_backward", _scan_backward_cpu, _scan_backward_cuda,
+                      _scan_backward_fake, _scan_backward_flops)
+
+
+def convlstm_scan_backward(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco,
+                           dh_last=None):
+    r"""The scan's reverse-time backward from its residuals.
+
+    Args:
+        z_seq, c_prev_seq: the forward's residuals (``convlstm_scan_forward``
+            with ``save_gates``); their dtype is the activation dtype.
+        dh_seq: ``[T, b, sh, sw, enc]`` gradient of ``h_seq``.
+        dc_last: ``[b, sh, sw, enc]`` gradient of ``c_last``.
+        h_kernel, wci, wcf, wco: the forward's weights and peepholes.
+        dh_last: ``[b, sh, sw, enc]`` gradient of ``h_last``, or None
+            (zeros). It is taken in the activation dtype and starts the f32
+            ``dh`` carry, to which ``dh_seq[-1]`` is then added in f32, as in
+            the JAX kernel.
+
+    Returns ``(dz_seq [T, b, sh, sw, 4enc]`` in the activation dtype, ``dh0``,
+    ``dc0)``, the last two f32. The operator
+    ``vp_suite_tpu_torch::convlstm_scan_backward``: on CPU tensors it computes
+    :func:`convlstm_scan_backward_reference`; on CUDA tensors it launches K4,
+    which needs ``enc`` a multiple of 16, and raises on anything it does not
+    take.
+    """
+    check_device("convlstm_scan_backward", z_seq)
+    return _SCAN_BWD(z_seq, c_prev_seq, dh_seq, dc_last, h_kernel, wci, wcf, wco, dh_last)
 
 
 class ScanFunction(torch.autograd.Function):

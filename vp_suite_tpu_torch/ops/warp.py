@@ -55,8 +55,10 @@ import ctypes
 import itertools
 
 import torch
+from torch import Tensor
 
 from vp_suite_tpu_torch.kernels import build
+from vp_suite_tpu_torch.ops.library import check_device, define_op
 
 
 def _check(iy, ix, img, g=None):
@@ -76,10 +78,8 @@ def _check(iy, ix, img, g=None):
 
 
 def _check_kernel_operands(name, iy, ix, img, g=None):
-    r"""What the CUDA kernels take: CUDA tensors, f32 indices, an image (and
-    ``g``) all float32 or all bfloat16, contiguous."""
-    if img.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {img.device}")
+    r"""What the CUDA kernels take: f32 indices, an image (and ``g``) all
+    float32 or all bfloat16, contiguous."""
     if iy.dtype != torch.float32 or ix.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 indices, not {iy.dtype} and {ix.dtype}")
     if img.dtype not in (torch.float32, torch.bfloat16) or (g is not None and g.dtype != img.dtype):
@@ -164,15 +164,12 @@ def _launch(name, lib, entry, *args):
                            f"{lib.vp_cuda_error_string(err).decode()} ({err})")
 
 
-def warp_sample_forward(iy, ix, img):
-    r"""The warp's forward with no autograd: ``[b, P, L, c]`` in
-    ``img.dtype``. On CPU tensors it computes :func:`warp_sample_reference`;
-    on CUDA tensors it launches the forward kernel, which takes contiguous
-    f32 indices and a contiguous bf16 or f32 image, and raises on anything
-    else."""
+def _warp_sample_forward_cpu(iy: Tensor, ix: Tensor, img: Tensor) -> Tensor:
+    return warp_sample_reference(iy, ix, img)
+
+
+def _warp_sample_forward_cuda(iy, ix, img):
     _check(iy, ix, img)
-    if img.device.type == "cpu":
-        return warp_sample_reference(iy, ix, img)
     _check_kernel_operands("warp_sample", iy, ix, img)
     b, P, L = iy.shape
     _, h, w, c = img.shape
@@ -185,16 +182,33 @@ def warp_sample_forward(iy, ix, img):
     return out
 
 
-def warp_sample_backward(iy, ix, img, g):
-    r"""The warp's backward: ``(d_iy, d_ix)`` ``[b, P, L]`` f32 and ``d_img``
-    ``[b, h, w, c]`` in ``img.dtype``. On CPU tensors it computes
-    :func:`warp_sample_backward_reference`; on CUDA tensors it launches the
-    backward kernel (``d_img`` accumulated in f32 with atomics, then rounded),
-    which takes contiguous f32 indices and a contiguous bf16 or f32 image and
-    ``g`` of one dtype, and raises on anything else."""
+def _warp_sample_forward_fake(iy, ix, img):
+    _check(iy, ix, img)
+    return img.new_empty((*iy.shape, img.shape[-1]))
+
+
+_WARP_SAMPLE_FORWARD = define_op("warp_sample_forward", _warp_sample_forward_cpu,
+                                 _warp_sample_forward_cuda, _warp_sample_forward_fake)
+
+
+def warp_sample_forward(iy, ix, img):
+    r"""The warp's forward with no autograd: ``[b, P, L, c]`` in
+    ``img.dtype``. The operator ``vp_suite_tpu_torch::warp_sample_forward``:
+    on CPU tensors it computes :func:`warp_sample_reference`;
+    on CUDA tensors it launches the forward kernel, which takes contiguous
+    f32 indices and a contiguous bf16 or f32 image, and raises on anything
+    else."""
+    check_device("warp_sample", img)
+    return _WARP_SAMPLE_FORWARD(iy, ix, img)
+
+
+def _warp_sample_backward_cpu(iy: Tensor, ix: Tensor, img: Tensor,
+                              g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    return warp_sample_backward_reference(iy, ix, img, g)
+
+
+def _warp_sample_backward_cuda(iy, ix, img, g):
     _check(iy, ix, img, g)
-    if img.device.type == "cpu":
-        return warp_sample_backward_reference(iy, ix, img, g)
     _check_kernel_operands("warp_sample_backward", iy, ix, img, g)
     b, P, L = iy.shape
     _, h, w, c = img.shape
@@ -207,6 +221,28 @@ def warp_sample_backward(iy, ix, img, g):
             int(img.dtype == torch.bfloat16), iy, ix, img, g, d_img, d_iy, d_ix, b, P, L, h, w, c)
     warp_sample_backward.launches += 1
     return d_iy, d_ix, d_img.to(img.dtype)
+
+
+def _warp_sample_backward_fake(iy, ix, img, g):
+    _check(iy, ix, img, g)
+    f32 = dict(dtype=torch.float32)
+    return iy.new_empty(iy.shape, **f32), iy.new_empty(iy.shape, **f32), torch.empty_like(img)
+
+
+_WARP_SAMPLE_BACKWARD = define_op("warp_sample_backward", _warp_sample_backward_cpu,
+                                  _warp_sample_backward_cuda, _warp_sample_backward_fake)
+
+
+def warp_sample_backward(iy, ix, img, g):
+    r"""The warp's backward: ``(d_iy, d_ix)`` ``[b, P, L]`` f32 and ``d_img``
+    ``[b, h, w, c]`` in ``img.dtype``. The operator
+    ``vp_suite_tpu_torch::warp_sample_backward``: on CPU tensors it computes
+    :func:`warp_sample_backward_reference`; on CUDA tensors it launches the
+    backward kernel (``d_img`` accumulated in f32 with atomics, then rounded),
+    which takes contiguous f32 indices and a contiguous bf16 or f32 image and
+    ``g`` of one dtype, and raises on anything else."""
+    check_device("warp_sample_backward", img)
+    return _WARP_SAMPLE_BACKWARD(iy, ix, img, g)
 
 
 class WarpFunction(torch.autograd.Function):
@@ -317,15 +353,12 @@ def _ret_operands(img, w, bias, g=None):
     return [t if t is None or t.data_ptr() % 16 == 0 else t.clone() for t in (img, w, bias, g)]
 
 
-def warp_ret_forward(iy, ix, img, w, bias):
-    r""":func:`warp_ret`'s forward with no autograd: ``[b, P, O]`` in
-    ``img.dtype``. On CPU tensors it computes :func:`warp_ret_reference`; on
-    CUDA tensors it launches the forward kernel, which takes contiguous f32
-    indices and a contiguous bf16 or f32 image (``w`` is rounded to the
-    image's dtype and ``bias`` taken in f32), and raises on anything else."""
+def _warp_ret_forward_cpu(iy: Tensor, ix: Tensor, img: Tensor, w: Tensor, bias: Tensor) -> Tensor:
+    return warp_ret_reference(iy, ix, img, w, bias)
+
+
+def _warp_ret_forward_cuda(iy, ix, img, w, bias):
     _check_ret(iy, ix, img, w, bias)
-    if img.device.type == "cpu":
-        return warp_ret_reference(iy, ix, img, w, bias)
     _check_kernel_operands("warp_ret", iy, ix, img)
     b, P, L = iy.shape
     _, h, wd, _ = img.shape
@@ -339,6 +372,32 @@ def warp_ret_forward(iy, ix, img, w, bias):
             int(img.dtype == torch.bfloat16), iy, ix, img, w, bias, out, b, P, L, h, wd, f, Op)
     warp_ret_forward.launches += 1
     return out if Op == O else out[..., :O].contiguous()
+
+
+def _warp_ret_forward_fake(iy, ix, img, w, bias):
+    _check_ret(iy, ix, img, w, bias)
+    return img.new_empty((*iy.shape[:2], w.shape[-1]))
+
+
+def _warp_ret_flops(iy, ix, img, w, bias, *, out_shape=None, **kwargs):
+    r"""The contraction with ``ret``'s weights: ``2 b P L f O``."""
+    b, P, L = iy
+    return 2 * b * P * L * w[1] * w[2]
+
+
+_WARP_RET_FORWARD = define_op("warp_ret_forward", _warp_ret_forward_cpu,
+                              _warp_ret_forward_cuda, _warp_ret_forward_fake, _warp_ret_flops)
+
+
+def warp_ret_forward(iy, ix, img, w, bias):
+    r""":func:`warp_ret`'s forward with no autograd: ``[b, P, O]`` in
+    ``img.dtype``. The operator ``vp_suite_tpu_torch::warp_ret_forward``: on
+    CPU tensors it computes :func:`warp_ret_reference`; on
+    CUDA tensors it launches the forward kernel, which takes contiguous f32
+    indices and a contiguous bf16 or f32 image (``w`` is rounded to the
+    image's dtype and ``bias`` taken in f32), and raises on anything else."""
+    check_device("warp_ret", img)
+    return _WARP_RET_FORWARD(iy, ix, img, w, bias)
 
 
 def _dw_slices(device, b, P, L, f, O, bf16):
@@ -355,16 +414,13 @@ def _dw_slices(device, b, P, L, f, O, bf16):
     return max(1, min(tiles, -(-4 * sms // blocks)))
 
 
-def warp_ret_backward(iy, ix, img, w, bias, g):
-    r""":func:`warp_ret`'s backward: ``(d_iy, d_ix, d_img, d_w, d_bias)`` as
-    :func:`warp_ret_backward_reference` gives them. On CPU tensors it
-    computes that; on CUDA tensors it launches the backward kernels (d_img by
-    f32 atomics; d_W as per-slice partials summed in order by a third launch)
-    and takes ``d_bias`` as a sum outside them, as the JAX package does; it
-    raises on operands the kernels do not take."""
+def _warp_ret_backward_cpu(iy: Tensor, ix: Tensor, img: Tensor, w: Tensor, bias: Tensor,
+                           g: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return warp_ret_backward_reference(iy, ix, img, w, bias, g)
+
+
+def _warp_ret_backward_cuda(iy, ix, img, w, bias, g):
     _check_ret(iy, ix, img, w, bias, g)
-    if img.device.type == "cpu":
-        return warp_ret_backward_reference(iy, ix, img, w, bias, g)
     _check_kernel_operands("warp_ret_backward", iy, ix, img, g)
     b, P, L = iy.shape
     _, h, wd, f = img.shape
@@ -387,6 +443,30 @@ def warp_ret_backward(iy, ix, img, w, bias, g):
         warp_ret_backward.launches += 3
     return (d_iy, d_ix, d_img[..., :f].to(dtype).contiguous(),
             d_w[:, :f, :O].to(w_dtype).contiguous(), d_bias.to(bias_dtype))
+
+
+def _warp_ret_backward_fake(iy, ix, img, w, bias, g):
+    _check_ret(iy, ix, img, w, bias, g)
+    f32 = dict(dtype=torch.float32)
+    return iy.new_empty(iy.shape, **f32), iy.new_empty(iy.shape, **f32), torch.empty_like(img), \
+        torch.empty_like(w), torch.empty_like(bias)
+
+
+_WARP_RET_BACKWARD = define_op(
+    "warp_ret_backward", _warp_ret_backward_cpu, _warp_ret_backward_cuda, _warp_ret_backward_fake,
+    lambda *args, out_shape=None, **kwargs: 2 * _warp_ret_flops(*args[:5]))
+
+
+def warp_ret_backward(iy, ix, img, w, bias, g):
+    r""":func:`warp_ret`'s backward: ``(d_iy, d_ix, d_img, d_w, d_bias)`` as
+    :func:`warp_ret_backward_reference` gives them. The operator
+    ``vp_suite_tpu_torch::warp_ret_backward``: on CPU tensors it computes
+    that; on CUDA tensors it launches the backward kernels (d_img by f32
+    atomics; d_W as per-slice partials summed in order by a third launch)
+    and takes ``d_bias`` as a sum outside them, as the JAX package does; it
+    raises on operands the kernels do not take."""
+    check_device("warp_ret_backward", img)
+    return _WARP_RET_BACKWARD(iy, ix, img, w, bias, g)
 
 
 class WarpRetFunction(torch.autograd.Function):
@@ -493,10 +573,8 @@ def warp_contract_backward_reference(A, Bm, img, g):
 
 
 def _check_contract_kernel_operands(name, *tensors):
-    r"""What the CUDA kernels take: contiguous CUDA tensors, all float32 or
-    all bfloat16."""
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {tensors[0].device}")
+    r"""What the CUDA kernels take: contiguous tensors, all float32 or all
+    bfloat16."""
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or dtypes.pop() not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} takes A, Bm, img (and g) all float32 or all bfloat16, not "
@@ -515,17 +593,12 @@ def _bf16_contract_operands(*tensors):
     return out
 
 
-def warp_contract_forward(A, Bm, img):
-    r""":func:`warp_contract`'s forward with no autograd: ``[b, L, P, c]`` in
-    ``img.dtype``. On CPU tensors it computes
-    :func:`warp_contract_reference`; on CUDA tensors it launches the forward
-    kernel, which takes contiguous operands all f32 or all bf16 (it forms the
-    factor product ``A[p, y] * Bm[p, x]`` in that dtype and sums in f32), and
-    raises on anything else. In bf16 the operands are padded to a multiple
-    of 8 channels and copied to 16-byte alignment where needed."""
+def _warp_contract_forward_cpu(A: Tensor, Bm: Tensor, img: Tensor) -> Tensor:
+    return warp_contract_reference(A, Bm, img)
+
+
+def _warp_contract_forward_cuda(A, Bm, img):
     _check_contract(A, Bm, img)
-    if img.device.type == "cpu":
-        return warp_contract_reference(A, Bm, img)
     _check_contract_kernel_operands("warp_contract", A, Bm, img)
     b, L, P, h = A.shape
     _, _, w, c = img.shape
@@ -541,6 +614,35 @@ def warp_contract_forward(A, Bm, img):
     return out if cp == c else out[..., :c].contiguous()
 
 
+def _warp_contract_forward_fake(A, Bm, img):
+    _check_contract(A, Bm, img)
+    return img.new_empty((*A.shape[:3], img.shape[-1]))
+
+
+def _warp_contract_flops(A, Bm, img, *, out_shape=None, **kwargs):
+    r"""The factor contraction: ``2 b L P h w c``."""
+    b, L, P, h = A
+    return 2 * b * L * P * h * img[2] * img[3]
+
+
+_WARP_CONTRACT_FORWARD = define_op("warp_contract_forward", _warp_contract_forward_cpu,
+                                   _warp_contract_forward_cuda, _warp_contract_forward_fake,
+                                   _warp_contract_flops)
+
+
+def warp_contract_forward(A, Bm, img):
+    r""":func:`warp_contract`'s forward with no autograd: ``[b, L, P, c]`` in
+    ``img.dtype``. The operator ``vp_suite_tpu_torch::warp_contract_forward``:
+    on CPU tensors it computes
+    :func:`warp_contract_reference`; on CUDA tensors it launches the forward
+    kernel, which takes contiguous operands all f32 or all bf16 (it forms the
+    factor product ``A[p, y] * Bm[p, x]`` in that dtype and sums in f32), and
+    raises on anything else. In bf16 the operands are padded to a multiple
+    of 8 channels and copied to 16-byte alignment where needed."""
+    check_device("warp_contract", img)
+    return _WARP_CONTRACT_FORWARD(A, Bm, img)
+
+
 def _contract_scratch(b, L, P, h, w, c, device):
     r"""The f32 scratch that the bf16 backward kernels need at these sizes
     (the plan's ``scratch``: the general d_A / d_Bm kernel's partial sums
@@ -554,15 +656,13 @@ def _contract_scratch(b, L, P, h, w, c, device):
     return torch.empty(out[22], dtype=torch.float32, device=device) if out[22] else None
 
 
-def warp_contract_backward(A, Bm, img, g):
-    r""":func:`warp_contract`'s backward: ``(d_A, d_Bm, d_img)`` in the
-    inputs' dtype. On CPU tensors it computes
-    :func:`warp_contract_backward_reference`; on CUDA tensors it launches
-    the two backward kernels (no atomics), which take contiguous operands all
-    f32 or all bf16, and raises on anything else."""
+def _warp_contract_backward_cpu(A: Tensor, Bm: Tensor, img: Tensor,
+                                g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    return warp_contract_backward_reference(A, Bm, img, g)
+
+
+def _warp_contract_backward_cuda(A, Bm, img, g):
     _check_contract(A, Bm, img, g)
-    if img.device.type == "cpu":
-        return warp_contract_backward_reference(A, Bm, img, g)
     _check_contract_kernel_operands("warp_contract_backward", A, Bm, img, g)
     b, L, P, h = A.shape
     _, _, w, c = img.shape
@@ -580,6 +680,28 @@ def warp_contract_backward(A, Bm, img, g):
             int(bf16), A, Bm, img, g, d_A, d_Bm, d_img, scratch, b, L, P, h, w, cp)
     warp_contract_backward.launches += 2
     return d_A, d_Bm, d_img if cp == c else d_img[..., :c].contiguous()
+
+
+def _warp_contract_backward_fake(A, Bm, img, g):
+    _check_contract(A, Bm, img, g)
+    return torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(img)
+
+
+_WARP_CONTRACT_BACKWARD = define_op(
+    "warp_contract_backward", _warp_contract_backward_cpu, _warp_contract_backward_cuda,
+    _warp_contract_backward_fake,
+    lambda *args, out_shape=None, **kwargs: 2 * _warp_contract_flops(*args[:3]))
+
+
+def warp_contract_backward(A, Bm, img, g):
+    r""":func:`warp_contract`'s backward: ``(d_A, d_Bm, d_img)`` in the
+    inputs' dtype. The operator ``vp_suite_tpu_torch::warp_contract_backward``:
+    on CPU tensors it computes
+    :func:`warp_contract_backward_reference`; on CUDA tensors it launches
+    the two backward kernels (no atomics), which take contiguous operands all
+    f32 or all bf16, and raises on anything else."""
+    check_device("warp_contract_backward", img)
+    return _WARP_CONTRACT_BACKWARD(A, Bm, img, g)
 
 
 class WarpContractFunction(torch.autograd.Function):

@@ -150,3 +150,25 @@ def torch_dtype(value):
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown compute_dtype '{value}'")
     return dtype
+
+
+def check_optuna_config(optuna_cfg: dict):
+    r"""Validates a hyperopt search space, as the JAX package does: each entry
+    maps a run-config parameter to ``{"choices": [...]}`` or ``{"min": x,
+    "max": y, ["scale": "log"], ["type": "int"]}``; raises ``ValueError``
+    otherwise."""
+    if not isinstance(optuna_cfg, dict):
+        raise ValueError("hyperopt config must be a dict")
+    for param, spec in optuna_cfg.items():
+        if not isinstance(spec, dict):
+            raise ValueError(f"hyperopt config entry '{param}' must be a dict")
+        if "choices" in spec:
+            if not isinstance(spec["choices"], list) or len(spec["choices"]) == 0:
+                raise ValueError(f"hyperopt config entry '{param}': 'choices' must be a "
+                                 f"non-empty list")
+        else:
+            if "min" not in spec or "max" not in spec:
+                raise ValueError(f"hyperopt config entry '{param}' needs 'min' and 'max' "
+                                 f"(or 'choices')")
+            if spec["min"] > spec["max"]:
+                raise ValueError(f"hyperopt config entry '{param}': min > max")

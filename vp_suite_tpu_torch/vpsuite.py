@@ -18,12 +18,23 @@ and ``test_metrics.json``); ``predict`` accepts a single
 per ``(context, horizon, action_conditional)``. Models run on CUDA unless the
 caller asks for the CPU.
 
+The tooling: ``train`` and ``test`` write visualisations unless ``no_vis``
+(``utils/visualization.py``: GIFs every ``vis_every`` epochs of training,
+and per tested model, with comparison PNGs under ``vis_compare``);
+``train(trial=...)`` applies a hyperopt trial's suggestions and
+``hyperopt`` runs a study (optuna's where installed, else the port's
+``TPEStudy``); ``profile_dir`` records a ``torch.profiler`` Chrome trace of
+the second epoch's training loop; ``export_model`` writes a ``torch.export``
+program (``serving/``); ``load_torch_model`` imports a checkpoint of the
+reference vp-suite (``utils/torch_import.py``); ``download_dataset`` calls
+the dataset's download.
+
 Not ported yet, and refused before any work: ``multihost``, ``fsdp``,
-``num_devices > 1``, ``ckpt_backend="orbax"``, ``profile_dir``, hyperopt
-trials, and visualisation during training and testing.
+``num_devices > 1`` and ``ckpt_backend="orbax"``.
 """
 import itertools
 import json
+import os
 import random
 import time
 import warnings
@@ -48,7 +59,9 @@ from vp_suite_tpu_torch.training.train_state import create_train_state
 from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
                                                     check_run_and_model_compat)
 from vp_suite_tpu_torch.utils.dataset_wrapper import VPDatasetWrapper
-from vp_suite_tpu_torch.utils.utils import resolve_device, timestamp, torch_dtype
+from vp_suite_tpu_torch.utils.utils import (check_optuna_config, resolve_device, timestamp,
+                                            torch_dtype)
+from vp_suite_tpu_torch.utils.visualization import visualize_sequences, visualize_vid
 
 
 class ModelEntry:
@@ -117,6 +130,10 @@ class VPSuite:
         self.datasets.append(dataset)
         return dataset
 
+    def download_dataset(self, dataset_id: str):
+        r"""Runs the registry dataset's ``download_and_prepare_dataset``."""
+        DATASET_CLASSES[dataset_id].download_and_prepare_dataset()
+
     def list_available_datasets(self):
         for dataset_id, dataset_class in DATASET_CLASSES.items():
             print(f"'{dataset_id}': {dataset_class.NAME}")
@@ -131,6 +148,28 @@ class VPSuite:
         appends it to the suite's models and returns its :class:`ModelEntry`."""
         ckpt_dir = Path(model_dir) / ckpt_name if ckpt_name else Path(model_dir)
         model, state, model_id = load_checkpoint(ckpt_dir, self.device)
+        entry = ModelEntry(model.eval(), model_id, state=state, model_dir=str(model_dir))
+        self._model_setup(entry, loaded=True)
+        return entry
+
+    def load_torch_model(self, model_dir: str, ckpt_name: str = "best_model.pth",
+                         seed: int = None):
+        r"""Imports a checkpoint trained with the reference vp-suite (a
+        pickled module, ``model_dir/ckpt_name``; unpickling needs the reference
+        package importable) into the port's model of the same registry id,
+        on the suite's device, with a fresh training state (Adam at the run
+        default ``lr``, the generator from ``seed``); appends it to the
+        suite's models and returns its :class:`ModelEntry`. The reference's
+        LSTM keeps its cells out of its ``state_dict`` (and never trained
+        them): the port keeps its fresh cells for them. See
+        :mod:`vp_suite_tpu_torch.utils.torch_import` for the state-dict path,
+        which needs no reference package."""
+        from vp_suite_tpu_torch.utils.torch_import import load_torch_checkpoint, model_from_import
+        ckpt = os.path.join(model_dir, ckpt_name) if ckpt_name else model_dir
+        seed = DEFAULT_RUN_CONFIG["seed"] if seed is None else seed
+        model_id, model_kwargs, state_dict = load_torch_checkpoint(ckpt)
+        model = model_from_import(model_id, model_kwargs, state_dict, self.device, seed)
+        state = create_train_state(model, lr=DEFAULT_RUN_CONFIG["lr"], seed=seed)
         entry = ModelEntry(model.eval(), model_id, state=state, model_dir=str(model_dir))
         self._model_setup(entry, loaded=True)
         return entry
@@ -190,12 +229,15 @@ class VPSuite:
             raise ValueError("No test sets loaded. Load a dataset in test mode "
                              "before starting training or test runs")
         run_config = deepcopy(DEFAULT_RUN_CONFIG)
+        optuna_config = run_kwargs.pop("optuna", None)   # a hyperopt search space rides along
         unknown = [k for k in run_kwargs if k not in run_config]
         if unknown:
             raise ValueError(f"Only the following run arguments are supported: "
                              f"{list(run_config.keys())} (got unknown: {unknown})")
         run_config.update(run_kwargs)
-        _refuse_unported(run_config, split)
+        if optuna_config is not None:
+            run_config["optuna"] = optuna_config
+        _refuse_unported(run_config)
         self._set_seeds(run_config["seed"])
         run_config["opt_direction"] = "maximize" \
             if LOSS_CLASSES[run_config["val_rec_criterion"]].BIGGER_IS_BETTER else "minimize"
@@ -236,9 +278,13 @@ class VPSuite:
         r"""Trains a loaded model on a loaded training set; returns the best
         validation indicator. Frames per second of each epoch's training
         loop (steps x batch x frames over its wall time) are kept in the
-        entry's ``train_epoch_fps``."""
-        if trial is not None:
-            raise NotImplementedError("hyperopt trials are not ported yet")
+        entry's ``train_epoch_fps``. With a hyperopt ``trial`` and an
+        ``optuna`` search space among the keywords (as :meth:`hyperopt`
+        passes them), the trial's suggestions replace those run options.
+        Unless ``no_vis``, every ``vis_every`` epochs writes videos of
+        ``n_vis`` validation items to ``vis_ep_{NNN}/`` in the run directory;
+        with ``profile_dir``, the second epoch's training loop is recorded by
+        ``torch.profiler`` into a Chrome trace (``*.json``) there."""
         entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
                                                             **run_kwargs)
         model = entry.model
@@ -252,6 +298,9 @@ class VPSuite:
                 model.compute_dtype = dtype
                 print(f"run compute_dtype={str(dtype).removeprefix('torch.')}: "
                       f"the model runs its activations in it")
+        optuna_config = run_config.get("optuna")
+        if trial is not None and isinstance(optuna_config, dict):
+            _apply_suggestions(trial, optuna_config, run_config, model.NAME)
         train_data, val_data = dataset.train_data, dataset.val_data
         batch_size = run_config["batch_size"]
 
@@ -293,6 +342,8 @@ class VPSuite:
         train_step = make_train_step(model, run_config, loss_provider,
                                      accum_steps=run_config["accum_steps"])
         eval_step = make_eval_step(model, run_config, loss_provider)
+        predict_fn = make_predict_fn(model, run_config)
+        profile_dir = run_config["profile_dir"]
 
         # uint8 host-to-device copies are exact up to 1/510 for [0, 1] data
         uint8_ok = [float(v) for v in dataset.config["tensor_value_range"]] == [0.0, 1.0]
@@ -332,6 +383,7 @@ class VPSuite:
             if with_training:
                 t0 = time.time()
                 n_steps = 0
+                profiler = _start_profiler(self.device) if profile_dir and epoch == 1 else None
                 if use_device_gen:
                     batches = train_data.device_batch_iterator(
                         batch_size, steps_cap or len(train_loader),
@@ -351,6 +403,8 @@ class VPSuite:
                         break
                 if n_steps:
                     float(metrics["total"])   # waits for the device
+                if profiler is not None:
+                    _stop_profiler(profiler, profile_dir, epoch)
                 dt = time.time() - t0
                 frames_seen = n_steps * batch_size * (run_config["context_frames"]
                                                       + run_config["pred_frames"])
@@ -384,6 +438,13 @@ class VPSuite:
                 print("Skipping validation loop and simply saving current model "
                       "as the 'best' model.")
                 save(out_path / "best_model")
+
+            if (epoch + 1) % config["vis_every"] == 0 and not config["no_vis"]:
+                print("Saving visualizations...")
+                visualize_vid(val_data, config["context_frames"], config["pred_frames"],
+                              predict_fn, out_path / f"vis_ep_{epoch + 1:03d}",
+                              n_vis=config["n_vis"], vis_mode=config["vis_mode"],
+                              device=self.device)
 
             logger.log_epoch(epoch, val_losses)
             if time.time() > training_timeout:
@@ -427,6 +488,36 @@ class VPSuite:
                 <= budget - train_cache.nbytes:
             val_cache = HBMCachedLoader(val_data, val_bs, self.device, uint8_frames=uint8_ok)
         return train_cache, val_cache
+
+    # ------------------------------------------------------------------ #
+    # hyperparameter optimization
+    def hyperopt(self, optuna_config: dict, n_trials: int = 30, dataset_idx: int = -1,
+                 model_idx: int = -1, **run_kwargs):
+        r"""Runs ``n_trials`` trainings, each with a trial's suggestions from
+        the search space ``optuna_config`` (see
+        :func:`~vp_suite_tpu_torch.utils.utils.check_optuna_config`), in an
+        optuna study where optuna is installed and else in the port's
+        :class:`~vp_suite_tpu_torch.training.hyperopt.TPEStudy` (seeded with
+        the run's ``seed``); each trial's value is ``train``'s best
+        validation indicator, optimized in the direction of the validation
+        criterion. Returns the best trial's parameters."""
+        from functools import partial
+        run_config = self._prepare_run(**run_kwargs)
+        check_optuna_config(optuna_config)
+        program = partial(self.train, dataset_idx=dataset_idx, model_idx=model_idx,
+                          optuna=optuna_config, **run_kwargs)
+        try:
+            import optuna
+            study = optuna.create_study(direction=run_config["opt_direction"])
+        except (ImportError, AttributeError):
+            from vp_suite_tpu_torch.training.hyperopt import TPEStudy
+            study = TPEStudy(direction=run_config["opt_direction"], seed=run_config["seed"])
+        study.optimize(program, n_trials=n_trials)
+        best_params = study.best_params
+        print("\nHyperparameter optimization complete. Best performing parameters:")
+        for k, v in best_params.items():
+            print(f" - {k}: {v}")
+        return best_params
 
     # ------------------------------------------------------------------ #
     # testing
@@ -499,6 +590,18 @@ class VPSuite:
 
         out_dir = SETTINGS.OUT_PATH / timestamp("test")
         out_dir.mkdir(parents=True, exist_ok=True)
+        if not config["no_vis"]:
+            print("Saving visualizations for tested models...")
+            if getattr(test_data, "ON_THE_FLY", False):
+                self.reset_rng(config["seed"])
+            model_predict_fns = {
+                entry.NAME.replace(" ", "_").replace("/", "-"): predict
+                for (entry, _, _, _), predict in zip(model_info_list, predictors)}
+            visualize_sequences(test_data, cfg["context_frames"], cfg["pred_frames"],
+                                model_predict_fns, out_dir, n_vis=config["n_vis"],
+                                vis_mode=config["vis_mode"], vis_compare=config["vis_compare"],
+                                vis_context_frame_idx=config["vis_context_frame_idx"],
+                                device=self.device)
         results = {}
         if eval_length > 0:
             logger = _TestLogger(out_dir, test_mode, no_wandb=config["no_wandb"])
@@ -524,7 +627,10 @@ class VPSuite:
         Returns one ``{model NAME: [dict per horizon]}`` per test set; models
         of the same NAME share one entry, the last one tested. The results
         are also written to ``test_metrics.jsonl`` and ``test_metrics.json``
-        in a new directory under ``SETTINGS.OUT_PATH``."""
+        in a new directory under ``SETTINGS.OUT_PATH``, and, unless
+        ``no_vis``, each model's videos of ``n_vis`` test items
+        (``vis_{i}_{model}.gif``), with ``vis_compare`` a comparison image
+        per item (``compare_{i}.png``), and ``vis_info.txt``."""
         test_sets_and_model_lists, run_config = self._prepare_testing(**run_kwargs)
         return [self._test_on_dataset(model_info_list, test_set, run_config, brief_test)
                 for test_set, model_info_list in test_sets_and_model_lists]
@@ -574,24 +680,76 @@ class VPSuite:
         preds, _ = entry.predict_fns[key]({"frames": frames, "actions": actions})
         return preds[0] if squeeze else preds
 
+    def export_model(self, out_path, context_frames: int, pred_frames: int,
+                     batch_size: int = 1, model_idx: int = -1, compute_dtype=None):
+        r"""Exports a model's inference path with ``torch.export`` to one
+        ``.pt2`` file (:mod:`vp_suite_tpu_torch.serving`) and returns its
+        path; ``serving.load_predictor`` loads it with torch and the port's
+        operators. ``batch_size=None`` gives a batch-polymorphic program,
+        ``compute_dtype=torch.bfloat16`` a bf16 serving graph (f32 in and
+        out)."""
+        from vp_suite_tpu_torch.serving import export_predictor, save_predictor
+        if not self.models:
+            raise ValueError("No model available to export")
+        entry = self.models[model_idx]
+        exported = export_predictor(entry.model, entry.state, context_frames, pred_frames,
+                                    batch_size=batch_size, compute_dtype=compute_dtype)
+        return save_predictor(exported, out_path)
 
-def _refuse_unported(run_config, split="train"):
-    r"""Raises ``NotImplementedError`` for run options that are not ported yet;
-    ``split`` is ``"train"`` or ``"test"``, whose visualisation runs whenever
-    ``no_vis`` is False."""
-    vis = not run_config["no_vis"] and (split == "test"
-                                        or run_config["vis_every"] <= run_config["epochs"])
+
+def _refuse_unported(run_config):
+    r"""Raises ``NotImplementedError`` for the run options that are not
+    ported yet: the parallel ones."""
     unported = {
         "multihost": run_config["multihost"],
         "fsdp": run_config["fsdp"],
         "num_devices > 1": run_config["num_devices"] > 1,
         "ckpt_backend='orbax'": run_config["ckpt_backend"] == "orbax",
-        "profile_dir": run_config["profile_dir"] is not None,
-        "visualisation (no_vis=False)": vis,
     }
     named = [name for name, asked in unported.items() if asked]
     if named:
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+
+
+def _apply_suggestions(trial, optuna_config, run_config, model_name):
+    r"""Replaces run options by a hyperopt trial's suggestions, as the JAX
+    package's ``train`` does: ``choices`` by ``suggest_categorical``
+    (``model_type`` is skipped with a warning), ``type: int`` by
+    ``suggest_int``, others by ``suggest_float``, in log space where
+    ``scale`` is ``"log"``."""
+    for param, p_dict in optuna_config.items():
+        if "choices" in p_dict:
+            if param == "model_type":
+                warnings.warn("hyperopt across model and dataset parameters is not yet "
+                              f"supported -> using {model_name}")
+                continue
+            run_config[param] = trial.suggest_categorical(param, p_dict["choices"])
+        elif p_dict.get("type") == "int":
+            run_config[param] = trial.suggest_int(param, p_dict["min"], p_dict["max"])
+        else:
+            run_config[param] = trial.suggest_float(
+                param, p_dict["min"], p_dict["max"], log=p_dict.get("scale", "uniform") == "log")
+
+
+def _start_profiler(device):
+    r"""A started ``torch.profiler`` recording the host, and the card when
+    ``device`` is one."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir, epoch):
+    r"""Stops ``profiler`` and writes its Chrome trace
+    ``profile_dir/trace_epoch_{NNN}.json``."""
+    profiler.stop()
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    path = Path(profile_dir) / f"trace_epoch_{epoch + 1:03d}.json"
+    profiler.export_chrome_trace(str(path))
+    print(f"  profile of epoch {epoch + 1} written to {path}")
 
 
 class _RunLogger:
