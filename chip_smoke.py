@@ -165,7 +165,26 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     within the bf16 gate of ``predict`` and timed beside it; and a
     reference-named stand-in module and its ``state_dict`` through
     ``load_torch_model`` and ``model_from_import``, whose ``predict`` is
-    bit-equal to the source model's.
+    bit-equal to the source model's;
+17. drives data-parallel training (``drive_parallel``) in child processes
+    started with torchrun's variables on a free loopback port, each with its
+    own time limit: (i) a world of one process over NCCL through the facade
+    (``initialize_multihost()`` -> ``VPSuite()`` -> ``load_dataset("MMF")``
+    -> ``train(multihost=True)``, b=32, 5 -> 10, bf16, two epochs of 3
+    steps): the fused path with ``fsdp=True`` and the sharded (``"orbax"``)
+    checkpoint, the per-step path replicated, each with its launch counts
+    held exactly, its second epoch's frames/s beside the same run's without a
+    group; and
+    f32 runs at b=8 under cuDNN's deterministic algorithms, whose parameters
+    must equal the same runs' without a group within 1e-6 relative; (ii) two
+    processes on the one card over gloo: one f32 SGD step of each path on
+    each process's half of a b=8 batch (the fused path under FSDP), against
+    the one-process step on the whole batch in this process ((p0 - p1) / lr
+    within the smoke's SGD gate; FSDP's parameters from both processes' rows),
+    the processes' replicated parameters equal, and the
+    sharded checkpoint they wrote loaded here without a group through
+    ``VPSuite.load_model``, whose ``predict`` launches K3 and equals the
+    prediction of the processes' parameters.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -563,6 +582,7 @@ def main():
     predict_ms = time_paths(serve, train)
     new_times = drive_new_models(dev, tf32_defaults)
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
+    drive_parallel(card)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
           f"K9) one call at each of the three layer shapes, in bf16, on {card}")
@@ -2660,6 +2680,299 @@ def _tooling_reference(out_root):
           "an imported reference checkpoint predicts other frames than its source")
 
 
+#: the data-parallel runs (``drive_parallel``): each child process's time
+#: limit, the facade's runs in (i) as (path, fsdp, checkpoint backend), their
+#: steps, and the f32 runs' batch and learning rate in (i) and (ii)
+PAR_TIMEOUT = 240
+PAR_RUNS = (("fused_scan", True, "orbax"), ("per_step", False, "msgpack"))
+PAR_STEPS = 3
+PAR_B = 8
+PAR_LR = 1e-2
+#: f32 parameters of a run in a group of one against the same run without one
+PAR_REL = 1e-6
+
+
+def drive_parallel(card):
+    r"""Data-parallel training in child processes of this script
+    (:func:`parallel_worker`): (i) a world of one over NCCL through the
+    facade, (ii) two processes on the one card over gloo; then, here, (ii)'s
+    step against the one-process step and its sharded checkpoint through
+    ``load_model``. Deletes its runs under ``vp-suite-data/chip_smoke/parallel``."""
+    import shutil
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t_phase = time.time()
+    out_root = ROOT / "vp-suite-data" / "chip_smoke" / "parallel"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    print(f"[parallel] {card}")
+    try:
+        _run_world("facade", 1, out_root)
+        _run_world("pair", 2, out_root)
+        ranks = [torch.load(out_root / f"pair_{r}.pt", weights_only=False) for r in range(2)]
+        frames = _par_frames().cuda()
+        for path, (model_id, cfg) in PATHS.items():
+            if path == "trajgru":
+                continue
+            got = [ranks[r][path] for r in range(2)]
+            sharded = got[0]["sharded"]
+            same = all(torch.equal(got[0]["params"][k], got[1]["params"][k])
+                       for k in got[0]["params"] if k not in sharded)
+            print(f"[parallel] (ii) {path}: the two processes' replicated parameters are equal: "
+                  f"{same}; {len(sharded)} sharded by FSDP, whole from both processes' rows")
+            check(same, f"(ii) {path}: the two processes' parameters differ")
+            for k in sharded:
+                got[0]["params"][k] = torch.cat([got[0]["params"][k], got[1]["params"][k]])
+            model = build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg)
+            p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+            state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+            _, metrics = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED})(
+                state, {"frames": frames})
+            worst, worst_name = 0.0, ""
+            for k, v in model.named_parameters():
+                want = ((p0[k] - v.detach()) / PAR_LR).cpu()
+                mine = (p0[k].cpu() - got[0]["params"][k]) / PAR_LR
+                excess = ((mine - want).abs() - STEP_TOL * want.abs()).max().item()
+                if excess > worst or not worst_name:
+                    worst, worst_name = excess, k
+            loss = float(metrics["total"])
+            ok = worst <= STEP_TOL and abs(got[0]["loss"] - loss) <= 1e-4 * abs(loss)
+            print(f"[parallel] (ii) {path} f32 SGD step of two processes (gloo, b={PAR_B // 2} "
+                  f"each{', FSDP' if got[0]['fsdp'] else ''}) against one process at b={PAR_B}: "
+                  f"loss {got[0]['loss']:.6f} vs {loss:.6f}; (p0-p1)/lr: max(|diff| - rtol*|one|) "
+                  f"{worst:.3g} at {worst_name} (rtol {STEP_TOL}, must stay <= atol {STEP_TOL}); "
+                  f"launches per process {got[0]['launches']}: {'ok' if ok else 'FAIL'}")
+            check(ok, f"(ii) {path}: the two-process step disagrees with the one-process step")
+            check(got[0]["launches"] == got[1]["launches"]
+                  == {k: v for k, v in WANT_TRAIN_LAUNCHES[path].items() if v},
+                  f"(ii) {path}: the step launched {got[0]['launches']}, not "
+                  f"{WANT_TRAIN_LAUNCHES[path]}")
+
+        # the sharded checkpoint of (ii)'s fused path, here without a group
+        entry = VPSuite().load_model(str(out_root), "pair_ckpt")
+        check(not torch.distributed.is_initialized(), "the smoke's own process joined a group")
+        model_id, cfg = PATHS["fused_scan"]
+        ref = build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg)
+        ref.load_state_dict({k: v.cuda() for k, v in ranks[0]["fused_scan"]["params"].items()})
+        suite = VPSuite()
+        suite.models.append(_entry(ref, model_id))
+        cudnn = torch.backends.cudnn
+        cudnn.deterministic, cudnn.benchmark = True, False   # bit-equal convolutions
+        want = suite.predict(frames[:, :CTX], pred_frames=PRED)
+        suite.models.append(entry)
+        torch.cuda.synchronize()
+        counters = reset_counts()
+        got = suite.predict(frames[:, :CTX], pred_frames=PRED)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        cudnn.deterministic = False
+        diff = (got - want).abs().max().item()
+        print(f"[parallel] (ii) the sharded checkpoint loaded without a group (step "
+              f"{entry.state.step}): predict launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+              + f"; max |diff| against the processes' parameters {diff:.3g}")
+        check(launches == WANT_PREDICT_LAUNCHES["fused_scan"],
+              f"(ii) the loaded checkpoint's predict launched {launches}")
+        check(diff == 0.0 and entry.state.step == 1,
+              "(ii) the loaded checkpoint predicts other frames than the processes' parameters")
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[parallel] the phase took {time.time() - t_phase:.1f} s")
+
+
+def _entry(model, model_id):
+    from vp_suite_tpu_torch.vpsuite import ModelEntry
+    return ModelEntry(model.eval(), model_id)
+
+
+def _par_kwargs():
+    return dict(img_shape=IMG, action_size=0, tensor_value_range=(0.0, 1.0))
+
+
+def _par_frames():
+    import torch
+    return torch.rand((PAR_B, CTX + PRED, IMG[1], IMG[2], IMG[0]),
+                      generator=torch.Generator().manual_seed(SEED + 7))
+
+
+def _run_world(task, world, out_root):
+    r"""Runs ``task`` of :func:`parallel_worker` in ``world`` child processes
+    (torchrun's variables, all on card 0, a free loopback port) within
+    PAR_TIMEOUT seconds; prints their output; fails if one fails or is late."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    logs = [open(out_root / f"{task}_{r}.log", "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-worker",
+                               task, str(out_root)], env={**env, "RANK": str(r)},
+                              stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+             for r, log in enumerate(logs)]
+    t0, late = time.time(), False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PAR_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        log.seek(0)
+        lines = log.read().splitlines()
+        log.close()
+        print("\n".join(lines[-60:] if p.returncode else
+                        [ln for ln in lines if ln.startswith("[parallel]")]))
+    print(f"[parallel] {task}: {world} process(es) in {time.time() - t0:.1f} s, exit codes "
+          f"{[p.returncode for p in procs]}")
+    check(not late, f"{task}: the world did not end within {PAR_TIMEOUT} s")
+    check(all(p.returncode == 0 for p in procs), f"{task}: a process of the world failed")
+
+
+def parallel_worker(task, out_dir):
+    r"""One child process of :func:`drive_parallel` (torchrun's variables in
+    its environment): ``facade`` is (i), ``pair`` one process of (ii)."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vp_suite_tpu_torch.parallel import initialize_multihost
+    if task == "facade":
+        _parallel_facade(Path(out_dir))
+    else:
+        initialize_multihost(backend="gloo")
+        try:
+            _parallel_pair(Path(out_dir))
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def _par_suite(path, dtype, batch):
+    r"""A ``VPSuite`` on the card with on-the-fly Moving MNIST (the card's
+    batches) for PAR_STEPS steps of ``batch`` and one validation batch, and
+    the path's model in ``dtype``."""
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    suite = VPSuite()
+    suite.load_dataset("MMF", digit_source="synthetic", img_size=IMG[1], backend="device",
+                       n_seqs={"train": batch * PAR_STEPS, "val": batch, "test": batch})
+    entry = suite.create_model(PATHS[path][0], compute_dtype=dtype, seed=SEED, **PATHS[path][1])
+    return suite, entry
+
+
+def _parallel_facade(out_dir):
+    r"""(i): the facade's runs in a group of one over NCCL, then the same runs
+    without a group; checks launch counts and the f32 runs' parameters."""
+    import torch
+    from vp_suite_tpu_torch.parallel import initialize_multihost, make_mesh
+    from vp_suite_tpu_torch.parallel.mesh import all_reduce_gradients
+    rank, world = initialize_multihost()
+    check((rank, world) == (0, 1) and torch.distributed.get_backend() == "nccl",
+          f"(i): joined rank {rank} of {world} over {torch.distributed.get_backend()}")
+    run_kw = dict(steps_per_epoch=PAR_STEPS, context_frames=CTX, pred_frames=PRED,
+                  no_vis=True, no_wandb=True)
+    fps, params = {}, {}
+    for grouped in (True, False):
+        tag = "grouped" if grouped else "ungrouped"
+        kw = dict(multihost=True) if grouped else {}
+        for path, fsdp, backend in PAR_RUNS:
+            suite, entry = _par_suite(path, torch.bfloat16, B)
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            suite.train(batch_size=B, out_dir=str(out_dir / f"i_{tag}_{path}"), fsdp=fsdp,
+                        ckpt_backend=backend, epochs=2, **kw, **run_kw)
+            torch.cuda.synchronize()
+            launches, want = read_counts(counters), want_suite_launches(path, 2, PAR_STEPS)
+            check(launches == want, f"(i) {tag} {path}: train launched {launches}, not {want}")
+            fps[(tag, path)] = entry.train_epoch_fps[-1]
+            written = out_dir / f"i_{tag}_{path}" / "final_model"
+            check((written / ("orbax_state" if backend == "orbax" else "checkpoint.pt")).exists(),
+                  f"(i) {tag} {path}: no {backend} checkpoint in {written}")
+            print(f"[parallel] (i) {tag} {path} bf16 b={B} {CTX}->{PRED}, fsdp={fsdp}, "
+                  f"ckpt_backend={backend}: launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+                  + f" (as wanted); {entry.train_epoch_fps[-1]:.1f} frames/s", flush=True)
+            if grouped:   # the step's one collective, alone
+                grads = [p for p in entry.model.parameters() if p.grad is not None]
+                mesh = make_mesh(0, "data", "cuda")
+                ms = cuda_ms(lambda: all_reduce_gradients(grads, mesh))
+                mb = sum(p.grad.numel() * p.grad.element_size() for p in grads) / 2 ** 20
+                print(f"[parallel] (i) {path}: the step's all-reduce of its {len(grads)} "
+                      f"gradients ({mb:.1f} MiB, f32) over NCCL in a group of one: {ms:.3f} ms",
+                      flush=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        for path, fsdp, backend in PAR_RUNS:
+            suite, entry = _par_suite(path, torch.float32, PAR_B)
+            suite.train(batch_size=PAR_B, out_dir=str(out_dir / f"i_{tag}_{path}_f32"),
+                        fsdp=fsdp, ckpt_backend=backend, epochs=1, **kw, **run_kw)
+            params[(tag, path)] = {k: v.detach().clone()
+                                   for k, v in entry.model.named_parameters()}
+        torch.backends.cudnn.deterministic = False
+        if grouped:
+            torch.distributed.destroy_process_group()
+    for path, _, _ in PAR_RUNS:
+        a, b = params[("grouped", path)], params[("ungrouped", path)]
+        rel = max(((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)).item()
+                  for k in b)
+        print(f"[parallel] (i) {path}: the second epoch's train_epoch_fps in a group of one "
+              f"(NCCL) {fps[('grouped', path)]:.1f} against {fps[('ungrouped', path)]:.1f} "
+              f"without a group; f32 b={PAR_B} parameters after {PAR_STEPS} Adam steps, largest "
+              f"relative difference from the run without a group {rel:.3g} (limit {PAR_REL})",
+              flush=True)
+        check(rel <= PAR_REL, f"(i) {path}: the f32 run in a group of one parts from the run "
+                              f"without a group by {rel:.3g}")
+
+
+def _parallel_pair(out_dir):
+    r"""One process of (ii): an f32 SGD step of each path on its half of the
+    b=PAR_B batch (the fused path under FSDP), its launches, and the fused
+    path's sharded checkpoint; writes ``pair_{rank}.pt``."""
+    import torch
+    from vp_suite_tpu_torch.checkpoint.orbax_backend import save_checkpoint_orbax
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.parallel import make_mesh, shard_batch, shard_params, shard_params_fsdp
+    from vp_suite_tpu_torch.parallel.mesh import is_fsdp
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    from torch.distributed.tensor import DTensor
+    rank = torch.distributed.get_rank()
+    mesh = make_mesh(0, "data", "cuda")
+    run_config = {"context_frames": CTX, "pred_frames": PRED}
+    batch = shard_batch({"frames": _par_frames().cuda()}, mesh)
+    out = {}
+    for path, (model_id, cfg) in PATHS.items():
+        if path == "trajgru":
+            continue
+        model = shard_params(build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg), mesh)
+        if path == "fused_scan":
+            shard_params_fsdp(model, mesh)
+        state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+        step = make_train_step(model, run_config, mesh=mesh)
+        torch.cuda.synchronize()
+        counters = reset_counts()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts(counters).items() if v}
+        # each process's own rows of the sharded parameters (FSDP2's dim-0 chunks):
+        # gathering them whole (DTensor.full_tensor) crashes gloo on CUDA tensors
+        out[path] = {"loss": float(metrics["total"]), "launches": launches, "fsdp": is_fsdp(model),
+                     "sharded": [k for k, v in model.named_parameters() if isinstance(v, DTensor)],
+                     "params": {k: (v.to_local() if isinstance(v, DTensor) else v).detach().cpu()
+                                for k, v in model.named_parameters()}}
+        print(f"[parallel] (ii) process {rank} {path}: loss {out[path]['loss']:.6f}, launches "
+              f"{launches}, FSDP {is_fsdp(model)}", flush=True)
+        if path == "fused_scan":
+            save_checkpoint_orbax(out_dir / "pair_ckpt", state, model_id, model.config, run_config)
+    torch.save(out, out_dir / f"pair_{rank}.pt")
+
+
 def forward_ms(model, batch):
     r"""Median host time of the train step's forward and loss alone (grad mode
     on, so the forward saves what the backward needs; no backward)."""
@@ -3038,4 +3351,8 @@ def profile(name, fn, pick=()):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.path.insert(0, str(ROOT))
+        parallel_worker(*sys.argv[2:4])
+    else:
+        main()

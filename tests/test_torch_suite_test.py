@@ -162,11 +162,12 @@ def test_copy_model_trains_validation_only(tmp_path):
 
 @pytest.mark.parametrize("kw,error", [(dict(no_vis=False), None),
                                       (dict(vis_every=1, no_vis=False), None),
-                                      (dict(num_devices=2), NotImplementedError),
+                                      (dict(num_devices=2), ValueError),
                                       (dict(learning_rate=1e-3), ValueError)],
                          ids=["vis", "vis_every", "num_devices", "unknown"])
 def test_test_refuses_before_any_work(monkeypatch, tmp_path, kw, error):
-    r"""Unported and unknown options raise before any work. Visualisation,
+    r"""Unknown options, and ``num_devices`` > 1 in one process without a
+    group (one process runs one device), raise before any work. Visualisation,
     refused here until it was ported, now writes each model's videos
     (``vis_every`` is a training option, which ``test`` ignores)."""
     monkeypatch.setattr(SETTINGS, "_run_path", tmp_path)

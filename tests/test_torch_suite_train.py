@@ -172,32 +172,51 @@ def test_required_args_come_from_the_dataset():
         == {k: ds.config[k] for k in required}
 
 
-UNPORTED = {"multihost": dict(multihost=True), "fsdp": dict(fsdp=True),
-            "num_devices": dict(num_devices=2), "orbax": dict(ckpt_backend="orbax")}
-#: options that were refused until they were ported, and the file each now writes
-PORTED = {"profile_dir": (dict(profile_dir="trace"), "trace/trace_epoch_002.json"),
+#: options that were refused until they were ported, and the file each now
+#: writes; multihost joins a gloo group of one process from torchrun's variables
+PORTED = {"multihost": (dict(multihost=True), "run/final_model/checkpoint.pt"),
+          "fsdp": (dict(fsdp=True), "run/final_model/checkpoint.pt"),
+          "orbax": (dict(ckpt_backend="orbax"), "run/final_model/orbax_state/.metadata"),
+          "profile_dir": (dict(profile_dir="trace"), "trace/trace_epoch_002.json"),
           "trial": (dict(trial=object()), "run/final_model"),
           "vis": (dict(no_vis=False, vis_every=1), "run/vis_ep_002/vis_0.gif")}
 
 
-@pytest.mark.parametrize("name", list(UNPORTED) + list(PORTED))
+@pytest.mark.parametrize("name", ["multihost", "fsdp", "num_devices", "orbax", "profile_dir",
+                                  "trial", "vis"])
 def test_unported_run_options_raise_before_any_work(tmp_path, monkeypatch, name):
-    r"""The parallel options raise before any work. ``profile_dir``, a trial
-    without a search space (ignored, as in the JAX package) and
-    visualisation, which were refused here until they were ported, now run
-    and write their files."""
+    r"""``num_devices`` > 1 in one process without a group raises before any
+    work (one process runs one device: start them with torchrun). The
+    parallel options, ``profile_dir``, a trial without a search space
+    (ignored, as in the JAX package) and visualisation, which were refused
+    here until they were ported, now run and write their files."""
+    import socket
+    import torch.distributed as dist
     monkeypatch.chdir(tmp_path)
     suite = VPSuite(device="cpu")
     suite.load_dataset("MMF", **MMF)
     entry = suite.create_model("convlstm-shi")
     out = tmp_path / "run"
-    if name in UNPORTED:
-        with pytest.raises(NotImplementedError):
-            suite.train(out_dir=str(out), **{**RUN, **UNPORTED[name]})
+    if name == "num_devices":
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            suite.train(out_dir=str(out), **{**RUN, "num_devices": 2})
         assert not out.exists() and entry.state is None
         return
     kw, written = PORTED[name]
-    suite.train(out_dir=str(out), **{**RUN, **kw})
+    if name == "multihost":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for k, v in dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=port).items():
+            monkeypatch.setenv(k, str(v))
+        kw = {**kw, "num_devices": 0}
+    try:
+        suite.train(out_dir=str(out), **{**RUN, **kw})
+        assert dist.is_initialized() == (name == "multihost")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     assert entry.state.step == RUN["epochs"] * RUN["steps_per_epoch"]
     assert (tmp_path / written).exists()
 

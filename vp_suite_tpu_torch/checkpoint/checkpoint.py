@@ -10,8 +10,12 @@ A checkpoint directory holds
   registry rebuilds the model;
 - ``run_cfg.json``: the run configuration, where one is given.
 
-This is the counterpart of the JAX package's msgpack checkpoint; its orbax
-(sharded) backend is not ported.
+This is the counterpart of the JAX package's msgpack checkpoint; the
+counterpart of its orbax backend, a sharded checkpoint that every process
+writes its part of, is :mod:`.orbax_backend`. In a process group every
+process calls :func:`save_checkpoint`: under FSDP each first joins the
+gather of the full state, then rank 0 alone writes the files, in the same
+form as a single process does, so that they load without a group.
 """
 import json
 from pathlib import Path
@@ -20,6 +24,8 @@ import numpy as np
 import torch
 
 from vp_suite_tpu_torch.models import MODEL_CLASSES, build_model
+from vp_suite_tpu_torch.parallel.distributed import process_index
+from vp_suite_tpu_torch.parallel.mesh import is_fsdp
 from vp_suite_tpu_torch.training.train_state import create_train_state
 from vp_suite_tpu_torch.utils.utils import resolve_device, torch_dtype
 
@@ -42,21 +48,54 @@ def _jsonable(obj):
 
 def save_checkpoint(ckpt_dir, state, model_id: str, model_config: dict, run_config: dict = None):
     r"""Writes ``state`` (a :class:`~vp_suite_tpu_torch.training.train_state.TrainState`)
-    and the model's registry id and configuration into ``ckpt_dir``."""
+    and the model's registry id and configuration into ``ckpt_dir``; in a
+    process group, every process calls it and rank 0 writes."""
+    opt = state.optimizer
+    model_sd, opt_sd = _full_state(state)
+    if process_index() != 0:
+        return
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    opt = state.optimizer
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": opt.state_dict() if opt is not None else None,
+    torch.save({"model": model_sd,
+                "optimizer": opt_sd,
                 "optimizer_name": type(opt).__name__.lower() if opt is not None else None,
                 "step": state.step,
                 "model_state": state.model_state}, ckpt_dir / CHECKPOINT_FILE)
+    write_sidecars(ckpt_dir, model_id, model_config, run_config)
+
+
+def write_sidecars(ckpt_dir, model_id, model_config, run_config=None, **extra):
+    r"""Writes ``model_config.json`` (``{"model_id", "model_config", **extra}``)
+    and, where ``run_config`` is given, ``run_cfg.json`` into ``ckpt_dir``."""
     with open(ckpt_dir / "model_config.json", "w") as f:
-        json.dump({"model_id": model_id, "model_config": _jsonable(model_config)}, f,
+        json.dump({"model_id": model_id, "model_config": _jsonable(model_config), **extra}, f,
                   indent=2, default=str)
     if run_config is not None:
         with open(ckpt_dir / "run_cfg.json", "w") as f:
             json.dump(_jsonable(run_config), f, indent=2, default=str)
+
+
+def _full_state(state):
+    r"""``(model state_dict, optimizer state_dict or None)`` of the whole
+    state. Under FSDP every process joins the gather, and rank 0 gets the
+    full tensors on the CPU, the optimizer's in the plain index-keyed form
+    (the others get empty dicts)."""
+    model, opt = state.model, state.optimizer
+    if not is_fsdp(model):
+        return model.state_dict(), opt.state_dict() if opt is not None else None
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions, get_model_state_dict,
+                                                         get_state_dict)
+    options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    if opt is None:
+        return get_model_state_dict(model, options=options), None
+    model_sd, fqn_sd = get_state_dict(model, opt, options=options)
+    if not fqn_sd:
+        return model_sd, {}
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    index = {n: i for i, n in enumerate(names)}
+    group = {k: v for k, v in fqn_sd["param_groups"][0].items() if k != "params"}
+    return model_sd, {"state": {index[n]: st for n, st in fqn_sd["state"].items()},
+                      "param_groups": [{**group, "params": list(range(len(names)))}]}
 
 
 def model_from_config(model_id: str, model_config: dict, device="cuda"):
@@ -79,15 +118,16 @@ def model_from_config(model_id: str, model_config: dict, device="cuda"):
 
 
 def load_checkpoint(ckpt_dir, device="cuda"):
-    r"""``(model, state, model_id)`` from a checkpoint directory, on ``device``
-    (the card unless the caller asks for the CPU; raises without one)."""
+    r"""``(model, state, model_id)`` from a checkpoint directory of either
+    backend, on ``device`` (the card unless the caller asks for the CPU;
+    raises without one)."""
     device = resolve_device(device, "load_checkpoint")
     ckpt_dir = Path(ckpt_dir)
     with open(ckpt_dir / "model_config.json", "r") as f:
         cfg = json.load(f)
-    if cfg.get("backend", "msgpack") != "msgpack":
-        raise NotImplementedError(f"checkpoints of the '{cfg['backend']}' backend are not "
-                                  f"ported yet")
+    if cfg.get("backend", "msgpack") == "orbax":
+        from vp_suite_tpu_torch.checkpoint.orbax_backend import load_checkpoint_orbax
+        return load_checkpoint_orbax(ckpt_dir, device)
     model = model_from_config(cfg["model_id"], cfg["model_config"], device)
     ckpt = torch.load(ckpt_dir / CHECKPOINT_FILE, map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"])

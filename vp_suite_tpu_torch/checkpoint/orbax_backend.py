@@ -1,0 +1,111 @@
+r"""The sharded checkpoint: the counterpart of the JAX package's orbax
+backend, written with ``torch.distributed.checkpoint`` (DCP).
+
+``checkpoint.py``'s file gathers the whole state to rank 0 and writes one
+``torch.save`` file. Here instead
+
+- **every process writes its own shards** into ``orbax_state/`` (the JAX
+  package's directory name; DCP's ``.distcp`` files and ``.metadata``): an
+  FSDP-sharded parameter or moment is written by each process from its
+  shard, with no gather, and a replicated one once;
+- **the restore reads each leaf straight into the template's layout**: a
+  DTensor of an FSDP model gets its shard, a plain tensor (one process
+  without a group, or a replicated leaf) the whole of it.
+
+``VPSuite.train(ckpt_backend="orbax")`` selects it (the option keeps the JAX
+package's name, so the run configurations stay alike); every process calls
+:func:`save_checkpoint_orbax`. The ``model_config.json`` sidecar, which
+``load_checkpoint`` reads to route by ``"backend"``, is the other backend's,
+written by rank 0.
+"""
+from pathlib import Path
+
+import torch.distributed.checkpoint as dcp
+
+from vp_suite_tpu_torch.checkpoint.checkpoint import model_from_config, write_sidecars
+from vp_suite_tpu_torch.parallel.distributed import is_grouped, process_index
+from vp_suite_tpu_torch.training.train_state import create_train_state
+from vp_suite_tpu_torch.utils.utils import resolve_device
+
+STATE_DIR = "orbax_state"
+
+
+def _state_dict(state):
+    r"""What DCP writes and reads: the model's and the optimizer's state
+    dicts in their present layout (DTensors under FSDP), the step, the
+    schedules and the optimizer's name."""
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict, get_state_dict
+    opt = state.optimizer
+    if opt is None:
+        model_sd, opt_sd = get_model_state_dict(state.model), {}
+    else:
+        model_sd, opt_sd = get_state_dict(state.model, opt)
+    return {"model": model_sd, "optimizer": opt_sd, "step": state.step,
+            "model_state": dict(state.model_state),
+            "optimizer_name": type(opt).__name__.lower() if opt is not None else ""}
+
+
+def save_checkpoint_orbax(ckpt_dir, state, model_id: str, model_config: dict,
+                          run_config: dict = None):
+    r"""Writes ``state`` sharded (every process of a group writes its own
+    shards; call it from every process) into ``ckpt_dir/orbax_state``, and
+    rank 0 the sidecars, with ``"backend": "orbax"``."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    dcp.save(_state_dict(state), storage_writer=dcp.FileSystemWriter(ckpt_dir / STATE_DIR,
+                                                                      overwrite=True),
+             no_dist=not is_grouped())
+    if process_index() == 0:
+        write_sidecars(ckpt_dir, model_id, model_config, run_config, backend="orbax")
+
+
+def restore_checkpoint_orbax(ckpt_dir, template_state):
+    r"""Restores a state saved by :func:`save_checkpoint_orbax` into
+    ``template_state`` (a ``TrainState`` of the same model and optimizer, in
+    the layout wanted: FSDP-sharded, replicated, or plain in one process
+    without a group) and returns it. Parameters without optimizer moments in
+    the checkpoint (never given a gradient) get none."""
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions, set_model_state_dict,
+                                                         set_optimizer_state_dict)
+    path = Path(ckpt_dir).absolute() / STATE_DIR
+    sd = _state_dict(template_state)
+    opt_sd, groups = sd["optimizer"], None
+    if opt_sd:
+        # the template's optimizer state is made by a step at lr 0: keep the
+        # parameters that have moments in the checkpoint
+        saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        opt_sd["state"] = {fqn: st for fqn, st in opt_sd["state"].items()
+                           if any(key.startswith(f"optimizer.state.{fqn}.") for key in saved)}
+        # the parameter groups stay the template's (FSDP splits its optimizer's
+        # parameters in two groups, one process keeps one), with the saved
+        # hyperparameters of the first
+        groups = [g["params"] for g in opt_sd["param_groups"]]
+        opt_sd["param_groups"] = [{k: v for k, v in opt_sd["param_groups"][0].items()
+                                   if k != "params"}]
+    dcp.load(sd, checkpoint_id=path, no_dist=not is_grouped())
+    if groups is not None:
+        opt_sd["param_groups"] = [{**opt_sd["param_groups"][0], "params": g} for g in groups]
+    set_model_state_dict(template_state.model, sd["model"])
+    if template_state.optimizer is not None:
+        set_optimizer_state_dict(template_state.model, template_state.optimizer, sd["optimizer"],
+                                 options=StateDictOptions(strict=False))
+    template_state.step = sd["step"]
+    template_state.model_state = sd["model_state"]
+    return template_state
+
+
+def load_checkpoint_orbax(ckpt_dir, device="cuda"):
+    r"""``(model, state, model_id)`` from a sharded checkpoint directory, as
+    ``checkpoint.load_checkpoint`` gives them: the model rebuilt from
+    ``model_config.json`` on ``device`` (the card unless the caller asks for
+    the CPU) and its whole state restored into plain tensors."""
+    import json
+    device = resolve_device(device, "load_checkpoint_orbax")
+    ckpt_dir = Path(ckpt_dir)
+    with open(ckpt_dir / "model_config.json", "r") as f:
+        cfg = json.load(f)
+    model = model_from_config(cfg["model_id"], cfg["model_config"], device)
+    name = {"optimizer_name": ""}
+    dcp.load(name, checkpoint_id=ckpt_dir.absolute() / STATE_DIR, no_dist=not is_grouped())
+    state = create_train_state(model, optimizer=name["optimizer_name"] or "adam")
+    return model, restore_checkpoint_orbax(ckpt_dir, state), cfg["model_id"]

@@ -63,9 +63,9 @@ class _PackageSettings:
 @dataclasses.dataclass
 class DefaultRunConfig:
     r"""Default run configuration; ``VPSuite.train`` takes each field as a
-    keyword and rejects unknown ones. The JAX package's device and
-    parallelism fields are kept so that the same keywords are accepted;
-    ``VPSuite.train`` raises on the values of those that are not ported."""
+    keyword and rejects unknown ones. The keys are the JAX package's, its
+    device and parallelism fields included (read for one process per device:
+    ``vp_suite_tpu_torch.parallel``)."""
     no_train: bool = False
     no_val: bool = False
     no_vis: bool = False
@@ -92,11 +92,11 @@ class DefaultRunConfig:
     device: str = "auto"            #: replaced by the suite's device
     compute_dtype: str = None       #: None keeps the model's; "bfloat16" re-casts it for the run
     data_axis: str = "data"
-    num_devices: int = 0            #: 0 or 1: one device (more is not ported)
-    fsdp: bool = False              #: not ported
-    ckpt_backend: str = "msgpack"   #: the ``torch.save`` checkpoint ("orbax" is not ported)
+    num_devices: int = 0            #: 0: the whole process group (one device without one); or 1
+    fsdp: bool = False              #: shard large parameters and their moments over the group
+    ckpt_backend: str = "msgpack"   #: "msgpack": one ``torch.save`` file; "orbax": sharded (DCP)
     accum_steps: int = 1            #: microbatches per optimizer step
-    multihost: bool = False         #: not ported
+    multihost: bool = False         #: join the process group (torchrun's variables) first
     prefetch_batches: int = 2       #: host-to-device pipeline depth
     hbm_cache: str = "auto"
     hbm_cache_mb: int = 2048

@@ -13,6 +13,7 @@ with torch's fan_in (``weight.shape[1] * kh * kw`` for both conv kinds,
 bias 0 (and running mean 0, running variance 1).
 """
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +21,7 @@ from torch import nn
 
 from vp_suite_tpu_torch.nn.functional import (conv2d, conv3d, conv_transpose2d,
                                                          group_norm, layer_norm_chw)
+from vp_suite_tpu_torch.parallel.distributed import batch_statistics_group
 
 
 def torch_default_init_(weight, bias=None, generator=None):
@@ -112,7 +114,15 @@ class BatchNorm(nn.Module):
     plays no part. The output is f32 for bf16 or f32 input (flax promotes to
     its f32 statistics and parameters), so a bf16 model runs what follows a
     BatchNorm in f32, as the JAX package does. ``num_batches_tracked`` is
-    kept for the names only: the momentum is fixed, and it stays 0."""
+    kept for the names only: the momentum is fixed, and it stays 0.
+
+    In a data-parallel step (``parallel.distributed.batch_statistics_over``
+    a group of more than one process) the statistics are the global batch's,
+    as the JAX package's over a batch sharded across its mesh: the sums of x
+    and x^2 and the counts are all-reduced, in the statistics' dtype, by an
+    all-reduce that autograd differentiates, so the backward carries the
+    other processes' terms; the running statistics are then the same on
+    every process."""
 
     def __init__(self, num_features, momentum=0.9, eps=1e-5):
         super().__init__()
@@ -135,8 +145,12 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = (x.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            group = batch_statistics_group()
+            if group is None:
+                mean = x.mean(dim=dims)
+                var = (x.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            else:
+                mean, var = _global_moments(x, dims, group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -144,6 +158,20 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def _global_moments(x, dims, group):
+    r"""``(mean, E[x^2] - mean^2)`` over ``dims`` of ``x`` on every process of
+    ``group``, through one differentiable all-reduce of the sums and counts."""
+    from torch.distributed.nn.functional import all_reduce
+    c = x.shape[-1]
+    count = x.new_full((1,), x.numel() // c)
+    with warnings.catch_warnings():   # later torch deprecates it for a form without autograd
+        warnings.simplefilter("ignore", FutureWarning)
+        sums = all_reduce(torch.cat([x.sum(dim=dims), x.square().sum(dim=dims), count]),
+                          group=group)
+    mean = sums[:c] / sums[-1]
+    return mean, (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
 
 
 def max_pool_2d(x, window=2, strides=None, padding=0):

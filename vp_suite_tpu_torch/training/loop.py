@@ -13,6 +13,8 @@ import torch
 from vp_suite_tpu_torch.base.base_model import VPModel
 from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
+from vp_suite_tpu_torch.parallel.distributed import batch_statistics_over
+from vp_suite_tpu_torch.parallel.mesh import all_reduce_gradients, check_same_gradients, is_fsdp
 
 
 def _apply_model(model, x, *args, **kwargs):
@@ -52,7 +54,8 @@ def _unpack(model, batch, cfg):
     return inputs, targets, ({"actions": actions} if model.CAN_HANDLE_ACTIONS else {})
 
 
-def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_steps: int = None):
+def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_steps: int = None,
+                    mesh=None):
     r"""Builds the train step for the model's ``TRAIN_REGIME``:
     ``(state, batch, epoch=0) -> (state, metrics)``, one forward, loss,
     backward and update of ``state.optimizer``; ``state`` is updated in place
@@ -87,6 +90,19 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     time-reversed sequence, with a second mask, runs in the same forward as
     a batch of 2b (the mean loss of the two halves); ``training_iteration``
     advances once per step. Any other regime raises ``NotImplementedError``.
+
+    With a data ``mesh`` (``parallel.mesh.make_mesh``), ``batch`` is this
+    process's slice of the global batch and the step is the global batch's,
+    as the JAX step on a batch sharded over its mesh: the gradients of the
+    replicated parameters are averaged over the mesh in one all-reduce after
+    the last microbatch's backward, together with the metrics (FSDP2
+    reduce-scatters the sharded parameters' gradients, once a step); batch
+    statistics are taken over the global batch; the scheduled-sampling masks
+    are drawn for the global batch (every process draws the same, from its
+    identically seeded generator) and each process takes its rows; the
+    teacher-forcing coin is the same on every process. Parameters without a
+    gradient (ST-Phy's dead layers) keep ``.grad`` None on every process:
+    the first step checks that the processes agree on them.
     """
     regime = getattr(model, "TRAIN_REGIME", "default")
     if regime not in ("default", "teacher_forcing", "scheduled_sampling"):
@@ -94,6 +110,8 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     run_config, cfg, loss_provider = _step_config(run_config, loss_provider)
     k = run_config["accum_steps"] if accum_steps is None else accum_steps
     ctx, pred = cfg["context_frames"], cfg["pred_frames"]
+    rank, world = (mesh.get_local_rank(), mesh.size()) if mesh is not None else (0, 1)
+    group = mesh.get_group() if mesh is not None else None
 
     def losses(preds, targets, aux):
         loss_values, total = loss_provider.get_losses(preds, targets)
@@ -119,15 +137,18 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     def scheduled_sampling_loss(batch, model_state, generator, epoch):
         inputs, targets, _ = VPModel.unpack_data(batch, cfg, needs_complete_input=True)
         b = inputs.shape[0]
-        mask, model_state = model.scheduled_sampling_mask(model_state, generator, b, ctx, pred,
-                                                          train=True)
+        rows = slice(rank * b, (rank + 1) * b)   # this process's rows of the global masks
+        mask, model_state = model.scheduled_sampling_mask(model_state, generator, b * world, ctx,
+                                                          pred, train=True)
         if model.reverse_input:
             inputs_rev, targets_rev, _ = VPModel.unpack_data(batch, cfg, reverse=True,
                                                              needs_complete_input=True)
-            mask_rev, model_state = model.scheduled_sampling_mask(model_state, generator, b, ctx,
-                                                                  pred, train=True)
+            mask_rev, model_state = model.scheduled_sampling_mask(model_state, generator,
+                                                                  b * world, ctx, pred, train=True)
             inputs, targets = torch.cat([inputs, inputs_rev]), torch.cat([targets, targets_rev])
-            mask = torch.cat([mask, mask_rev])
+            mask = torch.cat([mask[rows], mask_rev[rows]])
+        else:
+            mask = mask[rows]
         preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, mask_true=mask)
         model_state = {**model_state,
                        "training_iteration": model_state["training_iteration"] + 1}
@@ -136,15 +157,22 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     loss_fn = {"default": default_loss, "teacher_forcing": teacher_forcing_loss,
                "scheduled_sampling": scheduled_sampling_loss}[regime]
 
+    replicated = None   # the parameters whose gradients the step all-reduces
+
     def train_step(state, batch, epoch=0):
+        nonlocal replicated
         b = batch["frames"].shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by accum_steps {k}")
         state.optimizer.zero_grad(set_to_none=True)
+        sharded = mesh is not None and is_fsdp(model)
         total, loss_values, buffers = 0.0, {}, None
         for i in range(k):
             mb = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
-            (t, lv), model_state = loss_fn(mb, state.model_state, state.generator, epoch)
+            if sharded:
+                model.set_requires_gradient_sync(i == k - 1)
+            with batch_statistics_over(group):
+                (t, lv), model_state = loss_fn(mb, state.model_state, state.generator, epoch)
             (t / k).backward()
             if i == 0:
                 new_model_state = model_state
@@ -157,6 +185,16 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             with torch.no_grad():
                 for buf, kept in zip(model.buffers(), buffers):
                     buf.copy_(kept)
+        if mesh is not None:
+            if replicated is None:
+                from torch.distributed.tensor import DTensor
+                replicated = [p for p in model.parameters()
+                              if p.requires_grad and not isinstance(p, DTensor)]
+                check_same_gradients(replicated, mesh)
+            names = list(loss_values)
+            means = all_reduce_gradients(replicated, mesh,
+                                         torch.stack([total, *(loss_values[n] for n in names)]))
+            total, loss_values = means[0], dict(zip(names, means[1:]))
         state.optimizer.step()
         state.step += 1
         state.model_state = new_model_state

@@ -29,8 +29,15 @@ program (``serving/``); ``load_torch_model`` imports a checkpoint of the
 reference vp-suite (``utils/torch_import.py``); ``download_dataset`` calls
 the dataset's download.
 
-Not ported yet, and refused before any work: ``multihost``, ``fsdp``,
-``num_devices > 1`` and ``ckpt_backend="orbax"``.
+Parallel training runs one process per device (``parallel/``): start them
+with ``torchrun --nproc-per-node N`` and train with ``multihost=True`` (or
+join them first with ``parallel.initialize_multihost()``, then build the
+suite). Each process trains on its shard of the data at its share of the
+batch, the gradients are averaged over the group, ``fsdp=True`` shards the
+large parameters and their Adam moments over it, and ``ckpt_backend="orbax"``
+writes the sharded checkpoint (``checkpoint/orbax_backend.py``), which
+``load_model`` reads as it reads the other. ``num_devices`` is 0 (the whole
+group, or one device without a group) or 1.
 """
 import itertools
 import json
@@ -51,17 +58,23 @@ from vp_suite_tpu_torch.measure import LOSS_CLASSES
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
 from vp_suite_tpu_torch.measure.metric_provider import PredictionMetricProvider
 from vp_suite_tpu_torch.models import AVAILABLE_MODELS, MODEL_CLASSES, build_model
+from vp_suite_tpu_torch.parallel.distributed import (initialize_multihost, is_grouped,
+                                                     local_batch_size, process_count,
+                                                     process_index, shard_dataset_for_process)
+from vp_suite_tpu_torch.parallel.mesh import (is_fsdp, make_mesh, mean_over, shard_params,
+                                              shard_params_fsdp)
 from vp_suite_tpu_torch.training.data import (BatchLoader, HBMCachedLoader, device_prefetch,
                                              estimate_cache_bytes)
 from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
 from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
-from vp_suite_tpu_torch.training.train_state import create_train_state
+from vp_suite_tpu_torch.training.train_state import create_train_state, rebuild_optimizer
 from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
                                                     check_run_and_model_compat)
 from vp_suite_tpu_torch.utils.dataset_wrapper import VPDatasetWrapper
 from vp_suite_tpu_torch.utils.utils import (check_optuna_config, resolve_device, timestamp,
                                             torch_dtype)
-from vp_suite_tpu_torch.utils.visualization import visualize_sequences, visualize_vid
+from vp_suite_tpu_torch.utils.visualization import (get_vis_from_model, visualize_sequences,
+                                                    visualize_vid)
 
 
 class ModelEntry:
@@ -237,7 +250,7 @@ class VPSuite:
         run_config.update(run_kwargs)
         if optuna_config is not None:
             run_config["optuna"] = optuna_config
-        _refuse_unported(run_config)
+        _check_devices(run_config, split)
         self._set_seeds(run_config["seed"])
         run_config["opt_direction"] = "maximize" \
             if LOSS_CLASSES[run_config["val_rec_criterion"]].BIGGER_IS_BETTER else "minimize"
@@ -274,6 +287,32 @@ class VPSuite:
         check_model_and_data_compat(entry.model, dataset, strict_mode=True)
         return entry, dataset, run_config
 
+    def _data_mesh(self, model, run_config):
+        r"""The data mesh of a ``train`` run (None for one device): with
+        ``multihost`` this process first joins the process group (its
+        variables from torchrun). In a group the mesh is the whole group, the
+        global batch must divide by its size, ``num_devices`` must be 0, and
+        the model must lie on this process's device (``cuda:LOCAL_RANK``)."""
+        if run_config["multihost"]:
+            initialize_multihost(device=self.device.type)
+        if not is_grouped():
+            return make_mesh(run_config["num_devices"], run_config["data_axis"])
+        if run_config["num_devices"]:
+            raise ValueError("num_devices cannot be set in multi-host mode "
+                             "(the mesh spans all hosts' devices)")
+        world, batch_size = process_count(), run_config["batch_size"]
+        if batch_size % world != 0:
+            raise ValueError(f"global batch_size {batch_size} not divisible "
+                             f"by {world} global devices")
+        want = torch.device("cuda", torch.cuda.current_device()) \
+            if self.device.type == "cuda" else torch.device("cpu")
+        found = next(model.parameters(), torch.empty(0, device=self.device)).device
+        if found != want:
+            raise ValueError(f"process {process_index()} runs on {want}, but the model lies on "
+                             f"{found}: build the VPSuite after initialize_multihost(), which "
+                             f"binds each process's card")
+        return make_mesh(0, run_config["data_axis"], self.device.type)
+
     def train(self, trial=None, dataset_idx: int = -1, model_idx: int = -1, **run_kwargs):
         r"""Trains a loaded model on a loaded training set; returns the best
         validation indicator. Frames per second of each epoch's training
@@ -284,10 +323,26 @@ class VPSuite:
         Unless ``no_vis``, every ``vis_every`` epochs writes videos of
         ``n_vis`` validation items to ``vis_ep_{NNN}/`` in the run directory;
         with ``profile_dir``, the second epoch's training loop is recorded by
-        ``torch.profiler`` into a Chrome trace (``*.json``) there."""
+        ``torch.profiler`` into a Chrome trace (``*.json``) there.
+
+        In a process group (``multihost=True``, or one joined before) each
+        process trains on its :class:`~vp_suite_tpu_torch.parallel.ProcessShard`
+        of the data at ``batch_size / world`` per step, and the step is the
+        global batch's (``make_train_step``'s ``mesh``); ``fsdp=True``
+        shards the large parameters and their optimizer state over the group.
+        Validation losses are averaged over the group, so every process takes
+        the same learning-rate and best-model decisions. Rank 0 alone writes
+        ``run_cfg.json``, the logs, the visualisations and the profile, and
+        every process takes part in each checkpoint. The card-made batches
+        and the device-memory cache stay off in a group of more than one
+        process. Build the suite after ``initialize_multihost``: the model
+        must lie on the process's own card."""
         entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
                                                             **run_kwargs)
         model = entry.model
+        mesh = self._data_mesh(model, run_config)
+        world, is_main = process_count(), process_index() == 0
+        say = print if is_main else _silent
 
         # the run's compute dtype re-casts the model's activations (the
         # parameters stay f32, so the training state stays valid)
@@ -296,16 +351,22 @@ class VPSuite:
             dtype = torch_dtype(run_dtype)
             if dtype != model.compute_dtype:
                 model.compute_dtype = dtype
-                print(f"run compute_dtype={str(dtype).removeprefix('torch.')}: "
-                      f"the model runs its activations in it")
+                say(f"run compute_dtype={str(dtype).removeprefix('torch.')}: "
+                    f"the model runs its activations in it")
         optuna_config = run_config.get("optuna")
         if trial is not None and isinstance(optuna_config, dict):
             _apply_suggestions(trial, optuna_config, run_config, model.NAME)
         train_data, val_data = dataset.train_data, dataset.val_data
-        batch_size = run_config["batch_size"]
+        batch_size = local_bs = run_config["batch_size"]
+        if world > 1:
+            train_data = shard_dataset_for_process(train_data)
+            val_data = shard_dataset_for_process(val_data)
+            local_bs = local_batch_size(batch_size)
+            print(f"multi-host training: process {process_index()} of {world}, "
+                  f"local batch {local_bs}")
 
         if run_config["out_dir"] is None and entry.model_dir is not None:
-            print(f"Using existing model save location ({entry.model_dir})...")
+            say(f"Using existing model save location ({entry.model_dir})...")
             out_path = Path(entry.model_dir)
         else:
             out_path = Path(run_config["out_dir"] or SETTINGS.OUT_PATH / timestamp("train"))
@@ -319,20 +380,37 @@ class VPSuite:
                   "model_name": model.NAME, "dataset_name": dataset.NAME}
         save_config = {"run": run_config, "model": model.config,
                        "dataset": dataset.config, "device": str(self.device)}
-        with open(out_path / "run_cfg.json", "w") as cfg_file:
-            json.dump(save_config, cfg_file, indent=4, default=str)
-        logger = _RunLogger(out_path, config, run_config["no_wandb"], project="vp-suite-training")
+        if is_main:
+            with open(out_path / "run_cfg.json", "w") as cfg_file:
+                json.dump(save_config, cfg_file, indent=4, default=str)
+        logger = _RunLogger(out_path, config, run_config["no_wandb"],
+                            project="vp-suite-training") if is_main else _NullLogger()
 
-        if run_config["accum_steps"] > 1 and batch_size % run_config["accum_steps"] != 0:
-            raise ValueError(f"batch {batch_size} not divisible by "
-                             f"accum_steps {run_config['accum_steps']}")
+        if run_config["accum_steps"] > 1 and local_bs % run_config["accum_steps"] != 0:
+            raise ValueError(
+                f"per-device batch {local_bs} not divisible by accum_steps "
+                f"{run_config['accum_steps']}: the interleaved microbatch split would reshard "
+                f"the batch every step")
+        if world > 1:
+            say(f"data-parallel training over {world} devices")
 
+        # the state is built over the parameters as they are sharded
+        if mesh is not None and not is_fsdp(model):
+            shard_params(model, mesh)
+            if run_config["fsdp"] and world > 1:
+                shard_params_fsdp(model, mesh)
+                if entry.state is not None:
+                    rebuild_optimizer(entry.state)
         if entry.state is None:
             entry.state = create_train_state(model, lr=run_config["lr"], seed=run_config["seed"])
         state = set_learning_rate(entry.state, run_config["lr"])
 
-        def save(path):
-            save_checkpoint(path, state, entry.model_id, model.config, run_config)
+        def save(path):   # every process: both backends are collective in a group
+            if run_config["ckpt_backend"] == "orbax":
+                from vp_suite_tpu_torch.checkpoint.orbax_backend import save_checkpoint_orbax
+                save_checkpoint_orbax(path, state, entry.model_id, model.config, run_config)
+            else:
+                save_checkpoint(path, state, entry.model_id, model.config, run_config)
 
         loss_provider = PredictionLossProvider(config)
         if config["val_rec_criterion"] not in config["losses_and_scales"]:
@@ -340,27 +418,28 @@ class VPSuite:
                              f"to be one of the chosen losses: "
                              f"{list(config['losses_and_scales'].keys())}")
         train_step = make_train_step(model, run_config, loss_provider,
-                                     accum_steps=run_config["accum_steps"])
+                                     accum_steps=run_config["accum_steps"], mesh=mesh)
         eval_step = make_eval_step(model, run_config, loss_provider)
         predict_fn = make_predict_fn(model, run_config)
         profile_dir = run_config["profile_dir"]
 
         # uint8 host-to-device copies are exact up to 1/510 for [0, 1] data
         uint8_ok = [float(v) for v in dataset.config["tensor_value_range"]] == [0.0, 1.0]
-        if len(train_data) < batch_size:
+        if len(train_data) < local_bs:
             raise ValueError(
-                f"training set has {len(train_data)} sequences but batch_size is {batch_size}: "
+                f"training set has {len(train_data)} sequences but batch_size is {local_bs}: "
                 f"with drop_last no batch would ever be formed — lower batch_size or provide "
                 f"more data")
-        train_loader = BatchLoader(train_data, batch_size, shuffle=True, seed=run_config["seed"],
+        train_loader = BatchLoader(train_data, local_bs, shuffle=True, seed=run_config["seed"],
                                    drop_last=True, uint8_frames=uint8_ok)
-        val_bs = run_config.get("val_batch_size", 0) or batch_size
+        val_bs = run_config.get("val_batch_size", 0) or local_bs
         val_bs = max(1, min(val_bs, len(val_data)))
         val_loader = BatchLoader(val_data, batch_size=val_bs, shuffle=False, drop_last=True,
                                  uint8_frames=uint8_ok)
-        train_cache, val_cache = self._stage_caches(run_config, train_data, val_data,
-                                                    batch_size, val_bs, uint8_ok,
-                                                    with_training)
+        # a group of processes keeps to the host loader of its shards
+        train_cache, val_cache = self._stage_caches(
+            run_config, train_data, val_data, local_bs, val_bs, uint8_ok,
+            with_training and world == 1)
 
         scheduler = ReduceLROnPlateau(
             run_config["lr"], mode="max" if run_config["opt_direction"] == "maximize" else "min")
@@ -374,16 +453,17 @@ class VPSuite:
         # the device backend makes each training batch on the card from a
         # seeded generator; validation still goes through the host loader
         use_device_gen = (getattr(train_data, "backend", None) == "device"
-                          and hasattr(train_data, "device_batch_iterator"))
+                          and hasattr(train_data, "device_batch_iterator") and world == 1)
         training_timeout = time.time() + config["max_training_hours"] * 3600
         entry.train_epoch_fps = []
         for epoch in range(run_config["epochs"]):
-            print(f"\nEpoch: {epoch + 1} of {config['epochs']}")
+            say(f"\nEpoch: {epoch + 1} of {config['epochs']}")
 
             if with_training:
                 t0 = time.time()
                 n_steps = 0
-                profiler = _start_profiler(self.device) if profile_dir and epoch == 1 else None
+                profiler = _start_profiler(self.device) \
+                    if profile_dir and epoch == 1 and is_main else None
                 if use_device_gen:
                     batches = train_data.device_batch_iterator(
                         batch_size, steps_cap or len(train_loader),
@@ -397,8 +477,7 @@ class VPSuite:
                     state, metrics = train_step(state, device_batch, epoch)
                     n_steps += 1
                     if n_steps % run_config["log_every"] == 0:
-                        print(f"  step {n_steps}: "
-                              f"{ {k: float(v) for k, v in metrics.items()} }")
+                        say(f"  step {n_steps}: {({k: float(v) for k, v in metrics.items()})}")
                     if steps_cap and n_steps >= steps_cap:
                         break
                 if n_steps:
@@ -409,10 +488,10 @@ class VPSuite:
                 frames_seen = n_steps * batch_size * (run_config["context_frames"]
                                                       + run_config["pred_frames"])
                 entry.train_epoch_fps.append(frames_seen / max(dt, 1e-9))
-                print(f"  trained {n_steps} steps in {dt:.1f}s "
-                      f"({entry.train_epoch_fps[-1]:.1f} frames/s)")
+                say(f"  trained {n_steps} steps in {dt:.1f}s "
+                    f"({entry.train_epoch_fps[-1]:.1f} frames/s)")
             else:
-                print("Skipping training loop.")
+                say("Skipping training loop.")
 
             val_losses = {}
             if with_validation:
@@ -421,37 +500,43 @@ class VPSuite:
                 agg = [eval_step(state, batch) for batch in val_batches]
                 if not agg:
                     raise RuntimeError("validation set is empty")
-                val_losses = {k: float(np.mean([float(a[k]) for a in agg]))
-                              for k in agg[0].keys()}
+                # the mean over the shards: every process decides alike
+                val_losses = mean_over({k: float(np.mean([float(a[k]) for a in agg]))
+                                        for k in agg[0].keys()}, mesh)
                 indicator_loss = val_losses[run_config["val_rec_criterion"]]
                 if with_training:
                     state = set_learning_rate(state, scheduler.step(indicator_loss))
-                print("Validation losses (mean over entire validation set):")
+                say("Validation losses (mean over entire validation set):")
                 for k, v in val_losses.items():
-                    print(f" - {k}: {v}")
+                    say(f" - {k}: {v}")
                 if loss_improved(indicator_loss, best_val_loss):
                     best_val_loss = indicator_loss
                     save(out_path / "best_model")
-                    print(f"Minimum indicator loss ({config['val_rec_criterion']}) "
-                          f"reduced -> model saved!")
+                    say(f"Minimum indicator loss ({config['val_rec_criterion']}) "
+                        f"reduced -> model saved!")
             else:
-                print("Skipping validation loop and simply saving current model "
-                      "as the 'best' model.")
+                say("Skipping validation loop and simply saving current model "
+                    "as the 'best' model.")
                 save(out_path / "best_model")
 
             if (epoch + 1) % config["vis_every"] == 0 and not config["no_vis"]:
-                print("Saving visualizations...")
-                visualize_vid(val_data, config["context_frames"], config["pred_frames"],
-                              predict_fn, out_path / f"vis_ep_{epoch + 1:03d}",
-                              n_vis=config["n_vis"], vis_mode=config["vis_mode"],
-                              device=self.device)
+                say("Saving visualizations...")
+                if is_main:
+                    visualize_vid(val_data, config["context_frames"], config["pred_frames"],
+                                  predict_fn, out_path / f"vis_ep_{epoch + 1:03d}",
+                                  n_vis=config["n_vis"], vis_mode=config["vis_mode"],
+                                  device=self.device)
+                elif is_fsdp(model):   # the sharded forward gathers on every process
+                    for i in range(min(config["n_vis"], len(val_data))):
+                        get_vis_from_model(val_data, val_data[i], predict_fn,
+                                           config["context_frames"], self.device)
 
             logger.log_epoch(epoch, val_losses)
             if time.time() > training_timeout:
-                print("Maximum training time exceeded, leaving training loop...")
+                say("Maximum training time exceeded, leaving training loop...")
                 break
 
-        print("\nTraining done, cleaning up...")
+        say("\nTraining done, cleaning up...")
         entry.state = state
         save(out_path / "final_model")
         logger.finish()
@@ -697,18 +782,23 @@ class VPSuite:
         return save_predictor(exported, out_path)
 
 
-def _refuse_unported(run_config):
-    r"""Raises ``NotImplementedError`` for the run options that are not
-    ported yet: the parallel ones."""
-    unported = {
-        "multihost": run_config["multihost"],
-        "fsdp": run_config["fsdp"],
-        "num_devices > 1": run_config["num_devices"] > 1,
-        "ckpt_backend='orbax'": run_config["ckpt_backend"] == "orbax",
-    }
-    named = [name for name, asked in unported.items() if asked]
-    if named:
-        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+def _check_devices(run_config, split):
+    r"""Refuses, before any work, a device count that the run cannot have:
+    a ``batch_size`` that ``num_devices`` does not divide (training), and
+    ``num_devices`` > 1 in one process without a group (one process runs one
+    device), and an unknown ``ckpt_backend``."""
+    n = run_config["num_devices"]
+    if split == "train" and n and run_config["batch_size"] % n != 0:
+        raise ValueError(f"batch_size {run_config['batch_size']} not divisible by {n} devices")
+    if n > 1 and not (run_config["multihost"] or is_grouped()):
+        make_mesh(n)
+    if run_config["ckpt_backend"] not in ("msgpack", "orbax"):
+        raise ValueError(f"ckpt_backend must be 'msgpack' or 'orbax', "
+                         f"not '{run_config['ckpt_backend']}'")
+
+
+def _silent(*args, **kwargs):
+    r"""``print`` of the processes other than rank 0."""
 
 
 def _apply_suggestions(trial, optuna_config, run_config, model_name):
@@ -778,6 +868,16 @@ class _RunLogger:
     def finish(self):
         if self.wandb is not None:
             self.wandb.finish()
+
+
+class _NullLogger:
+    r"""The metric sink of the processes other than rank 0: nothing."""
+
+    def log_epoch(self, epoch, val_losses):
+        pass
+
+    def finish(self):
+        pass
 
 
 class _TestLogger:
