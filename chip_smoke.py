@@ -184,7 +184,21 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     the processes' replicated parameters equal, and the
     sharded checkpoint they wrote loaded here without a group through
     ``VPSuite.load_model``, whose ``predict`` launches K3 and equals the
-    prediction of the processes' parameters.
+    prediction of the processes' parameters;
+18. drives tensor parallelism (``drive_tensor_parallel``) in child processes
+    the same way: (t1) a world of one over NCCL
+    on ``make_mesh_nd({"data": 1, "sp": 1, "tp": 1})``: each EF-ConvLSTM
+    path's f32 SGD step at b=8 (full width, 64x64, 5 -> 10) and ``predict``
+    with exact launch counts, the step's parameters bit-identical to the
+    step's without a group; (t2) two processes on the one card over gloo on
+    ``{"data": 1, "tp": 2}`` under ``shard_params_tp``: each process holds
+    exactly its slice of every sharded leaf, ``predict`` (K1 45 or K3 6 a
+    process) within 1e-4 of one process's, the SGD step (K1 45 + K2 45 or
+    K3s 6 + K4 6 a process) within the SGD gate of the one-process step, its
+    time beside the one-process step's and its tp collectives' time (CUDA
+    events around each alone, summed; two processes on one card measure no
+    scaling); (t3) four processes on a 2x1x2 data x sp x tp mesh under
+    ``shard_params_tp_fsdp``: the fused path's SGD step within the same gate.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -583,6 +597,7 @@ def main():
     new_times = drive_new_models(dev, tf32_defaults)
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
     drive_parallel(card)
+    drive_tensor_parallel(card)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
           f"K9) one call at each of the three layer shapes, in bf16, on {card}")
@@ -2802,6 +2817,14 @@ def _run_world(task, world, out_root):
     r"""Runs ``task`` of :func:`parallel_worker` in ``world`` child processes
     (torchrun's variables, all on card 0, a free loopback port) within
     PAR_TIMEOUT seconds; prints their output; fails if one fails or is late."""
+    late, rcs = _end_world(*_start_world(task, world, out_root))
+    check(not late, f"{task}: the world did not end within {PAR_TIMEOUT} s")
+    check(all(rc == 0 for rc in rcs), f"{task}: a process of the world failed")
+
+
+def _start_world(task, world, out_root):
+    r"""Starts the ``world`` child processes of ``task``; returns what
+    :func:`_end_world` takes."""
     import os
     import socket
     with socket.socket() as sock:
@@ -2809,12 +2832,19 @@ def _run_world(task, world, out_root):
         port = sock.getsockname()[1]
     env = {**os.environ, "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
-    logs = [open(out_root / f"{task}_{r}.log", "w+") for r in range(world)]
+    logs = [open(out_root / f"{task.replace(':', '_')}_{r}.log", "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-worker",
                                task, str(out_root)], env={**env, "RANK": str(r)},
                               stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
              for r, log in enumerate(logs)]
-    t0, late = time.time(), False
+    return task, procs, logs, time.time()
+
+
+def _end_world(task, procs, logs, t0):
+    r"""Waits for a world of :func:`_start_world` until PAR_TIMEOUT seconds
+    after its start (then kills what is left); prints its output; returns
+    ``(late, exit codes)``."""
+    late = False
     try:
         for p in procs:
             p.wait(timeout=max(1.0, PAR_TIMEOUT - (time.time() - t0)))
@@ -2830,11 +2860,10 @@ def _run_world(task, world, out_root):
         lines = log.read().splitlines()
         log.close()
         print("\n".join(lines[-60:] if p.returncode else
-                        [ln for ln in lines if ln.startswith("[parallel]")]))
-    print(f"[parallel] {task}: {world} process(es) in {time.time() - t0:.1f} s, exit codes "
+                        [ln for ln in lines if ln.startswith(("[parallel]", "[tp]"))]))
+    print(f"[parallel] {task}: {len(procs)} process(es) in {time.time() - t0:.1f} s, exit codes "
           f"{[p.returncode for p in procs]}")
-    check(not late, f"{task}: the world did not end within {PAR_TIMEOUT} s")
-    check(all(p.returncode == 0 for p in procs), f"{task}: a process of the world failed")
+    return late, [p.returncode for p in procs]
 
 
 def parallel_worker(task, out_dir):
@@ -2846,6 +2875,14 @@ def parallel_worker(task, out_dir):
     from vp_suite_tpu_torch.parallel import initialize_multihost
     if task == "facade":
         _parallel_facade(Path(out_dir))
+    elif task == "tp1":
+        _tp_world_of_one(Path(out_dir))
+    elif task in ("tp2", "tp4"):
+        initialize_multihost(backend="gloo")
+        try:
+            {"tp2": _tp_pair, "tp4": _tp_2d}[task](Path(out_dir))
+        finally:
+            torch.distributed.destroy_process_group()
     else:
         initialize_multihost(backend="gloo")
         try:
@@ -2971,6 +3008,303 @@ def _parallel_pair(out_dir):
         if path == "fused_scan":
             save_checkpoint_orbax(out_dir / "pair_ckpt", state, model_id, model.config, run_config)
     torch.save(out, out_dir / f"pair_{rank}.pt")
+
+
+#: the tensor-parallel phase (``drive_tensor_parallel``): its worlds as
+#: (task, processes, mesh), and the timed steps of (t2) after its counted one
+TP_WORLDS = (("tp1", 1, {"data": 1, "sp": 1, "tp": 1}), ("tp2", 2, {"data": 1, "tp": 2}),
+             ("tp4", 4, {"data": 2, "sp": 1, "tp": 2}))
+TP_TIMED = 1
+#: (t2)'s f32 predict against one process's
+TP_PREDICT_ATOL = 1e-4
+
+
+def drive_tensor_parallel(card):
+    r"""Tensor parallelism in child processes of this script
+    (:func:`parallel_worker`): (t1) a world of one over NCCL on a 1x1x1
+    data x sp x tp mesh and (t3) four processes on the one card over gloo on
+    a 2x1x2 mesh under
+    ``shard_params_tp_fsdp``, started together; then (t2) two processes over
+    gloo on ``{"data": 1, "tp": 2}`` alone, since it times its steps; then,
+    here, the one-process steps and predictions that (t2) and (t3) are held
+    against. Deletes its files under ``vp-suite-data/chip_smoke/tp``."""
+    import shutil
+    import torch
+    t_phase = time.time()
+    out_root = ROOT / "vp-suite-data" / "chip_smoke" / "tp"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    print(f"[tp] {card}")
+    try:
+        worlds = {task: _start_world(task, n, out_root) for task, n, _ in TP_WORLDS
+                  if task != "tp2"}
+        for task, world in worlds.items():
+            late, rcs = _end_world(*world)
+            check(not late and all(rc == 0 for rc in rcs), f"{task}: exit codes {rcs}, late {late}")
+        _run_world("tp2", 2, out_root)
+
+        frames = _par_frames().cuda()
+        ranks = [torch.load(out_root / f"tp2_{r}.pt", weights_only=False) for r in range(2)]
+        ranks4 = [torch.load(out_root / f"tp4_{r}.pt", weights_only=False) for r in range(4)]
+        for path in ("per_step", "fused_scan"):
+            model, p0, loss, one_ms = _tp_one_process_step(path, frames)
+            got = ranks[0][path]
+            check(all(torch.equal(v, ranks[1][path]["params"][k])
+                      for k, v in got["params"].items()),
+                  f"(t2) {path}: the two processes' gathered parameters differ")
+            worst, where = _step_excess(p0, model, got["params"])
+            ok = worst <= STEP_TOL and abs(got["loss"] - loss) <= 1e-4 * abs(loss)
+            print(f"[tp] (t2) {path} f32 SGD step of two tp processes (gloo, b={PAR_B} each) "
+                  f"against one process: loss {got['loss']:.6f} vs {loss:.6f}; (p0-p1)/lr: "
+                  f"max(|diff| - rtol*|one|) {worst:.3g} at {where} (rtol {STEP_TOL}, must stay "
+                  f"<= atol {STEP_TOL}); {got['sharded']} leaves tp-sharded, each process's "
+                  f"shard its own slice: {got['shards_exact']}: {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"(t2) {path}: the tp step disagrees with the one-process step")
+            check(all(r[path]["shards_exact"] for r in ranks),
+                  f"(t2) {path}: a process holds another slice than its own")
+            want = _tp_one_process_predict(path, frames)
+            diff = (got["preds"].cuda() - want).abs().max().item()
+            print(f"[tp] (t2) {path} f32 predict of two tp processes against one process: max "
+                  f"|diff| {diff:.3g} (limit {TP_PREDICT_ATOL})", flush=True)
+            check(diff <= TP_PREDICT_ATOL, f"(t2) {path}: predict parts from one process's")
+            print(f"[tp] (t2) {path} f32 b={PAR_B} train step ({TP_TIMED} timed): "
+                  f"{_ms(got['step_ms'])} / {_ms(ranks[1][path]['step_ms'])} ms in the two tp "
+                  f"processes on the one card (gloo) against {_ms(one_ms)} ms in one process "
+                  f"(tp=1); the step's {got['collectives']} tp collectives "
+                  f"({got['collective_mib']:.1f} MiB) {got['collective_ms']:.1f} ms (CUDA events "
+                  f"around each alone, summed); two processes on one card measure no scaling",
+                  flush=True)
+            if path == "fused_scan":
+                params = _tp4_params(ranks4)
+                worst, where = _step_excess(p0, model, params)
+                ok = worst <= STEP_TOL and abs(ranks4[0]["loss"] - loss) <= 1e-4 * abs(loss)
+                print(f"[tp] (t3) fused_scan f32 SGD step of four processes (gloo, data 2 x tp "
+                      f"2, shard_params_tp_fsdp, b={PAR_B // 2} each) against one process: loss "
+                      f"{ranks4[0]['loss']:.6f} vs {loss:.6f}; (p0-p1)/lr: max(|diff| - "
+                      f"rtol*|one|) {worst:.3g} at {where}; {ranks4[0]['two_d']} leaves 2-D: "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, "(t3) the 2-D step disagrees with the one-process step")
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[tp] the phase took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _tp_model(path):
+    from vp_suite_tpu_torch.models import build_model
+    model_id, cfg = PATHS[path]
+    return build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg)
+
+
+def _tp_one_process_step(path, frames):
+    r"""``(model after, its parameters before, loss, [step ms])`` of the
+    one-process f32 SGD step at b=PAR_B (then TP_TIMED more, timed)."""
+    import torch
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    model = _tp_model(path)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+    step = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED})
+    _, metrics = step(state, {"frames": frames})
+    loss = float(metrics["total"])
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    _, _, times = _time_step(step, state, {"frames": frames}, n=TP_TIMED, warmup=0)
+    with torch.no_grad():
+        for k, v in model.named_parameters():
+            v.copy_(after[k])
+    return model, p0, loss, [t * 1e3 for t in times]
+
+
+def _ms(times):
+    return ", ".join(f"{t:.1f}" for t in times)
+
+
+def _tp_one_process_predict(path, frames):
+    from vp_suite_tpu_torch.training.loop import make_predict_fn
+    return make_predict_fn(_tp_model(path), {"context_frames": CTX, "pred_frames": PRED})(
+        {"frames": frames})[0]
+
+
+def _step_excess(p0, model, got):
+    r"""The SGD gate: ``max(|(p0 - p1)/lr - (p0 - p1')/lr| - STEP_TOL
+    |(p0 - p1')/lr|)`` over ``got``'s parameters against ``model``'s; with
+    its parameter's name."""
+    worst, where = 0.0, ""
+    for k, v in model.named_parameters():
+        want = (p0[k] - v.detach()) / PAR_LR
+        mine = (p0[k] - got[k].to(v.device)) / PAR_LR
+        excess = ((mine - want).abs() - STEP_TOL * want.abs()).max().item()
+        if excess > worst or not where:
+            worst, where = excess, k
+    return worst, where
+
+
+def _tp4_params(ranks4):
+    r"""(t3)'s parameters whole: each tp-gathered FSDP shard of data
+    coordinates 0 and 1 (processes 0 and 2) joined along FSDP's dimension."""
+    import torch
+    out = {}
+    for k, (t, dim) in ranks4[0]["params"].items():
+        out[k] = t if dim is None else torch.cat([t, ranks4[2]["params"][k][0]], dim)
+    return out
+
+
+def _tp_world_of_one(out_dir):
+    r"""(t1): one process over NCCL on a 1x1x1 mesh: each path's f32 SGD step
+    and predict, with exact launch counts, bit-identical to the same without a
+    group (cuDNN's deterministic algorithms)."""
+    import torch
+    from vp_suite_tpu_torch.parallel import (initialize_multihost, make_mesh_nd, shard_params,
+                                             shard_params_tp)
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    rank, world = initialize_multihost()
+    check((rank, world) == (0, 1) and torch.distributed.get_backend() == "nccl",
+          f"(t1): joined rank {rank} of {world} over {torch.distributed.get_backend()}")
+    mesh = make_mesh_nd(TP_WORLDS[0][2], "cuda")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    frames = _par_frames().cuda()
+    for path in ("per_step", "fused_scan"):
+        params = {}
+        for grouped in (True, False):
+            model = _tp_model(path)
+            if grouped:
+                shard_params_tp(shard_params(model, mesh), mesh)
+            state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+            step = make_train_step(model, run, mesh=mesh if grouped else None)
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            step(state, {"frames": frames})
+            torch.cuda.synchronize()
+            train = read_counts(counters)
+            counters = reset_counts()
+            make_predict_fn(model, run)({"frames": frames})
+            torch.cuda.synchronize()
+            predict = read_counts(counters)
+            check(train == WANT_TRAIN_LAUNCHES[path] and predict == WANT_PREDICT_LAUNCHES[path],
+                  f"(t1) {path}: the step launched {train}, predict {predict}")
+            params[grouped] = {k: v.detach().clone() for k, v in model.named_parameters()}
+        same = all(torch.equal(v, params[False][k]) for k, v in params[True].items())
+        print(f"[tp] (t1) {path} in a world of one over NCCL on a 1x1x1 data x sp x tp mesh: "
+              f"step launches " + ", ".join(f"{k} {v}" for k, v in train.items() if v)
+              + ", predict " + ", ".join(f"{k} {v}" for k, v in predict.items() if v)
+              + f" (as wanted); f32 SGD step bit-identical to the run without a group: {same}",
+              flush=True)
+        check(same, f"(t1) {path}: the step in a world of one parts from the step without one")
+    torch.distributed.destroy_process_group()
+
+
+def _tp_pair(out_dir):
+    r"""(t2): one of two processes on ``{"data": 1, "tp": 2}`` over gloo:
+    each path's f32 predict, then its SGD step at b=PAR_B with its launches
+    and its tp collectives and TP_TIMED more steps timed; writes
+    ``tp2_{rank}.pt`` with the parameters whole after the first step."""
+    import torch
+    from vp_suite_tpu_torch.parallel import make_mesh_nd, shard_params_tp
+    from vp_suite_tpu_torch.parallel.tensor import all_gather, record, sharded_params, whole
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    rank = torch.distributed.get_rank()
+    mesh = make_mesh_nd(TP_WORLDS[1][2], "cuda")
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    batch = {"frames": _par_frames().cuda()}
+    out = {}
+    for path in ("per_step", "fused_scan"):
+        full = _tp_model(path).state_dict()
+        model = shard_params_tp(_tp_model(path), mesh)
+        specs = sharded_params(model)
+        exact = all(torch.equal(v, full[k].narrow(specs[k].dim, specs[k].rank * specs[k].local,
+                                                  specs[k].local)) if k in specs
+                    else torch.equal(v, full[k]) for k, v in model.named_parameters())
+        counters = reset_counts()
+        preds, _ = make_predict_fn(model, run)(batch)
+        torch.cuda.synchronize()
+        predict = read_counts(counters)
+        check(predict == WANT_PREDICT_LAUNCHES[path],
+              f"(t2) {path}: process {rank}'s predict launched {predict}")
+        state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+        step = make_train_step(model, run, mesh=mesh)
+        counters = reset_counts()
+        with record() as log:
+            _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        check(launches == WANT_TRAIN_LAUNCHES[path],
+              f"(t2) {path}: process {rank}'s step launched {launches}")
+        params = {k: whole(k, v, specs).detach().to("cpu", copy=True)
+                  for k, v in model.named_parameters()}
+        _, _, times = _time_step(step, state, batch, n=TP_TIMED, warmup=0)
+        step_ms = [t * 1e3 for t in times]
+        # each collective of the step alone, at its shape, on the tp group
+        group = mesh.get_group("tp")
+        calls = {}
+        for kind, _, shape, dtype in log:
+            if kind in ("gather", "all_reduce"):
+                calls[(kind, shape, dtype)] = calls.get((kind, shape, dtype), 0) + 1
+        ms = mib = 0.0
+        for (kind, shape, dtype), n in sorted(calls.items(), key=str):
+            x = torch.ones(shape, dtype=dtype, device="cuda")
+            if kind == "gather":
+                part = x[:shape[0] // 2]
+                one = cuda_ms(lambda: all_gather(part, 0, 2, group), warmup=0, iters=1)
+            else:
+                one = cuda_ms(lambda: torch.distributed.all_reduce(x, group=group), warmup=0,
+                              iters=1)
+            ms += n * one
+            mib += n * x.numel() * x.element_size() / 2 ** 20
+        print(f"[tp] (t2) process {rank} {path}: launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + ", predict "
+              + ", ".join(f"{k} {v}" for k, v in predict.items() if v)
+              + f"; {sum(calls.values())} tp collectives a step, {ms:.1f} ms; steps "
+              f"{_ms(step_ms)} ms",
+              flush=True)
+        out[path] = {"loss": float(metrics["total"]), "params": params, "preds": preds.cpu(),
+                     "sharded": len(specs), "shards_exact": exact, "step_ms": step_ms,
+                     "collectives": sum(calls.values()), "collective_ms": ms,
+                     "collective_mib": mib}
+    torch.save(out, out_dir / f"tp2_{rank}.pt")
+
+
+def _tp_2d(out_dir):
+    r"""(t3): one of four processes on a 2x1x2 data x sp x tp mesh over gloo:
+    the fused path's f32 SGD step under ``shard_params_tp_fsdp`` on its half
+    of the b=PAR_B batch, with its launches; writes ``tp4_{rank}.pt`` with
+    each parameter's FSDP shard gathered over tp and FSDP's dimension
+    (``DTensor.full_tensor`` crashes gloo on CUDA tensors)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from vp_suite_tpu_torch.parallel import (make_mesh_nd, shard_params_tp_fsdp,
+                                             shard_video_batch)
+    from vp_suite_tpu_torch.parallel.tensor import sharded_params, whole
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    rank = torch.distributed.get_rank()
+    mesh = make_mesh_nd(TP_WORLDS[2][2], "cuda")
+    model = shard_params_tp_fsdp(_tp_model("fused_scan"), mesh)
+    specs = sharded_params(model)
+    state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+    batch = shard_video_batch({"frames": _par_frames().cuda()}, mesh)
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    _, metrics = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED},
+                                 mesh=mesh)(state, batch)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check(launches == WANT_TRAIN_LAUNCHES["fused_scan"],
+          f"(t3) process {rank}'s step launched {launches}")
+    params, two_d = {}, 0
+    for k, p in model.named_parameters():
+        dim = p.placements[0].dim if isinstance(p, DTensor) else None
+        two_d += dim is not None and k in specs
+        params[k] = (whole(k, p.to_local() if dim is not None else p, specs).detach()
+                     .to("cpu", copy=True), dim)
+    print(f"[tp] (t3) process {rank}: loss {float(metrics['total']):.6f}, launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f", {two_d} leaves split over data and tp", flush=True)
+    torch.save({"loss": float(metrics["total"]), "params": params, "two_d": two_d},
+               out_dir / f"tp4_{rank}.pt")
 
 
 def forward_ms(model, batch):

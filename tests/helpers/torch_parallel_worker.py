@@ -67,12 +67,12 @@ FUSED = dict(use_fused_scan=True, interleaved_encode=False, interleaved_forecast
 
 
 class World:
-    r"""The processes of one task of this script, started at once with
+    r"""The processes of one task of this script (or of ``script``), started at once with
     torchrun's variables on a free loopback port (all on card 0), and waited
     for within ``timeout`` seconds of their start by :meth:`wait`, which
     raises if one fails or is late (killing the others)."""
 
-    def __init__(self, task, out_dir, size=2, timeout=120):
+    def __init__(self, task, out_dir, size=2, timeout=120, script=__file__):
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -83,7 +83,7 @@ class World:
         self.task, self.out_dir, self.timeout = task, Path(out_dir), timeout
         self.t0, self.done = time.time(), False
         self.logs = [open(self.out_dir / f"log_{task}_{r}.txt", "w") for r in range(size)]
-        self.procs = [subprocess.Popen([sys.executable, __file__, task, str(out_dir)],
+        self.procs = [subprocess.Popen([sys.executable, str(script), task, str(out_dir)],
                                        env={**env, "RANK": str(r)}, stdout=log,
                                        stderr=subprocess.STDOUT)
                       for r, log in enumerate(self.logs)]

@@ -14,8 +14,10 @@ This is the counterpart of the JAX package's msgpack checkpoint; the
 counterpart of its orbax backend, a sharded checkpoint that every process
 writes its part of, is :mod:`.orbax_backend`. In a process group every
 process calls :func:`save_checkpoint`: under FSDP each first joins the
-gather of the full state, then rank 0 alone writes the files, in the same
-form as a single process does, so that they load without a group.
+gather of the full state, and under tensor parallelism the gather of each
+tp-sharded parameter and its moments over ``tp``; then rank 0 alone writes
+the files, in the same form as a single process does, so that they load
+without a group.
 """
 import json
 from pathlib import Path
@@ -26,6 +28,7 @@ import torch
 from vp_suite_tpu_torch.models import MODEL_CLASSES, build_model
 from vp_suite_tpu_torch.parallel.distributed import process_index
 from vp_suite_tpu_torch.parallel.mesh import is_fsdp
+from vp_suite_tpu_torch.parallel.tensor import sharded_params, whole
 from vp_suite_tpu_torch.training.train_state import create_train_state
 from vp_suite_tpu_torch.utils.utils import resolve_device, torch_dtype
 
@@ -77,15 +80,33 @@ def write_sidecars(ckpt_dir, model_id, model_config, run_config=None, **extra):
 
 def _full_state(state):
     r"""``(model state_dict, optimizer state_dict or None)`` of the whole
-    state. Under FSDP every process joins the gather, and rank 0 gets the
-    full tensors on the CPU, the optimizer's in the plain index-keyed form
-    (the others get empty dicts)."""
+    state. Under FSDP every process joins the gather, the optimizer's state
+    in the plain index-keyed form; without tensor parallelism rank 0 alone
+    gets the full tensors, on the CPU (the others get empty dicts). Every
+    tp-sharded parameter and moment is then gathered whole over ``tp`` on
+    every process, which therefore needs FSDP's full tensors on every process
+    (on the device: NCCL gathers no CPU tensors)."""
+    specs = sharded_params(state.model)
+    model_sd, opt_sd = _unsharded_state(state, cpu_offload=not specs)
+    if not specs:
+        return model_sd, opt_sd
+    model_sd = {k: whole(k, v, specs) for k, v in model_sd.items()}
+    if opt_sd:
+        names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+        opt_sd = {**opt_sd, "state": {i: {k: whole(names[i], v, specs) for k, v in st.items()}
+                                      for i, st in opt_sd["state"].items()}}
+    return model_sd, opt_sd
+
+
+def _unsharded_state(state, cpu_offload):
+    r""":func:`_full_state` before the tp gather: FSDP's shards gathered, to
+    rank 0's CPU with ``cpu_offload``, else to every process's device."""
     model, opt = state.model, state.optimizer
     if not is_fsdp(model):
         return model.state_dict(), opt.state_dict() if opt is not None else None
     from torch.distributed.checkpoint.state_dict import (StateDictOptions, get_model_state_dict,
                                                          get_state_dict)
-    options = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    options = StateDictOptions(full_state_dict=True, cpu_offload=cpu_offload)
     if opt is None:
         return get_model_state_dict(model, options=options), None
     model_sd, fqn_sd = get_state_dict(model, opt, options=options)

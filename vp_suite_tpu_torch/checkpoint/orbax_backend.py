@@ -12,6 +12,13 @@ backend, written with ``torch.distributed.checkpoint`` (DCP).
   DTensor of an FSDP model gets its shard, a plain tensor (one process
   without a group, or a replicated leaf) the whole of it.
 
+A tp-sharded parameter (``parallel.mesh.shard_params_tp``; with FSDP2 over
+``data`` on top, ``shard_params_tp_fsdp``) and its moments are written by each
+process from its shard too, as a DTensor over the whole N-D mesh (split over
+``tp``, and over ``data`` where FSDP2 splits it). Such a checkpoint restores
+into a model of any layout that is not tp-sharded, a plain one without a group
+included; restoring into a tp-sharded model raises.
+
 ``VPSuite.train(ckpt_backend="orbax")`` selects it (the option keeps the JAX
 package's name, so the run configurations stay alike); every process calls
 :func:`save_checkpoint_orbax`. The ``model_config.json`` sidecar, which
@@ -20,26 +27,54 @@ written by rank 0.
 """
 from pathlib import Path
 
+import torch
 import torch.distributed.checkpoint as dcp
 
 from vp_suite_tpu_torch.checkpoint.checkpoint import model_from_config, write_sidecars
 from vp_suite_tpu_torch.parallel.distributed import is_grouped, process_index
+from vp_suite_tpu_torch.parallel.tensor import sharded_params
 from vp_suite_tpu_torch.training.train_state import create_train_state
 from vp_suite_tpu_torch.utils.utils import resolve_device
 
 STATE_DIR = "orbax_state"
 
 
+def _global(name, t, specs):
+    r"""``t`` (parameter ``name``'s tensor or moment) as a DTensor over the whole
+    N-D mesh where ``name`` is tp-sharded: its ``tp`` shard, and within that
+    FSDP2's ``data`` shard where ``t`` is one."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    spec = specs.get(name)
+    if spec is None or not torch.is_tensor(t) or t.dim() <= spec.dim:
+        return t
+    on = {}
+    if isinstance(t, DTensor):
+        (axis,), (placement,) = t.device_mesh.mesh_dim_names, t.placements
+        on[axis], t = placement, t.to_local()
+    if t.shape[spec.dim] != spec.local:
+        return t
+    on["tp"] = Shard(spec.dim)
+    return DTensor.from_local(t, spec.mesh, [on.get(n, Replicate())
+                                             for n in spec.mesh.mesh_dim_names], run_check=False)
+
+
 def _state_dict(state):
     r"""What DCP writes and reads: the model's and the optimizer's state
-    dicts in their present layout (DTensors under FSDP), the step, the
-    schedules and the optimizer's name."""
+    dicts in their present layout (DTensors under FSDP, and over the whole
+    mesh under tensor parallelism), the step, the schedules and the
+    optimizer's name."""
     from torch.distributed.checkpoint.state_dict import get_model_state_dict, get_state_dict
     opt = state.optimizer
     if opt is None:
         model_sd, opt_sd = get_model_state_dict(state.model), {}
     else:
         model_sd, opt_sd = get_state_dict(state.model, opt)
+    specs = sharded_params(state.model)
+    if specs:
+        model_sd = {k: _global(k, v, specs) for k, v in model_sd.items()}
+        if opt_sd:
+            opt_sd["state"] = {k: {m: _global(k, v, specs) for m, v in st.items()}
+                               for k, st in opt_sd["state"].items()}
     return {"model": model_sd, "optimizer": opt_sd, "step": state.step,
             "model_state": dict(state.model_state),
             "optimizer_name": type(opt).__name__.lower() if opt is not None else ""}
@@ -67,6 +102,9 @@ def restore_checkpoint_orbax(ckpt_dir, template_state):
     the checkpoint (never given a gradient) get none."""
     from torch.distributed.checkpoint.state_dict import (StateDictOptions, set_model_state_dict,
                                                          set_optimizer_state_dict)
+    if sharded_params(template_state.model):
+        raise NotImplementedError("restoring a checkpoint into a tp-sharded model is not ported: "
+                                  "restore it into a model that is not, then shard that")
     path = Path(ckpt_dir).absolute() / STATE_DIR
     sd = _state_dict(template_state)
     opt_sd, groups = sd["optimizer"], None

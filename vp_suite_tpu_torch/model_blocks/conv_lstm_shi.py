@@ -31,6 +31,14 @@ Parameters keep the reference vp-suite's names and layouts: ``_conv``
 ``Wci``/``Wcf``/``Wco`` ``[1, enc, state_h, state_w]``. The carry is ``h`` and
 ``c`` in the activation dtype on the per-step path; the fused scan carries
 ``c`` in f32 and returns it in the activation dtype.
+
+Under tensor parallelism (``parallel.mesh.shard_params_tp``, the gate conv's
+out-channels split over ``tp``) the per-step path computes this process's
+``4enc / tp`` gate channels (the hoisted input half and each step's hidden
+half, or each step's conv over ``concat([x_t, h])``) and gathers the gates
+once a step, before K1; the fused path computes its hoisted input half
+column-parallel and gathers it once, and runs K3 / K3s / K4 whole on every
+process with the hidden weight and the peepholes gathered at use.
 """
 import torch
 from torch import nn
@@ -40,6 +48,7 @@ from vp_suite_tpu_torch.nn.functional import conv2d
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.cells import convlstm_gate_fuse
 from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_fused
+from vp_suite_tpu_torch.parallel.tensor import gather, local_param, tagged, tp_spec
 
 
 class ConvLSTMShi(VPModelBlock):
@@ -83,8 +92,11 @@ class ConvLSTMShi(VPModelBlock):
         Returns ``(outputs [t, b, state_h, state_w, enc], (h, c))``.
         """
         enc, sh, sw = self.enc_channels, self.state_h, self.state_w
-        weight, bias = self._conv.weight, self._conv.bias
-        x_weight, h_weight = weight[:, :self.in_channels], weight[:, self.in_channels:]
+        # this process's gate channels: all of them, or its tp shard
+        weight, bias = local_param(self._conv, "weight"), local_param(self._conv, "bias")
+        spec = tp_spec(weight)
+        x_weight = tagged(weight[:, :self.in_channels], spec)
+        h_weight = tagged(weight[:, self.in_channels:], spec)
 
         if states is None:
             if inputs is None:
@@ -108,24 +120,28 @@ class ConvLSTMShi(VPModelBlock):
                      and inputs.shape[2] == sh and inputs.shape[3] == sw)
         hoist = inputs is not None and (self.hoist_i2h or self.use_fused_scan or not concat_ok)
         raw_xs = inputs is not None and not hoist
+        fused = (self.use_fused_scan and not raw_xs and self.kernel_size == 3
+                 and self.stride == 1 and self.padding == 1)
         if hoist:
-            # one batched conv over all t*b frames; the bias rides this half
+            # one batched conv over all t*b frames; the bias rides this half. The
+            # fused path takes it whole; the per-step path adds this process's
+            # channels to each step's hidden half before the gather
             i2h_t = conv2d(inputs.reshape(-1, *inputs.shape[2:]), x_weight, bias,
-                           self.stride, self.padding).reshape(seq_len, b, sh, sw, 4 * enc)
+                           self.stride, self.padding, gather_output=fused)
+            i2h_t = i2h_t.reshape(seq_len, b, sh, sw, -1)
         elif raw_xs:
             i2h_t = inputs
         else:
             i2h_t = None  # decode mode: the bias rides the per-step hidden conv
 
-        if (self.use_fused_scan and not raw_xs and self.kernel_size == 3
-                and self.stride == 1 and self.padding == 1):
+        if fused:
             if i2h_t is None:
-                i2h_in, k_bias = None, bias
+                i2h_in, k_bias = None, self._conv.bias
             else:
-                i2h_in, k_bias = i2h_t, torch.zeros_like(bias)
+                i2h_in, k_bias = i2h_t, bias.new_zeros(4 * enc)
             outputs, (h_last, c_last) = convlstm_scan_fused(
-                i2h_in, h0, c0, h_weight.permute(2, 3, 1, 0).to(dt), k_bias, wci, wcf, wco,
-                seq_len=seq_len)
+                i2h_in, h0, c0, self._conv.weight[:, self.in_channels:].permute(2, 3, 1, 0).to(dt),
+                k_bias, wci, wcf, wco, seq_len=seq_len)
         else:
             h, c = h0, c0
             outs = []
@@ -135,8 +151,10 @@ class ConvLSTMShi(VPModelBlock):
                                    self.stride, self.padding)
                 else:
                     conv_h = conv2d(h, h_weight, bias if i2h_t is None else None,
-                                    self.stride, self.padding)
+                                    self.stride, self.padding, gather_output=False)
                     gates = conv_h if i2h_t is None else i2h_t[t] + conv_h
+                    if spec is not None:
+                        gates = gather(gates, spec, -1)
                 h, c = convlstm_gate_fuse(gates, c, wci, wcf, wco)
                 outs.append(h)
             outputs, h_last, c_last = torch.stack(outs), h, c

@@ -10,9 +10,19 @@ torch's layouts (conv ``[out, in, kh, kw]``, convT ``[in, out, kh, kw]``,
 conv3d ``[out, in, kt, kh, kw]``) and are cast to the activation dtype at
 use, so f32 params serve bf16 activations (so are the norms' affine
 parameters).
+
+Given a tp-sharded weight (this process's shard of the out-channels, as
+``parallel.tensor.local_param`` hands it out), the convolutions and
+``linear`` compute column-parallel: this process's out-channels only,
+gathered over ``tp`` (``conv2d`` with ``gather_output=False`` leaves them
+local).
 """
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from vp_suite_tpu_torch.parallel.tensor import column_parallel, tp_spec
 
 
 def _ntuple(v, n):
@@ -31,21 +41,47 @@ def _pad_channels_first(x, padding, padding_mode):
     return F.pad(x, pads, mode="replicate").contiguous(memory_format=fmt), (0,) * len(padding)
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
+def _cast(t, x):
+    return None if t is None else t.to(x.dtype)
+
+
+def _conv2d(x, weight, bias, stride, padding, padding_mode):
+    xc, padding = _pad_channels_first(x.permute(0, 3, 1, 2), _ntuple(padding, 2), padding_mode)
+    y = F.conv2d(xc, weight.to(x.dtype), _cast(bias, x), stride, padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros",
+           gather_output=True):
     r"""NHWC conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[out, in, kh, kw]``;
     ``padding_mode`` is ``"zeros"`` or ``"replicate"``."""
-    xc, padding = _pad_channels_first(x.permute(0, 3, 1, 2), _ntuple(padding, 2), padding_mode)
-    y = F.conv2d(xc, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), stride,
-                 padding)
+    if tp_spec(weight) is not None:
+        return column_parallel(functools.partial(_conv2d, stride=stride, padding=padding,
+                                                 padding_mode=padding_mode),
+                               x, weight, bias, gather_output)
+    return _conv2d(x, weight, bias, stride, padding, padding_mode)
+
+
+def _conv_transpose2d(x, weight, bias, stride, padding, output_padding):
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), _cast(bias, x), stride,
+                           padding, output_padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv_transpose2d(x, weight, bias=None, stride=1, padding=0, output_padding=0):
     r"""NHWC transposed conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[in, out, kh, kw]``."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                           None if bias is None else bias.to(x.dtype), stride, padding,
-                           output_padding)
-    return y.permute(0, 2, 3, 1).contiguous()
+    if tp_spec(weight) is not None:
+        return column_parallel(functools.partial(_conv_transpose2d, stride=stride,
+                                                 padding=padding, output_padding=output_padding),
+                               x, weight, bias)
+    return _conv_transpose2d(x, weight, bias, stride, padding, output_padding)
+
+
+def _conv3d(x, weight, bias, stride, padding, padding_mode):
+    stride, padding = _ntuple(stride, 3), _ntuple(padding, 3)
+    xc, padding = _pad_channels_first(x.permute(0, 4, 1, 2, 3), padding, padding_mode)
+    y = F.conv3d(xc, weight.to(x.dtype), _cast(bias, x), stride, padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 def conv3d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
@@ -54,11 +90,21 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
     a ``channels_last_3d`` view; the JAX package lowers UNet-3D's 3-D convs to
     one 2-D conv over time-in-channels instead, the same function
     (``kernels/unet3d_variants.py`` times the two on the card)."""
-    stride, padding = _ntuple(stride, 3), _ntuple(padding, 3)
-    xc, padding = _pad_channels_first(x.permute(0, 4, 1, 2, 3), padding, padding_mode)
-    y = F.conv3d(xc, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), stride,
-                 padding)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    if tp_spec(weight) is not None:
+        return column_parallel(functools.partial(_conv3d, stride=stride, padding=padding,
+                                                 padding_mode=padding_mode), x, weight, bias)
+    return _conv3d(x, weight, bias, stride, padding, padding_mode)
+
+
+def linear(x, weight, bias=None):
+    r"""``F.linear`` in ``x``'s dtype (``weight`` ``[out, in]``)."""
+    if tp_spec(weight) is not None:
+        return column_parallel(_linear, x, weight, bias)
+    return _linear(x, weight, bias)
+
+
+def _linear(x, weight, bias):
+    return F.linear(x, weight.to(x.dtype), _cast(bias, x))
 
 
 def layer_norm_chw(x, weight, bias, eps=1e-5):

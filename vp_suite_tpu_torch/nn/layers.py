@@ -11,6 +11,11 @@ a=sqrt(5), which is U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias,
 with torch's fan_in (``weight.shape[1] * kh * kw`` for both conv kinds,
 ``in * kt * kh * kw`` in 3-D, ``in`` for ``Dense``); norms start at scale 1,
 bias 0 (and running mean 0, running variance 1).
+
+Under tensor parallelism (``parallel.mesh.shard_params_tp``) ``Conv2d``,
+``ConvTranspose2d``, ``Conv3d`` and ``Dense`` with a tp-sharded weight compute
+column-parallel from their local shards; the norms read their parameters
+whole (gathered at use).
 """
 import math
 import warnings
@@ -19,9 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vp_suite_tpu_torch.nn.functional import (conv2d, conv3d, conv_transpose2d,
-                                                         group_norm, layer_norm_chw)
+from vp_suite_tpu_torch.nn.functional import (conv2d, conv3d, conv_transpose2d, group_norm,
+                                               layer_norm_chw, linear)
 from vp_suite_tpu_torch.parallel.distributed import batch_statistics_group
+from vp_suite_tpu_torch.parallel.tensor import layer_params
 
 
 def torch_default_init_(weight, bias=None, generator=None):
@@ -41,7 +47,7 @@ class Conv2d(nn.Conv2d):
         torch_default_init_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        return conv2d(x, self.weight, self.bias, self.stride, self.padding, self.padding_mode)
+        return conv2d(x, *layer_params(self), self.stride, self.padding, self.padding_mode)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -51,7 +57,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         torch_default_init_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
+        return conv_transpose2d(x, *layer_params(self), self.stride, self.padding,
                                 self.output_padding)
 
 
@@ -62,7 +68,7 @@ class Conv3d(nn.Conv3d):
         torch_default_init_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        return conv3d(x, self.weight, self.bias, self.stride, self.padding, self.padding_mode)
+        return conv3d(x, *layer_params(self), self.stride, self.padding, self.padding_mode)
 
 
 class Dense(nn.Linear):
@@ -72,8 +78,7 @@ class Dense(nn.Linear):
         torch_default_init_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype))
+        return linear(x, *layer_params(self))
 
 
 class LayerNormCHW(nn.LayerNorm):

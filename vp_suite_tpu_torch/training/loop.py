@@ -14,7 +14,10 @@ from vp_suite_tpu_torch.base.base_model import VPModel
 from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
 from vp_suite_tpu_torch.parallel.distributed import batch_statistics_over
-from vp_suite_tpu_torch.parallel.mesh import all_reduce_gradients, check_same_gradients, is_fsdp
+from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over_tp,
+                                              check_same_gradients, check_train_mesh,
+                                              data_coordinate, data_group, is_fsdp)
+from vp_suite_tpu_torch.parallel.tensor import sharded_params
 
 
 def _apply_model(model, x, *args, **kwargs):
@@ -103,6 +106,17 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     teacher-forcing coin is the same on every process. Parameters without a
     gradient (ST-Phy's dead layers) keep ``.grad`` None on every process:
     the first step checks that the processes agree on them.
+
+    On an N-D mesh (``parallel.mesh.make_mesh_nd``) all of this runs over its
+    ``data`` axis: ``batch`` holds the rows of this process's data coordinate
+    (every ``tp`` process of it the same), the masks' rows are that
+    coordinate's, and the gradients of the replicated parameters and of this
+    process's tp shards (``shard_params_tp``) are averaged over the processes
+    of its ``data`` axis, which hold the same shards; the layers' own
+    collectives run over ``tp``, and the gradients of the parameters that
+    ``tp`` leaves whole are then averaged over ``tp`` (``average_over_tp``),
+    so that their replicas stay equal. A mesh with ``sp`` > 1 raises
+    (``check_train_mesh``).
     """
     regime = getattr(model, "TRAIN_REGIME", "default")
     if regime not in ("default", "teacher_forcing", "scheduled_sampling"):
@@ -110,8 +124,10 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     run_config, cfg, loss_provider = _step_config(run_config, loss_provider)
     k = run_config["accum_steps"] if accum_steps is None else accum_steps
     ctx, pred = cfg["context_frames"], cfg["pred_frames"]
-    rank, world = (mesh.get_local_rank(), mesh.size()) if mesh is not None else (0, 1)
-    group = mesh.get_group() if mesh is not None else None
+    if mesh is not None:
+        check_train_mesh(mesh)
+    rank, world = data_coordinate(mesh)
+    group = data_group(mesh)
 
     def losses(preds, targets, aux):
         loss_values, total = loss_provider.get_losses(preds, targets)
@@ -157,10 +173,10 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     loss_fn = {"default": default_loss, "teacher_forcing": teacher_forcing_loss,
                "scheduled_sampling": scheduled_sampling_loss}[regime]
 
-    replicated = None   # the parameters whose gradients the step all-reduces
+    replicated = whole = None   # the parameters whose gradients the step all-reduces
 
     def train_step(state, batch, epoch=0):
-        nonlocal replicated
+        nonlocal replicated, whole
         b = batch["frames"].shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by accum_steps {k}")
@@ -191,10 +207,14 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
                 replicated = [p for p in model.parameters()
                               if p.requires_grad and not isinstance(p, DTensor)]
                 check_same_gradients(replicated, mesh)
+                split = sharded_params(model)
+                whole = [p for n, p in model.named_parameters()
+                         if p.requires_grad and n not in split]
             names = list(loss_values)
             means = all_reduce_gradients(replicated, mesh,
                                          torch.stack([total, *(loss_values[n] for n in names)]))
             total, loss_values = means[0], dict(zip(names, means[1:]))
+            average_over_tp(whole, mesh)
         state.optimizer.step()
         state.step += 1
         state.model_state = new_model_state
@@ -203,11 +223,14 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     return train_step
 
 
-def make_eval_step(model: VPModel, run_config: dict, loss_provider=None):
+def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=None):
     r"""Builds the evaluation step: ``(state, batch) -> {"total": ..., <loss
     name>: ...}``, the model run with ``train=False`` under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``. With a ``mesh``, ``batch`` is this process's
+    share of the global batch (``shard_batch``) and the metrics are the global
+    batch's, averaged over the mesh's ``data`` axis in one all-reduce."""
     _, cfg, loss_provider = _step_config(run_config, loss_provider)
+    group = data_group(mesh)
 
     def eval_step(state, batch):
         with torch.inference_mode():
@@ -215,6 +238,12 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None):
             preds, _ = _apply_model(model, inputs, pred_frames=cfg["pred_frames"], train=False,
                                     **kw)
             loss_values, total = loss_provider.get_losses(preds, targets)
+            if group is not None:
+                names = list(loss_values)
+                means = torch.stack([total, *(loss_values[n] for n in names)]).float()
+                torch.distributed.all_reduce(means, group=group)
+                means /= torch.distributed.get_world_size(group)
+                total, loss_values = means[0], dict(zip(names, means[1:]))
         return {"total": total, **loss_values}
 
     return eval_step
@@ -225,7 +254,10 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None):
     ``run_config``'s context and horizon. It runs under
     ``torch.inference_mode()``. ``pre`` maps the inputs into the model's
     value range and size and ``post`` maps the predictions back (the
-    adapters of ``check_model_and_data_compat``; identity when None)."""
+    adapters of ``check_model_and_data_compat``; identity when None). On a
+    mesh it predicts the rows it is given (``shard_batch``): every ``tp``
+    process of a data coordinate predicts the same, the model's collectives
+    running over ``tp``."""
     cfg = {"context_frames": run_config["context_frames"],
            "pred_frames": run_config["pred_frames"]}
 

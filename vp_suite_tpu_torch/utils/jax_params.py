@@ -81,13 +81,17 @@ def _array(t):
 
 
 TRAJGRU_CONVS = ("i2h", "i2f_conv1", "h2f_conv1", "flows_conv", "ret")
+#: the JAX -> port transposes: port dim ``i`` holds the JAX leaf's dim ``axes[i]``
+CONV, CONVT, CONV3D, DENSE, LN_CHW = (3, 2, 0, 1), (2, 3, 0, 1), (4, 3, 0, 1, 2), (1, 0), (2, 0, 1)
+#: a ConvLSTM peephole ``[h, w, c]``, then a leading 1: ``[1, c, h, w]``
+PEEPHOLE = (2, 0, 1)
 
 
 def _convlstm_rnn(sd, prefix, rnn):
-    sd[f"{prefix}._conv.weight"] = _tensor(rnn["conv_kernel"], (3, 2, 0, 1))
+    sd[f"{prefix}._conv.weight"] = _tensor(rnn["conv_kernel"], CONV)
     sd[f"{prefix}._conv.bias"] = _tensor(rnn["conv_bias"])
     for name in ("wci", "wcf", "wco"):
-        sd[f"{prefix}.W{name[1:]}"] = _tensor(rnn[name], (2, 0, 1))[None]
+        sd[f"{prefix}.W{name[1:]}"] = _tensor(rnn[name], PEEPHOLE)[None]
 
 
 def _trajgru_rnn(sd, prefix, rnn):
@@ -125,7 +129,6 @@ def ef_state_dict_from_jax(params) -> dict:
     return sd
 
 
-CONV, CONVT, CONV3D, DENSE, LN_CHW = (3, 2, 0, 1), (2, 3, 0, 1), (4, 3, 0, 1, 2), (1, 0), (2, 0, 1)
 
 
 def _double_conv(sd, prefix, params, stats, axes):
@@ -452,6 +455,56 @@ def block_params_to_jax(block) -> dict:
             node = node.setdefault(parent, {})
         node[last] = leaf
     return params
+
+
+def _port_dims(axes, lead=0):
+    r"""The port dimension of each JAX dimension, in JAX's order, for a
+    transpose ``axes`` (and ``lead`` leading dimensions of 1 added after it)."""
+    return tuple(lead + axes.index(j) for j in range(len(axes)))
+
+
+def _leaf_axes(module, name, p):
+    from vp_suite_tpu_torch.model_blocks.conv_lstm_shi import ConvLSTMShi
+    from vp_suite_tpu_torch.model_blocks.transformer import MultiHeadDotProductAttention
+    from vp_suite_tpu_torch.models.lstm import LSTMCell
+    from vp_suite_tpu_torch.nn.layers import LayerNormCHW
+    if p.dim() == 1:
+        return (0,)
+    if isinstance(module, ConvLSTMShi) and name in ("Wci", "Wcf", "Wco"):
+        return _port_dims(PEEPHOLE, lead=1)
+    if isinstance(module, PredFormer) and name in ("pos_spatial", "pos_temporal"):
+        return tuple(range(p.dim()))
+    for kind, axes in ((torch.nn.ConvTranspose2d, CONVT), (torch.nn.Conv2d, CONV),
+                       (torch.nn.Conv3d, CONV3D), (torch.nn.Linear, DENSE),
+                       (LSTMCell, DENSE), (LayerNormCHW, LN_CHW)):
+        if isinstance(module, kind) and len(axes) == p.dim():
+            return _port_dims(axes)
+    raise NotImplementedError(f"no JAX layout is known for {type(module).__name__}.{name} "
+                              f"{tuple(p.shape)}")
+
+
+def leaf_axes(model) -> dict:
+    r"""``{parameter name: the port dimension of each of its JAX leaf's
+    dimensions, in JAX's order}``, by the layouts the converters above carry
+    (a conv's ``[kh, kw, in, out]`` is the port's ``[out, in, kh, kw]``, so
+    ``(2, 3, 1, 0)``; a transposed conv's ``(2, 3, 0, 1)``; a peephole's ``[h, w,
+    c]`` ``(2, 3, 1)``; a dense ``(1, 0)``; a vector ``(0,)``): the last entry
+    is where the JAX leaf keeps its out-channels. None where a JAX leaf has
+    more dimensions than the port's tensor: PredFormer's attention kernels
+    (query, key and value ``[d, heads, head_dim]``, held as ``[heads *
+    head_dim, d]``; out ``[heads, head_dim, d]``, held as ``[d, heads *
+    head_dim]``) and its query, key and value biases ``[heads, head_dim]``."""
+    from vp_suite_tpu_torch.model_blocks.transformer import MultiHeadDotProductAttention
+    heads = {f"{n}.{proj}" if n else proj: proj for n, m in model.named_modules()
+             if isinstance(m, MultiHeadDotProductAttention)
+             for proj in ("query", "key", "value", "out")}
+    out = {}
+    for mname, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            full = f"{mname}.{name}" if mname else name
+            reshaped = mname in heads and (name == "weight" or heads[mname] != "out")
+            out[full] = None if reshaped else _leaf_axes(module, name, p)
+    return out
 
 
 def load_jax_params(model, params):
