@@ -198,7 +198,18 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     time beside the one-process step's and its tp collectives' time (CUDA
     events around each alone, summed; two processes on one card measure no
     scaling); (t3) four processes on a 2x1x2 data x sp x tp mesh under
-    ``shard_params_tp_fsdp``: the fused path's SGD step within the same gate.
+    ``shard_params_tp_fsdp``: the fused path's SGD step within the same gate;
+19. drives spatial, context and pipeline parallelism
+    (``drive_model_parallel``) in one world of two gloo processes on the one
+    card: (s) each EF-ConvLSTM path at full width on ``{"data": 1, "sp": 2}``
+    (each process 32 of the 64 image rows, its convolutions exchanging halo
+    rows): ``predict`` (whole frames) within 1e-4 of one process's, the f32
+    SGD step at b=8 within the SGD gate of the one-process step, K1 45 (+ K2
+    45) or K3 6 (K3s 6 + K4 6) a process, the step's spatial collectives
+    counted, sized and timed alone; (q) MinConvRNN at its defaults, 6 -> 10,
+    with its context scan over ``{"seq": 2}``, ``predict`` and an SGD step
+    against one process; (p) ``gpipe_apply`` of a 3x3 conv + tanh stage over
+    ``{"pp": 2}``, output and gradients against the serial stages.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -598,6 +609,7 @@ def main():
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
     drive_parallel(card)
     drive_tensor_parallel(card)
+    drive_model_parallel(card)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
           f"K9) one call at each of the three layer shapes, in bf16, on {card}")
@@ -2860,7 +2872,7 @@ def _end_world(task, procs, logs, t0):
         lines = log.read().splitlines()
         log.close()
         print("\n".join(lines[-60:] if p.returncode else
-                        [ln for ln in lines if ln.startswith(("[parallel]", "[tp]"))]))
+                        [ln for ln in lines if ln.startswith(("[parallel]", "[tp]", "[mp]"))]))
     print(f"[parallel] {task}: {len(procs)} process(es) in {time.time() - t0:.1f} s, exit codes "
           f"{[p.returncode for p in procs]}")
     return late, [p.returncode for p in procs]
@@ -2877,10 +2889,10 @@ def parallel_worker(task, out_dir):
         _parallel_facade(Path(out_dir))
     elif task == "tp1":
         _tp_world_of_one(Path(out_dir))
-    elif task in ("tp2", "tp4"):
+    elif task in ("tp2", "tp4", "mp2"):
         initialize_multihost(backend="gloo")
         try:
-            {"tp2": _tp_pair, "tp4": _tp_2d}[task](Path(out_dir))
+            {"tp2": _tp_pair, "tp4": _tp_2d, "mp2": _model_parallel_pair}[task](Path(out_dir))
         finally:
             torch.distributed.destroy_process_group()
     else:
@@ -3305,6 +3317,278 @@ def _tp_2d(out_dir):
           + f", {two_d} leaves split over data and tp", flush=True)
     torch.save({"loss": float(metrics["total"]), "params": params, "two_d": two_d},
                out_dir / f"tp4_{rank}.pt")
+
+
+#: the model-parallel phase (``drive_model_parallel``): one world of two
+#: processes over gloo on the one card runs (s) EF-ConvLSTM on MP_SP_MESH,
+#: (q) MinConvRNN (its defaults: hidden 64, two layers) on ``{"seq": 2}`` at
+#: MP_MCR_FRAMES, (p) ``gpipe_apply`` on ``{"pp": 2}`` with the JAX package's
+#: dry-run stage (a 3x3 conv of MP_PP_C channels + tanh; MP_PP_M microbatches of
+#: MP_PP_MB) at 64x64
+MP_SP_MESH = {"data": 1, "sp": 2}
+MP_MCR_FRAMES = (6, 10)
+MP_PP_C, MP_PP_M, MP_PP_MB = 4, 4, 2
+#: (p) against the serial composition: the output (tanh, |y| <= 1) in f32, and
+#: the gradients relative to the largest of each (sums over microbatches against
+#: one sum over the batch)
+MP_PP_ATOL = 1e-5
+MP_PP_GRAD_REL = 1e-4
+
+
+def drive_model_parallel(card):
+    r"""Spatial, context and pipeline parallelism in child processes of this
+    script (:func:`parallel_worker`, task ``mp2``): two processes on the one
+    card over gloo run (s), (q) and (p) in turn; then, here, the one-process
+    runs they are held against. Deletes its files under
+    ``vp-suite-data/chip_smoke/mp``."""
+    import shutil
+    import torch
+    t_phase = time.time()
+    out_root = ROOT / "vp-suite-data" / "chip_smoke" / "mp"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    print(f"[mp] {card}")
+    try:
+        _run_world("mp2", 2, out_root)
+        ranks = [torch.load(out_root / f"mp2_{r}.pt", weights_only=False) for r in range(2)]
+        frames = _par_frames().cuda()
+        for path in ("per_step", "fused_scan"):
+            model, p0, loss, one_ms = _tp_one_process_step(path, frames)
+            got = ranks[0][path]
+            check(all(torch.equal(v, ranks[1][path]["params"][k])
+                      for k, v in got["params"].items()),
+                  f"(s) {path}: the two sp processes' parameters differ")
+            worst, where = _step_excess(p0, model, got["params"])
+            ok = worst <= STEP_TOL and abs(got["loss"] - loss) <= 1e-4 * abs(loss)
+            print(f"[mp] (s) {path} f32 SGD step of two sp processes (gloo, {MP_SP_MESH}, b="
+                  f"{PAR_B} and {IMG[1] // 2} of the {IMG[1]} image rows each) against one "
+                  f"process: loss {got['loss']:.6f} vs {loss:.6f}; (p0-p1)/lr: max(|diff| - rtol*|one|) "
+                  f"{worst:.3g} at {where} (rtol {STEP_TOL}, must stay <= atol {STEP_TOL}): "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"(s) {path}: the sp step disagrees with the one-process step")
+            want = _tp_one_process_predict(path, frames)
+            diff = max((r[path]["preds"].cuda() - want).abs().max().item() for r in ranks)
+            print(f"[mp] (s) {path} f32 predict of two sp processes (whole frames on each) "
+                  f"against one process: max |diff| {diff:.3g} (limit {TP_PREDICT_ATOL})",
+                  flush=True)
+            check(diff <= TP_PREDICT_ATOL, f"(s) {path}: predict parts from one process's")
+            print(f"[mp] (s) {path} f32 b={PAR_B} train step: {got['step_ms']:.1f} / "
+                  f"{ranks[1][path]['step_ms']:.1f} ms in the two sp processes on the one card "
+                  f"(gloo) against {_ms(one_ms)} ms in one process; the step's "
+                  f"{got['collectives']} spatial collectives ({got['collective_mib']:.1f} MiB: "
+                  f"{got['kinds']}) {got['collective_ms']:.1f} ms (CUDA events around each "
+                  f"alone, summed); two processes on one card measure no scaling", flush=True)
+
+        # (q) MinConvRNN's context scan over seq against one process
+        q_frames = _mp_mcr_frames().cuda()
+        model, p0, loss, preds = _mp_mcr_one_process(q_frames)
+        got = ranks[0]["mcr"]
+        worst, where = _step_excess(p0, model, got["params"])
+        diff = max((r["mcr"]["preds"].cuda() - preds).abs().max().item() for r in ranks)
+        ok = worst <= STEP_TOL and abs(got["loss"] - loss) <= 1e-4 * abs(loss) \
+            and diff <= TP_PREDICT_ATOL and got["gathers"] > 0
+        print(f"[mp] (q) MinConvRNN hidden 64 at {IMG[1]}x{IMG[2]}, {MP_MCR_FRAMES[0]} -> "
+              f"{MP_MCR_FRAMES[1]}, context scan over {{'seq': 2}} ({got['gathers']} "
+              f"all-gathers a predict and step): f32 predict max |diff| {diff:.3g} (limit "
+              f"{TP_PREDICT_ATOL}); SGD step loss {got['loss']:.6f} vs {loss:.6f}, (p0-p1)/lr "
+              f"gate {worst:.3g} at {where}: {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, "(q) the context-sharded MinConvRNN disagrees with one process")
+
+        # (p) gpipe_apply against the serial composition
+        y, loss, dx, grads = _mp_pp_serial()
+        for r, got in enumerate(ranks):
+            got = got["pp"]
+            check(got["grads"]["x"] is not None, f"(p) process {r}: the input has no gradient")
+            y_diff = (got["y"].cuda().reshape(y.shape) - y).abs().max().item()
+            rel = {k: ((got["grads"][k].cuda() - v).abs().max() / v.abs().max()).item()
+                   for k, v in {**grads, "x": dx}.items()}
+            ok = y_diff <= MP_PP_ATOL and max(rel.values()) <= MP_PP_GRAD_REL \
+                and abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+            print(f"[mp] (p) process {r}: gpipe_apply of {MP_PP_M} microbatches of {MP_PP_MB} "
+                  f"over {{'pp': 2}} (3x3 conv of {MP_PP_C} channels + tanh at {IMG[1]}x{IMG[2]}) "
+                  f"against "
+                  f"the serial stages: output max |diff| {y_diff:.3g} (limit {MP_PP_ATOL}); "
+                  f"gradients relative to the largest "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+                  + f" (limit {MP_PP_GRAD_REL}): {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"(p) process {r}: the pipeline disagrees with the serial stages")
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[mp] the phase took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _mp_mcr_frames():
+    import torch
+    return torch.rand((PAR_B, sum(MP_MCR_FRAMES), IMG[1], IMG[2], IMG[0]),
+                      generator=torch.Generator().manual_seed(SEED + 8))
+
+
+def _mp_mcr_model(mesh=None):
+    from vp_suite_tpu_torch.models import build_model
+    return build_model("min-conv-rnn", SEED, "cuda", **_par_kwargs(),
+                       **({} if mesh is None else {"context_mesh": mesh}))
+
+
+def _mp_mcr_one_process(frames):
+    r"""``(model after, its parameters before, loss, predictions)`` of
+    MinConvRNN's one-process f32 predict and SGD step."""
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    run = dict(zip(("context_frames", "pred_frames"), MP_MCR_FRAMES))
+    model = _mp_mcr_model()
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    preds = make_predict_fn(model, run)({"frames": frames})[0]
+    state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+    _, metrics = make_train_step(model, run)(state, {"frames": frames})
+    return model, p0, float(metrics["total"]), preds
+
+
+def _mp_pp_inputs():
+    r"""``(per-stage parameters, x, target)`` of (p), on the card."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 9)
+    c, b = MP_PP_C, MP_PP_M * MP_PP_MB
+    params = [{"w": torch.randn(c, c, 3, 3, generator=g) * 0.3, "b": torch.randn(c, generator=g)
+               * 0.1} for _ in range(2)]
+    x = torch.rand(b, IMG[1], IMG[2], c, generator=g)
+    tgt = torch.rand(b, IMG[1], IMG[2], c, generator=g)
+    return [{k: v.cuda() for k, v in p.items()} for p in params], x.cuda(), tgt.cuda()
+
+
+def _mp_pp_stage(params, x):
+    import torch
+    from vp_suite_tpu_torch.nn.functional import conv2d
+    return torch.tanh(conv2d(x, params["w"], params["b"], 1, 1))
+
+
+def _mp_pp_serial():
+    r"""``(y, loss, dx, {leaf: stacked gradient})`` of (p)'s stages in turn on
+    the whole batch, in this process."""
+    import torch
+    params, x, tgt = _mp_pp_inputs()
+    for p in params:
+        for v in p.values():
+            v.requires_grad_(True)
+    x.requires_grad_(True)
+    y = x
+    for p in params:
+        y = _mp_pp_stage(p, y)
+    loss = ((y - tgt) ** 2).mean()
+    loss.backward()
+    grads = {k: torch.stack([p[k].grad for p in params]) for k in ("w", "b")}
+    return y.detach(), loss.item(), x.grad, grads
+
+
+def _model_parallel_pair(out_dir):
+    r"""One of the two processes of ``drive_model_parallel``: (s) each EF-ConvLSTM
+    path's f32 predict and SGD step on MP_SP_MESH at b=PAR_B on this process's
+    image rows, with their launches, the step's spatial collectives (each timed
+    alone) and its time; (q) MinConvRNN's predict and SGD step with its context
+    scan over ``{"seq": 2}``; (p) ``gpipe_apply`` over ``{"pp": 2}`` with the
+    gradients; writes ``mp2_{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from vp_suite_tpu_torch.parallel import (gpipe_apply, make_mesh_nd, microbatch,
+                                             shard_video_batch, spatial_halo_convs,
+                                             stack_stage_params)
+    from vp_suite_tpu_torch.parallel import spatial
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    rank = dist.get_rank()
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    out = {}
+
+    # (s) EF-ConvLSTM on image slabs
+    mesh = make_mesh_nd(MP_SP_MESH, "cuda")
+    group = mesh.get_group("sp")
+    batch = shard_video_batch({"frames": _par_frames().cuda()}, mesh)
+    for path in ("per_step", "fused_scan"):
+        model = _tp_model(path)
+        counters = reset_counts()
+        preds, _ = make_predict_fn(model, run, mesh=mesh)(batch)
+        torch.cuda.synchronize()
+        predict = read_counts(counters)
+        check(predict == WANT_PREDICT_LAUNCHES[path],
+              f"(s) {path}: process {rank}'s predict launched {predict}")
+        state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+        with spatial_halo_convs(mesh):
+            step = make_train_step(model, run, mesh=mesh)
+        torch.cuda.synchronize()
+        counters = reset_counts()
+        t0 = time.perf_counter()
+        with spatial.record() as log:
+            _, metrics = step(state, batch)
+        loss = float(metrics["total"])   # waits for the card
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(counters)
+        check(launches == WANT_TRAIN_LAUNCHES[path],
+              f"(s) {path}: process {rank}'s step launched {launches}")
+        calls = {}
+        for key in log:
+            calls[key] = calls.get(key, 0) + 1
+        ms = mib = 0.0
+        for (kind, shape, dtype), n in sorted(calls.items(), key=str):
+            x = torch.ones(shape, dtype=dtype, device="cuda")
+            if kind == "gather":
+                part = x[:shape[0] // 2]
+                one = cuda_ms(lambda: dist.all_gather_into_tensor(x, part, group=group),
+                              warmup=0, iters=1)
+            else:
+                one = cuda_ms(lambda: dist.all_reduce(x, group=group), warmup=0, iters=1)
+            ms += n * one
+            mib += n * x.numel() * x.element_size() / 2 ** 20
+        kinds = ", ".join(f"{sum(n for (k, _, _), n in calls.items() if k == kind)} {kind}"
+                          for kind in ("gather", "all_reduce"))
+        print(f"[mp] (s) process {rank} {path}: launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + ", predict "
+              + ", ".join(f"{k} {v}" for k, v in predict.items() if v)
+              + f"; {len(log)} spatial collectives a step ({kinds}), {mib:.1f} MiB, {ms:.1f} ms; "
+              f"step {step_ms:.1f} ms", flush=True)
+        out[path] = {"loss": loss, "preds": preds.cpu(), "step_ms": step_ms,
+                     "params": {k: v.detach().to("cpu", copy=True)
+                                for k, v in model.named_parameters()},
+                     "collectives": len(log), "collective_ms": ms, "collective_mib": mib,
+                     "kinds": kinds}
+
+    # (q) MinConvRNN's context scan sharded over seq
+    mesh = make_mesh_nd({"seq": 2}, "cuda")
+    run_q = dict(zip(("context_frames", "pred_frames"), MP_MCR_FRAMES))
+    frames = {"frames": _mp_mcr_frames().cuda()}
+    model = _mp_mcr_model(mesh)
+    gathers = [0]
+    gather = dist.all_gather_into_tensor
+
+    def counted(*a, **k):
+        gathers[0] += 1
+        return gather(*a, **k)
+    dist.all_gather_into_tensor = counted
+    try:
+        counters = reset_counts()
+        preds = make_predict_fn(model, run_q)(frames)[0]
+        state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+        _, metrics = make_train_step(model, run_q)(state, frames)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_gather_into_tensor = gather
+    check(not any(read_counts(counters).values()), "(q) MinConvRNN launched a kernel")
+    out["mcr"] = {"loss": float(metrics["total"]), "preds": preds.cpu(), "gathers": gathers[0],
+                  "params": {k: v.detach().to("cpu", copy=True)
+                             for k, v in model.named_parameters()}}
+
+    # (p) the pipeline
+    mesh = make_mesh_nd({"pp": 2}, "cuda")
+    params, x, tgt = _mp_pp_inputs()
+    stacked = stack_stage_params(params)
+    for v in stacked.values():
+        v.requires_grad_(True)
+    x.requires_grad_(True)
+    y = gpipe_apply(_mp_pp_stage, stacked, microbatch(x, MP_PP_M), mesh)
+    loss = ((y.reshape(tgt.shape) - tgt) ** 2).mean()
+    loss.backward()
+    out["pp"] = {"y": y.detach().cpu(), "loss": loss.item(),
+                 "grads": {**{k: v.grad.cpu() for k, v in stacked.items()},
+                           "x": None if x.grad is None else x.grad.cpu()}}
+    torch.save(out, out_dir / f"mp2_{rank}.pt")
 
 
 def forward_ms(model, batch):

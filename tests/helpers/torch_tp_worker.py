@@ -20,7 +20,9 @@ parameters (and Adam's first moments) after it and, for the 2-D cases, every
 parameter's per-process element count; the ``msgpack`` and ``orbax`` checkpoints
 of a ``shard_params_tp_fsdp`` model after an Adam step, with its whole
 parameters and first moments; ``make_eval_step(..., mesh=)`` on each
-process's rows of the tp world's batch; and the refusals on real meshes.
+process's rows of the tp world's batch; and the refusals on real meshes
+(``sp`` x ``tp``; ``check_train_mesh`` at ``sp`` > 1 outside a spatial context;
+``shard_video_batch`` of a height that does not divide by ``sp``).
 Writes ``data_tp_{rank}.pt``.
 
 On a CUDA card (``tests/test_torch_tensor_parallel_cuda.py``): ``card_one``
@@ -234,7 +236,7 @@ def run_data_tp(out_dir, rank):
     for what, axes, fn in (
             ("check_train_mesh", {"data": 2, "sp": 2}, check_train_mesh),
             ("shard_video_batch", {"data": 2, "sp": 2},
-             lambda m: shard_video_batch({"frames": torch.zeros(4, 1, 2, 2, 3)}, m)),
+             lambda m: shard_video_batch({"frames": torch.zeros(4, 1, 3, 2, 3)}, m)),
             ("shard_params_tp", {"sp": 2, "tp": 2},
              lambda m: shard_params_tp(ef_model("fused"), m)),
             ("shard_params_tp_fsdp", {"sp": 2, "tp": 2},

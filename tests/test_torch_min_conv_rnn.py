@@ -16,7 +16,9 @@ on the port's weights carried into JAX (``min_conv_rnn_params_to_jax``).
   has no dtype of its own: the gates, ``1 - f`` and the recurrence run in
   the input's), counted against ``jax.make_jaxpr``.
 - Refusals: an input of another image size (``ValueError`` on both sides,
-  the JAX side by ``jax.eval_shape``); a ``context_mesh`` (not ported).
+  the JAX side by ``jax.eval_shape``); a ``context_mesh`` that is not a
+  ``DeviceMesh`` (the sharded context scan itself is held in
+  ``test_torch_scan_parallel.py``).
 - ``create_model`` -> ``train`` (2 epochs of 2 Adam steps, b=4, 2 -> 3
   frames) against the JAX suite's run from the same initial weights
   (validation losses to 1e-4 relative), then ``load_model`` and ``test``.

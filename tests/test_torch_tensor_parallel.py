@@ -31,7 +31,8 @@ the CPU.
     first-moment and sign-aware checks; the 2-D leaves and every leaf's
     per-process element count against JAX's; and the refusals (``sp`` x
     ``tp`` "miscompiles", ``check_train_mesh`` and ``shard_video_batch`` at
-    ``sp`` > 1, a mesh that is not the group's size); and the ``msgpack`` and
+    ``sp`` > 1 outside a spatial context, a height that does not divide by
+    ``sp``, a mesh that is not the group's size); and the ``msgpack`` and
     ``orbax`` checkpoints of a ``shard_params_tp_fsdp`` model, loaded as the
     tp world's are.
 """
@@ -470,7 +471,7 @@ def test_other_model_tp_step_equals_one_process(tp_world, model_id):
 def test_refusals(data_tp, what):
     message = data_tp[0]["refused"][what]
     assert message is not None, f"{what} did not refuse"
-    want = {"check_train_mesh": "sp=2", "shard_video_batch": "spatial slice",
+    want = {"check_train_mesh": "is inference-only", "shard_video_batch": "not divisible by sp=2",
             "shard_params_tp": "miscompiles", "shard_params_tp_fsdp": "miscompiles",
             "make_mesh_nd": "not the group's 4"}[what]
     assert want in message, message

@@ -39,6 +39,15 @@ half, or each step's conv over ``concat([x_t, h])``) and gathers the gates
 once a step, before K1; the fused path computes its hoisted input half
 column-parallel and gathers it once, and runs K3 / K3s / K4 whole on every
 process with the hidden weight and the peepholes gathered at use.
+
+Under spatial parallelism (inside ``parallel.spatial.spatial_halo_convs``,
+each ``sp`` process holding a slab of the image's rows) the per-step path
+runs on this process's rows: its convs exchange halos and K1 / K2 take the
+slab's gates with the peepholes' same rows. The fused path gathers the rows
+of its hoisted input half and of the initial state over ``sp``, runs K3 /
+K3s / K4 on the whole image on every ``sp`` process and takes its rows of
+the result back (as the JAX package's partitioner gathers around its Pallas
+scan); the gather's backward sums the processes' cotangents.
 """
 import torch
 from torch import nn
@@ -48,6 +57,7 @@ from vp_suite_tpu_torch.nn.functional import conv2d
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.cells import convlstm_gate_fuse
 from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_fused
+from vp_suite_tpu_torch.parallel import spatial
 from vp_suite_tpu_torch.parallel.tensor import gather, local_param, tagged, tp_spec
 
 
@@ -92,6 +102,13 @@ class ConvLSTMShi(VPModelBlock):
         Returns ``(outputs [t, b, state_h, state_w, enc], (h, c))``.
         """
         enc, sh, sw = self.enc_channels, self.state_h, self.state_w
+        sp = spatial.active_spatial()
+        rows = slice(None)   # this process's rows of the state: all, or its sp slab's
+        if sp is not None:
+            r, n, _ = spatial.coordinate(*sp)
+            if sh % n:
+                raise ValueError(f"state height {sh} not divisible by sp={n}")
+            rows, sh = slice(r * (sh // n), (r + 1) * (sh // n)), sh // n
         # this process's gate channels: all of them, or its tp shard
         weight, bias = local_param(self._conv, "weight"), local_param(self._conv, "bias")
         spec = tp_spec(weight)
@@ -111,8 +128,7 @@ class ConvLSTMShi(VPModelBlock):
         # casts happen here, outside the kernels' autograd Functions, so that
         # autograd hands f32 gradients back to the f32 parameters
         dt = h0.dtype
-        wci, wcf, wco = (p[0].permute(1, 2, 0).to(dt).contiguous()
-                         for p in (self.Wci, self.Wcf, self.Wco))
+        wci, wcf, wco = (p[0].permute(1, 2, 0).to(dt) for p in (self.Wci, self.Wcf, self.Wco))
         c0 = c0.to(dt)
 
         # the un-hoisted (concat) form needs x and h on the same spatial grid
@@ -139,10 +155,17 @@ class ConvLSTMShi(VPModelBlock):
                 i2h_in, k_bias = None, self._conv.bias
             else:
                 i2h_in, k_bias = i2h_t, bias.new_zeros(4 * enc)
+            if sp is not None:   # the whole image on every sp process
+                i2h_in = None if i2h_in is None else spatial.gather_rows(i2h_in, 2, *sp)
+                h0, c0 = spatial.gather_rows(h0, 1, *sp), spatial.gather_rows(c0, 1, *sp)
             outputs, (h_last, c_last) = convlstm_scan_fused(
                 i2h_in, h0, c0, self._conv.weight[:, self.in_channels:].permute(2, 3, 1, 0).to(dt),
-                k_bias, wci, wcf, wco, seq_len=seq_len)
+                k_bias, *(p.contiguous() for p in (wci, wcf, wco)), seq_len=seq_len)
+            if sp is not None:
+                outputs = spatial.own_rows(outputs, 2, *sp)
+                h_last, c_last = spatial.own_rows(h_last, 1, *sp), spatial.own_rows(c_last, 1, *sp)
         else:
+            wci, wcf, wco = (p[rows].contiguous() for p in (wci, wcf, wco))
             h, c = h0, c0
             outs = []
             for t in range(seq_len):

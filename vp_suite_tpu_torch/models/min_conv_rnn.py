@@ -15,8 +15,17 @@ The model has no dtype of its own: it computes in its input's dtype (the
 train step casts the input to ``compute_dtype``), so under bf16 the gates,
 ``1 - f`` and the recurrence run in bf16, as in the JAX package. Parameters:
 ``enc1``, ``enc2``, ``layers.{i}.f`` / ``.g`` / ``.out``, ``dec1``, ``dec2``
-(torch layouts). The JAX package's ``context_mesh`` (the context scan
-sharded over devices) is not ported: a non-None value raises.
+(torch layouts).
+
+``context_mesh`` (a ``DeviceMesh`` with a ``seq`` axis, as in the JAX
+package) shards each layer's context scan over ``seq``
+(:mod:`vp_suite_tpu_torch.ops.scan_parallel`) where the context length
+divides by its size, and runs it unsharded otherwise, as the JAX model does.
+Every ``seq`` process computes the encoder, the gates and the rollout whole;
+it scans its block of the time steps, and the blocks are gathered back.
+The gradients are the one-process model's on every process: each block's
+gradient is gathered whole, and the aggregates' gather sums its cotangents
+over ``seq``. It stays out of the model's ``config``.
 """
 import torch
 import torch.nn.functional as F
@@ -60,19 +69,39 @@ class MinConvRNN(VPModel):
 
     num_layers = 2
     hidden_dim = 64
-    context_mesh = None             #: not ported: must stay None
+    context_mesh = None             #: a DeviceMesh whose ``seq`` axis the context scan shards over
 
     def __init__(self, **hparams):
         super().__init__(**hparams)
-        if self.context_mesh is not None:
-            raise ValueError("MinConvRNN's context_mesh (the context scan sharded over "
-                             "devices) is not ported yet")
+        from torch.distributed.device_mesh import DeviceMesh
+        if self.context_mesh is not None and not isinstance(self.context_mesh, DeviceMesh):
+            raise ValueError(f"context_mesh must be a DeviceMesh with a 'seq' axis, not "
+                             f"{type(self.context_mesh).__name__}")
         c, hd = self.img_c, self.hidden_dim
         self.enc1 = Conv2d(c, hd // 2, 3, 2, 1)
         self.enc2 = Conv2d(hd // 2, hd, 3, 2, 1)
         self.layers = nn.ModuleList([_GatedLayer(hd) for _ in range(self.num_layers)])
         self.dec1 = ConvTranspose2d(hd, hd // 2, 4, 2, 1)
         self.dec2 = ConvTranspose2d(hd // 2, c, 4, 2, 1)
+
+    @property
+    def config(self) -> dict:
+        cfg = super().config
+        cfg.pop("context_mesh")
+        return cfg
+
+    def _context_scan(self, f, u):
+        r"""``linear_recurrence_scan(f, u)`` of the context ``[t, ...]``, its
+        time split over ``context_mesh``'s ``seq`` axis where that divides t."""
+        from vp_suite_tpu_torch.parallel.mesh import axis_size
+        mesh = self.context_mesh
+        n = axis_size(mesh, "seq")
+        if n < 2 or f.shape[0] % n:
+            return linear_recurrence_scan(f, u)
+        from vp_suite_tpu_torch.ops.scan_parallel import (linear_recurrence_scan_sharded,
+                                                          sequence_block, whole_sequence)
+        h = linear_recurrence_scan_sharded(sequence_block(f, mesh), sequence_block(u, mesh), mesh)
+        return whole_sequence(h, mesh)
 
     def _encode(self, frames):      # [n, h, w, c] -> [n, h/4, w/4, hd]
         return F.relu(self.enc2(F.relu(self.enc1(frames))))
@@ -93,7 +122,7 @@ class MinConvRNN(VPModel):
         hs = []
         for layer in self.layers:
             f, u = layer.gates(z.reshape(flat))
-            h = linear_recurrence_scan(f.reshape(shape), u.reshape(shape))
+            h = self._context_scan(f.reshape(shape), u.reshape(shape))
             hs.append(h[-1])
             z = z + layer.out(h.reshape(flat)).reshape(shape)
         # the rollout: one step of every layer per predicted frame

@@ -16,12 +16,21 @@ Given a tp-sharded weight (this process's shard of the out-channels, as
 ``linear`` compute column-parallel: this process's out-channels only,
 gathered over ``tp`` (``conv2d`` with ``gather_output=False`` leaves them
 local).
+
+While a spatial context is open (``parallel.spatial.spatial_halo_convs``),
+every 4-D activation is this process's slab of image rows: ``conv2d`` (zero
+padding, or none) and ``conv_transpose2d`` run the halo exchange, as the JAX
+package's conv helpers route to it (a 4-D input, constant padding, dilation
+1, one group: the port's helpers have neither dilation nor groups); the ops
+that are not row-local (``conv3d``, replicate padding, the norms over space)
+raise there, so that a slab never takes the unsharded op.
 """
 import functools
 
 import torch
 import torch.nn.functional as F
 
+from vp_suite_tpu_torch.parallel import spatial
 from vp_suite_tpu_torch.parallel.tensor import column_parallel, tp_spec
 
 
@@ -55,6 +64,11 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros",
            gather_output=True):
     r"""NHWC conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[out, in, kh, kw]``;
     ``padding_mode`` is ``"zeros"`` or ``"replicate"``."""
+    sp = spatial.active_spatial()
+    if sp is not None:
+        if x.dim() != 4 or (padding_mode != "zeros" and any(_ntuple(padding, 2))):
+            spatial.refuse(f"conv2d of a {x.dim()}-D input with {padding_mode} padding")
+        return spatial.halo_conv2d(x, weight, bias, stride, padding, *sp)
     if tp_spec(weight) is not None:
         return column_parallel(functools.partial(_conv2d, stride=stride, padding=padding,
                                                  padding_mode=padding_mode),
@@ -70,6 +84,12 @@ def _conv_transpose2d(x, weight, bias, stride, padding, output_padding):
 
 def conv_transpose2d(x, weight, bias=None, stride=1, padding=0, output_padding=0):
     r"""NHWC transposed conv: ``x`` ``[n, h, w, in]``, ``weight`` ``[in, out, kh, kw]``."""
+    sp = spatial.active_spatial()
+    if sp is not None:
+        if x.dim() != 4:
+            spatial.refuse(f"conv_transpose2d of a {x.dim()}-D input")
+        return spatial.halo_conv_transpose2d(x, weight, bias, stride, padding, output_padding,
+                                             *sp)
     if tp_spec(weight) is not None:
         return column_parallel(functools.partial(_conv_transpose2d, stride=stride,
                                                  padding=padding, output_padding=output_padding),
@@ -90,6 +110,7 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, padding_mode="zeros"):
     a ``channels_last_3d`` view; the JAX package lowers UNet-3D's 3-D convs to
     one 2-D conv over time-in-channels instead, the same function
     (``kernels/unet3d_variants.py`` times the two on the card)."""
+    spatial.refuse("conv3d")
     if tp_spec(weight) is not None:
         return column_parallel(functools.partial(_conv3d, stride=stride, padding=padding,
                                                  padding_mode=padding_mode), x, weight, bias)
@@ -111,6 +132,7 @@ def layer_norm_chw(x, weight, bias, eps=1e-5):
     r"""torch's ``LayerNorm([c, h, w])`` on NHWC ``x``: each sample normalized
     over all of ``(h, w, c)``; ``weight`` and ``bias`` in torch's ``[c, h, w]``
     layout, cast to the activation dtype as the JAX package casts them."""
+    spatial.refuse("layer_norm_chw")
     return F.layer_norm(x, x.shape[-3:], weight.permute(1, 2, 0).to(x.dtype),
                         bias.permute(1, 2, 0).to(x.dtype), eps)
 
@@ -119,6 +141,7 @@ def group_norm(x, weight, bias, num_groups, eps=1e-5):
     r"""torch's ``GroupNorm`` on channels-last ``x`` ``[n, ..., c]``: each
     sample normalized over each group of ``c / num_groups`` channels and all
     positions, by the biased variance; ``weight`` and ``bias`` ``[c]``."""
+    spatial.refuse("group_norm")
     perm = (0, x.dim() - 1, *range(1, x.dim() - 1))
     y = F.group_norm(x.permute(perm), num_groups, weight.to(x.dtype), bias.to(x.dtype), eps)
     return y.permute(0, *range(2, x.dim()), 1).contiguous()

@@ -1,6 +1,6 @@
 r"""Device meshes over the process group: the data axis (replicated or
 FSDP-sharded parameters, the batch split along its first dimension) and the
-N-D ``data`` x ``sp`` x ``tp`` meshes with tensor parallelism.
+N-D meshes with tensor and spatial parallelism.
 
 The JAX package's ``Mesh`` spans the devices that one process drives,
 and XLA inserts the collectives. The port runs one process per device
@@ -11,21 +11,22 @@ group, as a ``DeviceMesh``, and the collectives are explicit:
   (:func:`shard_params`), or large ones are sharded by FSDP2
   (:func:`shard_params_fsdp`);
 - each process computes its slice of the global batch (:func:`shard_batch`,
-  :func:`shard_video_batch`): the rows of its ``data`` coordinate;
+  :func:`shard_video_batch`): the rows of its ``data`` coordinate, and on a
+  mesh with ``sp`` > 1 its block of image rows;
 - the train step averages the gradients of the replicated parameters over the
-  ``data`` axis in one all-reduce after the backward (:func:`all_reduce_gradients`;
-  FSDP2 reduce-scatters those of the sharded ones), so no collective
-  overlaps a kernel of the backward;
+  ``data`` axis and sums them over ``sp`` (:func:`replica_group`) in one
+  all-reduce after the backward (:func:`all_reduce_gradients`; FSDP2
+  reduce-scatters those of the sharded ones), so no collective overlaps a
+  kernel of the backward;
 - batch statistics are taken over the global batch
   (``distributed.batch_statistics_over`` the ``data`` sub-group);
 - on an N-D mesh (:func:`make_mesh_nd`, :func:`factorize_mesh`), the layers'
   out-channels are split over ``tp`` (:func:`shard_params_tp`, and with FSDP2
   over ``data`` on top, :func:`shard_params_tp_fsdp`); the layers compute
-  column-parallel or gather at use (:mod:`~vp_suite_tpu_torch.parallel.tensor`).
-
-Spatial sharding (``sp`` > 1; the JAX package's ``parallel/spatial.py`` halo
-convolutions) is not ported: a mesh may name the axis, but every function
-that would shard over it raises.
+  column-parallel or gather at use (:mod:`~vp_suite_tpu_torch.parallel.tensor`);
+- on a mesh with ``sp`` > 1 the convolutions exchange halo rows
+  (:mod:`~vp_suite_tpu_torch.parallel.spatial`): inference runs there as is,
+  training inside ``spatial_halo_convs`` (:func:`check_train_mesh`).
 """
 import torch
 import torch.distributed as dist
@@ -134,17 +135,37 @@ def data_group(mesh):
 
 
 def check_train_mesh(mesh):
-    r"""Refuses a mesh with an active spatial axis (``sp`` > 1) for training,
-    as the JAX package does (there because XLA doubles conv kernel gradients
-    under spatial sharding). The port has no spatial sharding yet: it comes
-    with the spatial slice (``parallel/spatial.py``'s halo convolutions),
-    which decides whether this refusal stays."""
+    r"""Refuses a mesh with an active spatial axis (``sp`` > 1) for training
+    outside a :func:`~vp_suite_tpu_torch.parallel.spatial.spatial_halo_convs`
+    context, with the JAX package's ``ValueError`` (there XLA's partitioner
+    doubles conv kernel gradients under spatial sharding; inside the context
+    the convs are explicit halo exchanges). Returns inside the context."""
     sp = axis_size(mesh, "sp")
     if sp > 1:
+        from vp_suite_tpu_torch.parallel.spatial import active_spatial
+        if active_spatial() is not None:
+            return
         raise ValueError(
-            f"mesh with active spatial axis (sp={sp}) cannot train: spatial sharding is not "
-            f"ported (it comes with the spatial slice, parallel/spatial.py's halo convolutions); "
-            f"train on a data x tp mesh (factorize_mesh(n, strategy='tp'))")
+            f"mesh with active spatial axis (sp={sp}) is inference-only: XLA's SPMD partitioner "
+            f"doubles conv d_kernel under spatial sharding (silent wrong gradients in the JAX "
+            f"package). Train on a data x tp mesh (factorize_mesh(n, strategy='tp')), or build "
+            f"the step inside parallel.spatial.spatial_halo_convs(mesh) to train with explicit "
+            f"halo-exchange convs.")
+
+
+def replica_group(mesh):
+    r"""The process group over which the train and eval steps reduce gradients
+    and losses (summed over ``sp``, averaged over ``data``): the ``data`` x
+    ``sp`` processes of this process's ``tp`` coordinate, which hold other
+    rows of the batch or of its images (the ``data`` group where ``sp`` is 1);
+    None for no mesh or a mesh with neither axis."""
+    sp = axis_size(mesh, "sp")
+    if sp < 2:
+        return data_group(mesh)
+    axis = _data_axis(mesh)
+    if axis is None or axis_size(mesh, axis) < 2:
+        return mesh.get_group("sp")
+    return mesh[axis, "sp"]._flatten().get_group()
 
 
 def shard_params(model, mesh):
@@ -179,14 +200,20 @@ def shard_batch(batch, mesh):
 
 def shard_video_batch(batch, mesh):
     r"""This process's share of a ``[b, t, h, w, c]`` video batch dict (the
-    JAX package's ``video_batch_sharding``): the batch over ``data`` as
-    :func:`shard_batch` splits it. The JAX package splits the height over
-    ``sp``; that comes with the spatial slice, so ``sp`` > 1 raises."""
+    JAX package's ``video_batch_sharding``): every tensor's rows of its data
+    coordinate, as :func:`shard_batch` splits them, and of ``"frames"`` also
+    the block of image rows of its ``sp`` coordinate (rows ``s * h / sp`` to
+    ``(s + 1) * h / sp``); the height must divide by ``sp``."""
+    out = shard_batch(batch, mesh)
     sp = axis_size(mesh, "sp")
     if sp > 1:
-        raise ValueError(f"sharding a video batch's height over sp={sp} is not ported: it comes "
-                         f"with the spatial slice (parallel/spatial.py)")
-    return shard_batch(batch, mesh)
+        frames = out["frames"]
+        h = frames.shape[-3]
+        if h % sp:
+            raise ValueError(f"frames of height {h} not divisible by sp={sp}")
+        s = mesh.get_local_rank("sp")
+        out["frames"] = frames.narrow(frames.dim() - 3, s * (h // sp), h // sp)
+    return out
 
 
 def _refuse_sp_tp(mesh):
@@ -195,7 +222,8 @@ def _refuse_sp_tp(mesh):
         raise ValueError(
             f"refusing to tensor-shard params on a mesh with an active spatial axis (sp={sp}, "
             f"tp={tp}): the JAX package's XLA miscompiles >1x1 convs with spatially-sharded "
-            f"inputs and channel-sharded kernels, and the port has no spatial sharding; train on "
+            f"inputs and channel-sharded kernels, so it refuses the pair, and the port keeps the "
+            f"refusal (its halo convolutions take whole weights); train on "
             f"factorize_mesh(n, strategy='tp')")
     return tp
 
@@ -238,9 +266,8 @@ def shard_params_tp(model, mesh, min_channels: int = 0):
     (:mod:`~vp_suite_tpu_torch.parallel.tensor`). Build the optimizer after
     this (``training.train_state``): its moments are local too. Does nothing
     on a mesh of one ``tp`` process. Refuses ``sp`` x ``tp`` with the JAX
-    package's ``ValueError`` ("miscompiles", an XLA fault); whether the port
-    keeps that refusal is decided by the spatial slice, which brings ``sp``.
-    Returns ``model``."""
+    package's ``ValueError`` ("miscompiles", an XLA fault that JAX guards
+    against; the port keeps the refusal). Returns ``model``."""
     tp = _refuse_sp_tp(mesh)
     if tp < 2:
         return model
@@ -322,9 +349,10 @@ def is_fsdp(model) -> bool:
     return isinstance(model, FSDPModule)
 
 
-def _average(tensors, group, extra=None):
+def _average(tensors, group, extra=None, shares=None):
     r"""Averages ``tensors`` in place over ``group`` in one all-reduce of their
-    concatenation (in the first one's dtype), with ``extra`` appended;
+    concatenation (in the first one's dtype), with ``extra`` appended: their
+    sum over the group divided by ``shares`` (default: the group's size);
     returns ``extra``'s mean."""
     parts = [t.reshape(-1).to(tensors[0].dtype if tensors else torch.float32) for t in tensors]
     if extra is not None:
@@ -333,7 +361,7 @@ def _average(tensors, group, extra=None):
         return extra
     flat = torch.cat(parts)
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
+    flat /= dist.get_world_size(group) if shares is None else shares
     offset = 0
     with torch.no_grad():
         for t in tensors:
@@ -346,14 +374,21 @@ def all_reduce_gradients(params, mesh, extra=None):
     r"""Averages the gradients of ``params`` (plain tensors: replicated
     parameters and each process's own tp shards; those whose ``.grad`` is
     None are skipped, alike on every process) over the mesh's ``data`` axis
-    in one all-reduce of their concatenation, with ``extra`` (a 1-D f32
-    tensor, such as the step's losses) appended; returns ``extra``'s mean.
-    The ``tp`` processes of one data coordinate hold different slices of the
-    sharded parameters, so the sum runs over ``data`` only."""
-    group = data_group(mesh)
+    and sums them over its ``sp`` axis, in one all-reduce of their
+    concatenation over the ``data`` x ``sp`` processes (:func:`replica_group`)
+    divided by the data axis's size, with ``extra`` (a 1-D f32 tensor, such as
+    the step's losses) appended; returns ``extra``'s reduction. The ``tp``
+    processes of one data coordinate hold different slices of the sharded
+    parameters, so the sum leaves ``tp`` out. Each ``sp`` process computed its
+    image rows' part of the losses, which sum over pixels (the row-additive
+    losses, ``training.loop.SPATIAL_LOSSES``), and of their gradients (the halo
+    exchanges returned its neighbours' parts of them to it), so those parts
+    add up over ``sp``."""
+    group = replica_group(mesh)
     if group is None:
         return extra
-    return _average([p.grad for p in params if p.grad is not None], group, extra)
+    return _average([p.grad for p in params if p.grad is not None], group, extra,
+                    data_coordinate(mesh)[1])
 
 
 def average_over_tp(params, mesh):
@@ -388,15 +423,17 @@ def check_same_gradients(params, mesh):
 
 
 def mean_over(values: dict, mesh) -> dict:
-    r"""``{name: float}`` averaged over the processes of the mesh's ``data``
-    axis (the mean of equal-sized shards' means), in one all-reduce;
-    ``values`` as is without one."""
-    group = data_group(mesh)
+    r"""``{name: float}`` averaged over the mesh's ``data`` axis (the mean of
+    equal-sized shards' means) and summed over its ``sp`` axis (each process's
+    image rows' part of a sum over pixels), in one all-reduce over the
+    ``data`` x ``sp`` processes (:func:`replica_group`); ``values`` as is
+    without a mesh."""
+    group = replica_group(mesh)
     if group is None:
         return values
     names = list(values)
     device = "cuda" if mesh.device_type == "cuda" else "cpu"
     t = torch.tensor([float(values[k]) for k in names], dtype=torch.float64, device=device)
     dist.all_reduce(t, group=group)
-    t /= dist.get_world_size(group)
+    t /= data_coordinate(mesh)[1]
     return dict(zip(names, t.tolist()))

@@ -96,6 +96,12 @@ class _Enter(torch.autograd.Function):
         return g, None
 
 
+def summed_gradient(x, group):
+    r"""``x`` (held alike by every process of ``group``, each using it for its
+    own part), whose gradient the backward sums over ``group``."""
+    return _Enter.apply(x, group)
+
+
 def gather(x, spec: TPSpec, dim=None):
     r"""``x``, this rank's slice along ``dim`` (default ``spec.dim``) of a
     tensor split like ``spec``'s parameter, made whole; differentiable."""
@@ -146,7 +152,7 @@ def column_parallel(fn, x, weight, bias, gather_output=True):
     spec = tp_spec(weight)
     if spec is None:
         return fn(x, weight, bias)
-    y = fn(_Enter.apply(x, spec.group), weight, bias)
+    y = fn(summed_gradient(x, spec.group), weight, bias)
     _note("column", y, spec)
     return gather(y, spec, -1) if gather_output else y
 

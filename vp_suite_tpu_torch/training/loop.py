@@ -7,6 +7,8 @@ parameters stay f32 (each op casts its weights at use, so autograd returns
 f32 gradients to them) and the predictions come back as f32, so that the
 loss and its gradient start in full precision.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -14,10 +16,46 @@ from vp_suite_tpu_torch.base.base_model import VPModel
 from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
 from vp_suite_tpu_torch.parallel.distributed import batch_statistics_over
-from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over_tp,
+from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over_tp, axis_size,
                                               check_same_gradients, check_train_mesh,
-                                              data_coordinate, data_group, is_fsdp)
+                                              data_coordinate, data_group, is_fsdp,
+                                              replica_group)
+from vp_suite_tpu_torch.parallel.spatial import active_spatial, gather_rows, spatial_halo_convs
 from vp_suite_tpu_torch.parallel.tensor import sharded_params
+
+#: the registry models whose every op is row-local, so that they run on a mesh
+#: with ``sp`` > 1 (each process on its slab of image rows)
+SPATIAL_MODELS = ("copy", "convlstm-shi")
+#: the losses that sum over pixels, so that the image slabs' parts add up to the
+#: whole image's (summed over ``sp``)
+SPATIAL_LOSSES = ("mse", "l1", "smooth_l1")
+
+
+def _spatial(model, mesh, loss_provider=None):
+    r"""``(mesh, "sp")`` where ``mesh`` has ``sp`` > 1, else None; raises for a
+    model that cannot run on image slabs, or a loss that does not add up over
+    them."""
+    sp = axis_size(mesh, "sp")
+    if sp < 2:
+        return None
+    others = sorted(set(getattr(loss_provider, "losses", {})) - set(SPATIAL_LOSSES))
+    if others:
+        raise ValueError(f"the losses {others} do not add up over image slabs: on a mesh with "
+                         f"sp={sp} only {', '.join(SPATIAL_LOSSES)} run")
+    from vp_suite_tpu_torch.models import MODEL_CLASSES
+    model_id = next((k for k, c in MODEL_CLASSES.items() if isinstance(model, c)),
+                    type(model).__name__)
+    if model_id not in SPATIAL_MODELS:
+        raise ValueError(
+            f"model '{model_id}' cannot run on a mesh with sp={sp}: its ops (warps, norms, "
+            f"attention, pools or resizes over the image) are not row-local in the port; only "
+            f"{', '.join(SPATIAL_MODELS)} run on image slabs")
+    return mesh, "sp"
+
+
+def _opened(spatial):
+    r"""The spatial context of ``spatial`` (a ``(mesh, axis)`` or None)."""
+    return contextlib.nullcontext() if spatial is None else spatial_halo_convs(*spatial)
 
 
 def _apply_model(model, x, *args, **kwargs):
@@ -115,8 +153,18 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     of its ``data`` axis, which hold the same shards; the layers' own
     collectives run over ``tp``, and the gradients of the parameters that
     ``tp`` leaves whole are then averaged over ``tp`` (``average_over_tp``),
-    so that their replicas stay equal. A mesh with ``sp`` > 1 raises
-    (``check_train_mesh``).
+    so that their replicas stay equal.
+
+    On a mesh with ``sp`` > 1 (``copy`` and ``convlstm-shi`` only; any other
+    model raises) the step must be built inside
+    ``parallel.spatial.spatial_halo_convs`` (else ``check_train_mesh``
+    raises the JAX package's "inference-only" error), which each call of the
+    step reopens: ``batch`` is this process's share from
+    ``shard_video_batch`` (its data rows and its block of image rows), the
+    convolutions exchange halo rows, this process computes its image rows'
+    part of the losses (MSE, L1 and smooth L1 only: they sum over pixels), and
+    the gradients of the replicated parameters and the losses are summed over
+    ``sp`` and averaged over ``data`` (``all_reduce_gradients``).
     """
     regime = getattr(model, "TRAIN_REGIME", "default")
     if regime not in ("default", "teacher_forcing", "scheduled_sampling"):
@@ -126,6 +174,11 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     ctx, pred = cfg["context_frames"], cfg["pred_frames"]
     if mesh is not None:
         check_train_mesh(mesh)
+    spatial = _spatial(model, mesh, loss_provider) and active_spatial()
+    if spatial and is_fsdp(model):
+        raise ValueError("FSDP's reduce-scatter averages over every process of its mesh: on a "
+                         "mesh with sp > 1 the gradients are summed over sp, so train the "
+                         "replicated model (shard_params)")
     rank, world = data_coordinate(mesh)
     group = data_group(mesh)
 
@@ -187,7 +240,7 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             mb = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
             if sharded:
                 model.set_requires_gradient_sync(i == k - 1)
-            with batch_statistics_over(group):
+            with batch_statistics_over(group), _opened(spatial):
                 (t, lv), model_state = loss_fn(mb, state.model_state, state.generator, epoch)
             (t / k).backward()
             if i == 0:
@@ -227,13 +280,18 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
     r"""Builds the evaluation step: ``(state, batch) -> {"total": ..., <loss
     name>: ...}``, the model run with ``train=False`` under
     ``torch.inference_mode()``. With a ``mesh``, ``batch`` is this process's
-    share of the global batch (``shard_batch``) and the metrics are the global
-    batch's, averaged over the mesh's ``data`` axis in one all-reduce."""
+    share of the global batch (``shard_batch``, or ``shard_video_batch`` on a
+    mesh with ``sp`` > 1, where the convolutions exchange halo rows) and the
+    metrics are the global batch's, in one all-reduce over the mesh's ``data``
+    x ``sp`` processes: averaged over ``data``, summed over ``sp`` (each
+    process's image rows' part of the row-additive losses)."""
     _, cfg, loss_provider = _step_config(run_config, loss_provider)
-    group = data_group(mesh)
+    group = replica_group(mesh)
+    shares = data_coordinate(mesh)[1]
+    spatial = _spatial(model, mesh, loss_provider)
 
     def eval_step(state, batch):
-        with torch.inference_mode():
+        with torch.inference_mode(), _opened(spatial):
             inputs, targets, kw = _unpack(model, batch, cfg)
             preds, _ = _apply_model(model, inputs, pred_frames=cfg["pred_frames"], train=False,
                                     **kw)
@@ -242,14 +300,14 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
                 names = list(loss_values)
                 means = torch.stack([total, *(loss_values[n] for n in names)]).float()
                 torch.distributed.all_reduce(means, group=group)
-                means /= torch.distributed.get_world_size(group)
+                means /= shares
                 total, loss_values = means[0], dict(zip(names, means[1:]))
         return {"total": total, **loss_values}
 
     return eval_step
 
 
-def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None):
+def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=None):
     r"""Builds the inference function ``batch -> (preds, targets)`` for
     ``run_config``'s context and horizon. It runs under
     ``torch.inference_mode()``. ``pre`` maps the inputs into the model's
@@ -257,21 +315,31 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None):
     adapters of ``check_model_and_data_compat``; identity when None). On a
     mesh it predicts the rows it is given (``shard_batch``): every ``tp``
     process of a data coordinate predicts the same, the model's collectives
-    running over ``tp``."""
+    running over ``tp``. With a ``mesh`` whose ``sp`` is above 1, ``batch`` is
+    this process's share (``shard_video_batch``), the convolutions exchange
+    halo rows, and the predictions and targets come back as whole frames,
+    gathered over ``sp``, as the JAX package returns a global array (the
+    adapters, which resize whole frames, are refused there)."""
     cfg = {"context_frames": run_config["context_frames"],
            "pred_frames": run_config["pred_frames"]}
+    spatial = _spatial(model, mesh)
+    if spatial is not None and (pre is not None or post is not None):
+        raise ValueError("the value-range and size adapters take whole frames: they do not run "
+                         f"on a mesh with sp={axis_size(mesh, 'sp')}")
 
     def predict(batch):
         inputs, targets, actions = VPModel.unpack_data(
             batch, cfg, needs_complete_input=model.NEEDS_COMPLETE_INPUT)
         kw = {"actions": actions} if model.CAN_HANDLE_ACTIONS else {}
-        with torch.inference_mode():
+        with torch.inference_mode(), _opened(spatial):
             if pre is not None:
                 inputs = pre(inputs)
             preds, _ = _apply_model(model, inputs, pred_frames=cfg["pred_frames"],
                                     train=False, **kw)
             if post is not None:
                 preds = post(preds)
+            if spatial is not None:
+                preds, targets = gather_rows(preds, 2, *spatial), gather_rows(targets, 2, *spatial)
         return preds, targets
 
     return predict
