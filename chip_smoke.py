@@ -209,7 +209,26 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     counted, sized and timed alone; (q) MinConvRNN at its defaults, 6 -> 10,
     with its context scan over ``{"seq": 2}``, ``predict`` and an SGD step
     against one process; (p) ``gpipe_apply`` of a 3x3 conv + tanh stage over
-    ``{"pp": 2}``, output and gradients against the serial stages.
+    ``{"pp": 2}``, output and gradients against the serial stages;
+20. drives the compiled step (``drive_graphs``, after step 15; the builders'
+    ``use_jit=True``, CUDA-graph capture): for ``predict`` and the Adam train
+    step of EF-ConvLSTM per-step and fused and EF-TrajGRU at b=32 bf16, the
+    launch counts of the eager first call and of the capture (as one call
+    launches) and none from the host in a replay, the profiler's kernel
+    counts over one replay, the host time of the eager call, the capture and
+    a replay, and eager against graphed latency, device time and busy share
+    (step 15 prints the same for the other eight models); at b=2 f32 under
+    cuDNN's deterministic algorithms the graphed SGD and Adam steps and
+    ``predict`` against the eager ones (a ReduceLROnPlateau cut after the
+    capture), and PhyDNet's teacher-forcing coins and PredRNN++'s sampling
+    masks, graphed against eager, across the epoch and iteration where they
+    change.
+
+Since the compiled step is the builders' default, the facade's runs in steps
+11-13 and 16 count the launches of the first two calls of each step (the
+eager call and the capture); step 10's timed train steps and the parallel
+phases build with ``use_jit=False``, and step 14 times the facade's compiled
+``predict`` beside step 10's eager train step.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -274,18 +293,32 @@ SUITE_RUNS = (("per_step", "device", 2, 8), ("fused_scan", "device", 1, 4),
               ("per_step", "numpy", 1, 3))
 
 
-def want_suite_launches(path, epochs, steps, val_batches=1):
+def compiled_calls(calls):
+    r"""The calls of a compiled step (``use_jit=True``, one batch shape) that
+    launch kernels from the host: the first (eager) and the second (the
+    capture); the replays after them launch none from the host."""
+    return min(calls, 2)
+
+
+def want_suite_launches(path, epochs, steps, val_batches=1, compiled=True):
     r"""Launches of a ``train`` run: each train step's and each validation
-    forward's, as one predict or train step launches them."""
+    forward's, as one predict or train step launches them; with ``compiled``
+    steps (the facade on one card without a group) those of the first two
+    calls of each (:func:`compiled_calls`)."""
     train, val = WANT_TRAIN_LAUNCHES[path], WANT_PREDICT_LAUNCHES[path]
-    return {k: epochs * (steps * train[k] + val_batches * val[k]) for k in KERNEL_IDS}
+    n_train, n_val = epochs * steps, epochs * val_batches
+    if compiled:
+        n_train, n_val = compiled_calls(n_train), compiled_calls(n_val)
+    return {k: n_train * train[k] + n_val * val[k] for k in KERNEL_IDS}
 
 
 #: the facade's test path: a brief test (the first 10 of the test set's
-#: sequences, one a batch) of each path's trained checkpoint, and CopyLastFrame.
+#: sequences, one a batch) of each path's trained checkpoint, and CopyLastFrame;
+#: its predictor is compiled, so the first two batches launch.
 TEST_SEQS = 16
 TEST_BATCHES = 10
-WANT_TEST_LAUNCHES = {path: {k: TEST_BATCHES * v for k, v in WANT_PREDICT_LAUNCHES[path].items()}
+WANT_TEST_LAUNCHES = {path: {k: compiled_calls(TEST_BATCHES) * v
+                             for k, v in WANT_PREDICT_LAUNCHES[path].items()}
                       for path in ("per_step", "fused_scan")}
 
 #: no model reaches K8 or K9 (the JAX package's TrajGRU runs warp_flow_ret); their
@@ -606,6 +639,7 @@ def main():
     kernels += time_factor_kernels(ret_inputs, contract_inputs, entry_launches, errs)
     predict_ms = time_paths(serve, train)
     new_times = drive_new_models(dev, tf32_defaults)
+    drive_graphs(card, new_times)
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
     drive_parallel(card)
     drive_tensor_parallel(card)
@@ -1254,7 +1288,8 @@ def unused_parameters(model):
 
 
 def drive_training():
-    r"""The training path on each path's model: Adam at lr 1e-4 on one fixed
+    r"""The training path on each path's model, eager (``use_jit=False``;
+    :func:`drive_graphs` holds the compiled step): Adam at lr 1e-4 on one fixed
     b=32 batch of 15 frames, 2 warm-up and 5 timed steps, with the kernels'
     launch counts read around the first step; then one f32 SGD step at b=2 on
     the card against the CPU."""
@@ -1272,7 +1307,7 @@ def drive_training():
     for i, name in enumerate(PATHS):
         model = suite.models[i].model
         state = create_train_state(model, lr=LR, seed=SEED)
-        step = make_train_step(model, run_config)
+        step = make_train_step(model, run_config, use_jit=False)
         torch.cuda.synchronize()
         counters = reset_counts()
         state, metrics = step(state, batch)
@@ -1443,9 +1478,9 @@ def drive_suite_train(dev):
                   f"device_prefetch equals the loader's")
         else:
             epoch = B * (CTX + PRED) * steps / entry.train_epoch_fps[-1] * 1e3
-            busy = profile(f"train epoch {name} ({steps} steps, no validation)",
-                           lambda: suite.train(epochs=1, steps_per_epoch=steps, no_val=True,
-                                               out_dir=str(out), model_idx=0, **run_kw))
+            busy, _ = profile(f"train epoch {name} ({steps} steps, no validation)",
+                              lambda: suite.train(epochs=1, steps_per_epoch=steps, no_val=True,
+                                                  out_dir=str(out), model_idx=0, **run_kw))
             profiled = B * (CTX + PRED) * steps / entry.train_epoch_fps[-1] * 1e3
             if busy:
                 print(f"[suite] {name}: {busy:.1f} ms of device time in an epoch of {steps} "
@@ -2085,13 +2120,17 @@ def _adam_losses(name, batch, run_config, steps=7):
 
 def _time_new_model(name, frames, batch, run_config):
     r"""One new model at bench width in bf16: ``predict`` and the Adam train
-    step, each launch count held at 0, their latencies and profiles, the loss
-    falling at each of 7 steps (UNet-3D's at 5 -> 1, ``NEW_STEP_PRED``) and
-    the schedule after them; returns ``{"predict_ms", "step_ms"}``."""
+    step, each launch count held at 0, their latencies and profiles eager
+    (``use_jit=False``) and compiled (``VPSuite.predict`` and the default
+    step: CUDA-graph replays), the loss falling at each of 7 steps (UNet-3D's
+    at 5 -> 1, ``NEW_STEP_PRED``) and the schedule after them; returns
+    ``{"predict_ms", "step_ms"}`` (eager) and ``{"graph_predict_ms",
+    "graph_step_ms", "profiles"}`` (``profiles[(what, how)]`` the ``(device
+    ms, host ms)`` of one profiled call)."""
     import numpy as np
     import torch
     from vp_suite_tpu_torch import VPSuite
-    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
     from vp_suite_tpu_torch.training.train_state import create_train_state
     suite = VPSuite()
     model = _new_model(suite, name, compute_dtype=torch.bfloat16).model
@@ -2101,16 +2140,27 @@ def _time_new_model(name, frames, batch, run_config):
     check(tuple(preds.shape) == (B, PRED, IMG[1], IMG[2], IMG[0])
           and preds.dtype == torch.float32 and bool(torch.isfinite(preds).all()),
           f"{name}: predict gave {tuple(preds.shape)} {preds.dtype}, or non-finite values")
-    pred_ms, pred_times = _median_ms(
-        lambda: (suite.predict(frames[:, :CTX], pred_frames=PRED), torch.cuda.synchronize()),
-        3)
-    print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64: median {pred_ms:.2f} ms "
-          f"(runs {', '.join(f'{t * 1e3:.2f}' for t in pred_times)}), "
-          f"{B * PRED / pred_ms * 1e3:.0f} frames/s")
-    profile(f"predict {name}", lambda: suite.predict(frames[:, :CTX], pred_frames=PRED))
+    profiles = {}
+    context = frames[:, :CTX].cuda()   # as VPSuite.predict hands it to its predictor
+    if model.NEEDS_COMPLETE_INPUT:
+        context = torch.cat([context, context.new_zeros((B, PRED, *context.shape[2:]))], 1)
+    context = {"frames": context, "actions": context.new_zeros((B, CTX + PRED, 1))}
+    eager_predict = make_predict_fn(model, run_config, use_jit=False)
+    for how, fn in (("eager", lambda: eager_predict(context)),
+                    ("graphed", lambda: suite.predict(frames[:, :CTX], pred_frames=PRED))):
+        fn()    # the graphed predict: its capture
+        ms, times = _median_ms(lambda: (fn(), torch.cuda.synchronize()), 3)
+        print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64, {how}: median "
+              f"{ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+              f"{B * PRED / ms * 1e3:.0f} frames/s")
+        profiles[("predict", how)] = profile(f"predict {name} {how}", fn)
+        if how == "eager":
+            pred_ms = ms
+        else:
+            graph_pred_ms = ms
 
     state = create_train_state(model, lr=LR, seed=SEED)
-    step = make_train_step(model, run_config)
+    step = make_train_step(model, run_config, use_jit=False)
     torch.cuda.synchronize()
     counters = reset_counts()
     _, metrics = step(state, batch)
@@ -2148,14 +2198,295 @@ def _time_new_model(name, frames, batch, run_config):
     check(state.step == 7 and state.model_state == want_state,
           f"{name}: after 7 steps the state counts {state.step} steps and holds "
           f"{state.model_state}, not {want_state}")
-    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, Adam lr {LR}: losses "
+    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, Adam lr {LR}, eager: losses "
           + ", ".join(f"{x:.2f}" for x in losses)
           + f"; median step {step_ms:.2f} ms (steps "
           + ", ".join(f"{t * 1e3:.2f}" for t in times) + ")"
           f", {B * (CTX + PRED) / step_ms * 1e3:.0f} frames/s, peak memory {peak:.2f} GiB "
           f"above what was live before; model_state {state.model_state}")
-    profile(f"train step {name}", lambda: float(step(state, batch)[1]["total"]))
-    return dict(predict_ms=pred_ms, step_ms=step_ms)
+    profiles[("train step", "eager")] = profile(f"train step {name} eager",
+                                                lambda: float(step(state, batch)[1]["total"]))
+    graphed = make_train_step(model, run_config)
+    graph_step_ms, graph_losses, times = _time_step(graphed, state, batch, n=5, warmup=2)
+    check(all(map(math.isfinite, graph_losses)), f"{name}: non-finite graphed losses")
+    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, graphed (after an eager step "
+          f"and the capture): median step {graph_step_ms:.2f} ms (steps "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times) + "), "
+          f"{B * (CTX + PRED) / graph_step_ms * 1e3:.0f} frames/s; losses "
+          + ", ".join(f"{x:.2f}" for x in graph_losses))
+    profiles[("train step", "graphed")] = profile(
+        f"train step {name} graphed", lambda: float(graphed(state, batch)[1]["total"]))
+    return dict(predict_ms=pred_ms, step_ms=step_ms, graph_predict_ms=graph_pred_ms,
+                graph_step_ms=graph_step_ms, profiles=profiles)
+
+
+#: the kernels' names in a profiler trace, by launch-count id (K3 and K3s are one kernel)
+#: on the model paths
+KERNEL_NAMES = {"K1": "_convlstm_gate_fwd", "K2": "_convlstm_gate_bwd", "K3": "scan_fwd_",
+                "K3s": "scan_fwd_", "K4": "scan_bwd_", "warp_fwd": "warp_fwd_kernel",
+                "warp_bwd": "warp_bwd_kernel"}
+#: the graphed-against-eager gates: f32 steps at b=2 on one batch, the learning
+#: rate cut by ReduceLROnPlateau before the last (after the capture)
+GRAPH_STEPS = 4
+GRAPH_LR = 1e-4
+#: PhyDNet's epochs in the coin check: its teacher-forcing ratio is 1 at epoch 0
+#: (the eager step's and the capture's), 0.499 at 167 and 0 from 334 on
+GRAPH_COIN_EPOCHS = (0, 0, 0, 167, 167, 167, 167, 334)
+#: PredRNN++'s steps in the mask check, from ``sampling_stop_iter - 3`` (a rate of
+#: 0.5): its fourth step draws at the stop, where the rate falls to 0
+GRAPH_MASK_STEPS = 6
+
+
+def by_name(launches):
+    r"""Launch counts by kernel id summed by :data:`KERNEL_NAMES`' names."""
+    out = dict.fromkeys(KERNEL_NAMES.values(), 0)
+    for k, name in KERNEL_NAMES.items():
+        out[name] += launches[k]
+    return out
+
+
+def replay_launches(fn, want, tries=3):
+    r"""The launches of the port's kernels in one call of ``fn`` as the
+    profiler saw them on the card, by :data:`KERNEL_NAMES`' names: the most
+    of each over up to ``tries`` profiled calls, until they equal ``want``.
+    CUPTI can drop records of a call of thousands of launches (the profile of
+    one EF-TrajGRU train step replay on an H100 held 39 of its 45 warp
+    forwards); it adds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    seen = dict.fromkeys(KERNEL_NAMES.values(), 0)
+    for _ in range(tries):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {name: max(n, sum(e.count for e in kernels if name in e.key))
+                for name, n in seen.items()}
+        if seen == want:
+            break
+    return seen
+
+
+def drive_graphs(card, new_times):
+    r"""The compiled step (``use_jit=True``: CUDA-graph capture) on paths
+    (a)-(c) at full width: for ``predict`` and the Adam train step in bf16 at
+    b=32, the launch counts of the eager first call and of the capture
+    (each as one call launches), none from the host in a replay, the
+    profiler's kernel counts over one replay (the same), and eager against
+    graphed latency, device time and busy share; in f32 at b=2 under cuDNN's
+    deterministic algorithms, the graphed SGD and Adam steps against the
+    eager ones: each step's loss within 1e-5 relative, the parameters after 3
+    steps and after a 4th that follows a ReduceLROnPlateau cut as ``(p0 -
+    p1) / lr`` within the SGD gate (Adam's only where two eager SGD runs agree
+    bit for bit: path (c)'s warp backward sums by float atomics, and Adam
+    divides each gradient by its running size, so its ulps in gradients near 0
+    move whole updates; printed beside a second eager run there), and
+    ``predict`` (within the f32 gate); at 16x16, PhyDNet's teacher-forcing
+    coins and PredRNN++'s sampling masks in each graphed step equal the eager
+    step's across the epoch and the iteration where they change; then the
+    eager-against-graphed table with (h)-(o) from ``new_times``."""
+    import torch
+    from vp_suite_tpu_torch import VPSuite
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t_phase = time.time()
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    batch = {"frames": frames}
+    rows = {}
+    suite = VPSuite()
+    create_models(suite, compute_dtype=torch.bfloat16)
+    for i, name in enumerate(PATHS):
+        model = suite.models[i].model
+        state = create_train_state(model, lr=LR, seed=SEED)
+        fns = {"predict": (make_predict_fn(model, run, use_jit=False), make_predict_fn(model, run),
+                           WANT_PREDICT_LAUNCHES[name]),
+               "train step": (make_train_step(model, run, use_jit=False), make_train_step(model, run),
+                              WANT_TRAIN_LAUNCHES[name])}
+        for what, (eager, graphed, want) in fns.items():
+            def call(fn):
+                if what == "predict":
+                    fn(batch)
+                    torch.cuda.synchronize()
+                else:
+                    float(fn(state, batch)[1]["total"])   # waits for the card
+            counts, host = [], []
+            for _ in range(3):     # eager, the capture (and its replay), a replay
+                counters = reset_counts()
+                t0 = time.perf_counter()
+                call(graphed)
+                host.append((time.perf_counter() - t0) * 1e3)
+                counts.append(read_counts(counters))
+            seen = replay_launches(lambda: call(graphed), by_name(want))
+            print(f"[graphs] {name} {what}: launches counted in the eager call "
+                  + ", ".join(f"{k} {v}" for k, v in counts[0].items() if v)
+                  + ", in the capture " + ", ".join(f"{k} {v}" for k, v in counts[1].items() if v)
+                  + f", from the host in a replay {sum(counts[2].values())}; the profiler's "
+                  f"kernels in one replay " + ", ".join(f"{k} {v}" for k, v in seen.items() if v)
+                  + f"; host ms of the eager call, the capture with its replay, and a replay: "
+                  + " / ".join(f"{t:.2f}" for t in host))
+            check(counts[0] == want and counts[1] == want and counts[2] == _launches(),
+                  f"{name} {what}: the eager call, the capture and a replay launched {counts}, "
+                  f"not {want}, {want} and none")
+            check(seen == by_name(want),
+                  f"{name} {what}: the profiler saw {seen} in one replay, not {by_name(want)}")
+            for how, fn in (("eager", eager), ("graphed", graphed)):
+                call(fn)
+                ms, times = _median_ms(lambda: call(fn), 3 if what == "predict" else 5)
+                dev_ms, wall = profile(f"{what} {name} {how}", lambda: call(fn),
+                                       pick=("warp_fwd_kernel", "warp_bwd_kernel")
+                                       if name == "trajgru" else ())
+                rows[(name, what, how)] = (ms, dev_ms, wall)
+                print(f"[graphs] {what} {name} bf16 b={B} {CTX}->{PRED} at 64x64, {how}: median "
+                      f"{ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)})")
+        del model, state, fns
+    del suite
+    torch.cuda.empty_cache()
+
+    # graphed against eager in f32 at b=2, deterministic
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    small = {"frames": frames[:2]}
+    reproducible = {}
+    for optimizer in ("sgd", "adam"):
+        # eager, graphed and a second eager run, on models from one seed
+        suites = [VPSuite() for _ in range(3)]
+        for s_ in suites:
+            create_models(s_, compute_dtype=torch.float32)
+        for i, name in enumerate(PATHS):
+            models = [s_.models[i].model for s_ in suites]
+            p0 = {k: v.detach().clone() for k, v in models[0].named_parameters()}
+            states = [create_train_state(m, lr=GRAPH_LR, optimizer=optimizer) for m in models]
+            steps = [make_train_step(m, run, use_jit=j == 1) for j, m in enumerate(models)]
+            cuts = [ReduceLROnPlateau(GRAPH_LR, patience=0) for _ in states]
+            for n in range(1, GRAPH_STEPS + 1):
+                if n == GRAPH_STEPS:   # a plateau: the rate falls to a fifth
+                    for cut, st in zip(cuts, states):
+                        cut.step(1.0)
+                        set_learning_rate(st, cut.step(2.0))
+                losses = [float(step(st, small)[1]["total"]) for step, st in zip(steps, states)]
+                check(abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]),
+                      f"{name} {optimizer}: the graphed step {n}'s loss {losses[1]} is not the "
+                      f"eager step's {losses[0]}")
+                if n < GRAPH_STEPS - 1:
+                    continue
+                deltas = [{k: (p0[k] - v.detach()) / GRAPH_LR for k, v in m.named_parameters()}
+                          for m in models]
+                worst = [_delta_excess(deltas[j], deltas[0]) for j in (1, 2)]
+                same = [sum(torch.equal(a, b) for a, b in zip(models[0].parameters(),
+                                                              models[j].parameters()))
+                        for j in (1, 2)]
+                if optimizer == "sgd":
+                    reproducible[name] = same[1] == len(p0)
+                held = optimizer == "sgd" or reproducible[name]
+                print(f"[graphs] {name} f32 b=2 {optimizer} step {n}"
+                      f"{' (after the cut to ' + str(cuts[0].lr) + ')' if n == GRAPH_STEPS else ''}"
+                      f", graphed against eager: loss {losses[1]:.6f} vs {losses[0]:.6f}; "
+                      f"{same[0]} of {len(p0)} parameters bit-identical; (p0-p1)/lr max(|diff| - "
+                      f"rtol*|eager|) {worst[0][0]:.3g} at {worst[0][1]} "
+                      + (f"(rtol {STEP_TOL}, must stay <= atol {STEP_TOL})" if held else
+                         "(printed: the eager step is not bit-reproducible on this path, and "
+                         "Adam turns its ulps in gradients near 0 into whole updates)")
+                      + f"; a second eager run against the first: {same[1]} bit-identical, "
+                      f"{worst[1][0]:.3g} at {worst[1][1]}")
+                if held:
+                    check(worst[0][0] <= STEP_TOL,
+                          f"{name} {optimizer}: the graphed step {n} parts from the eager one")
+            if optimizer == "sgd":
+                want = make_predict_fn(models[1], run, use_jit=False)(small)[0]
+                graphed = make_predict_fn(models[1], run)
+                got = [graphed(small)[0] for _ in range(3)]
+                d = max((g - want).abs().max().item() for g in got)
+                print(f"[graphs] {name} f32 b=2 predict, graphed (eager, capture, replay) against "
+                      f"eager: max diff {d:.3g} (atol {PREDICT_ATOL_F32})")
+                check(d <= PREDICT_ATOL_F32, f"{name}: the graphed predict parts from the eager")
+        del suites, models, states, steps
+    graph_coins_and_masks()
+    torch.backends.cudnn.deterministic = False
+
+    print(f"[graphs] eager against graphed on {card}: host latency (median, ending in a read) "
+          f"and one profiled call's device time in its host time (busy share)")
+    for (name, what, how), (ms, dev_ms, wall) in rows.items():
+        busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
+            "not measured"
+        print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
+    for name, t in new_times.items():
+        for what, key in (("predict", "predict_ms"), ("train step", "step_ms")):
+            for how in ("eager", "graphed"):
+                ms = t[key] if how == "eager" else t["graph_" + key]
+                dev_ms, wall = t["profiles"][(what, how)]
+                busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
+                    "not measured"
+                print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
+    print(f"[graphs] phase {time.time() - t_phase:.1f} s")
+
+
+def _delta_excess(got, want):
+    r"""``(excess, name)``: the SGD gate's largest ``|got - want| - rtol *
+    |want|`` over the parameters' (p0 - p1) / lr."""
+    worst, worst_name = 0.0, ""
+    for k, w in want.items():
+        excess = ((got[k] - w).abs() - STEP_TOL * w.abs()).max().item()
+        if excess > worst or not worst_name:
+            worst, worst_name = excess, k
+    return worst, worst_name
+
+
+def _recording(model, key, seen):
+    r"""Makes ``model`` keep a copy of its ``key`` argument at every forward
+    in ``seen``: in a capture the copy is the graph's, which every replay
+    overwrites with its own value."""
+    forward = model.forward
+
+    def recording(*args, **kwargs):
+        seen.append(kwargs[key].detach().clone())
+        return forward(*args, **kwargs)
+    model.forward = recording
+
+
+def graph_coins_and_masks():
+    r"""PhyDNet's coins over :data:`GRAPH_COIN_EPOCHS` and PredRNN++'s masks over
+    :data:`GRAPH_MASK_STEPS` steps, graphed against eager (f32, b=4, 16x16,
+    5 -> 10, plain SGD), each step's value read after the step."""
+    import torch
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    frames = {"frames": torch.rand((4, CTX + PRED, 16, 16, 3), device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED))}
+    cases = {"phydnet": ("teacher_forcing", GRAPH_COIN_EPOCHS),
+             "predrnn": ("mask_true", (0,) * GRAPH_MASK_STEPS)}
+    for name, (key, epochs) in cases.items():
+        model_id, cfg = FLOP_SMALL[name]
+        values = {}
+        for how in ("eager", "graphed"):
+            model = build_model(model_id, SEED, "cuda", img_shape=(3, 16, 16), action_size=0,
+                                tensor_value_range=(0.0, 1.0), **cfg)
+            state = create_train_state(model, lr=GRAPH_LR, optimizer="sgd")
+            if name == "predrnn":
+                state.model_state = {"training_iteration": model.sampling_stop_iter - 3,
+                                     "sampling_eta": 0.5}
+            step = make_train_step(model, run, use_jit=how == "graphed")
+            seen, values[how] = [], []
+            _recording(model, key, seen)
+            for epoch in epochs:
+                step(state, frames, epoch)
+                values[how].append(seen[-1].float().cpu())
+        same = all(torch.equal(a, b) for a, b in zip(values["eager"], values["graphed"]))
+        shown = [float(v.mean()) for v in values["graphed"]]
+        print(f"[graphs] {name} f32 b=4 at 16x16: {key} of each graphed step (mean) "
+              + ", ".join(f"{x:.3g}" for x in shown)
+              + f"; equal to the eager steps' {same}")
+        check(same, f"{name}: the graphed steps' {key} differ from the eager steps'")
+        if name == "phydnet":
+            check(shown[:3] == [1.0] * 3 and shown[-1] == 0.0,
+                  f"phydnet: coins {shown} at epochs {epochs} (1 at epoch 0, 0 at 334)")
+        else:
+            check(all(x == 0.0 for x in shown[3:]) and 0.0 < shown[0] < 1.0,
+                  f"predrnn: masks {shown}, random before the stop and 0 from it")
 
 
 @contextlib.contextmanager
@@ -2445,7 +2776,7 @@ def _tooling_vis(out_root):
                         n_vis=N_VIS, **run_kw)
             torch.cuda.synchronize()
             launches = read_counts(counters)
-            want = {k: v + N_VIS * WANT_PREDICT_LAUNCHES[path][k]
+            want = {k: v + compiled_calls(N_VIS) * WANT_PREDICT_LAUNCHES[path][k]
                     for k, v in want_suite_launches(path, 1, VIS_STEPS).items()}
             print(f"[tooling] train {path} with vis_every=1, n_vis={N_VIS}: kernel launches "
                   + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
@@ -2464,7 +2795,9 @@ def _tooling_vis(out_root):
                        **{k: v for k, v in run_kw.items() if k != "batch_size"})
             torch.cuda.synchronize()
             launches = read_counts(counters)
-            want = {k: (TEST_BATCHES + N_VIS) * v for k, v in WANT_PREDICT_LAUNCHES[path].items()}
+            # the visualised items have the test batches' shape: one compiled predictor
+            want = {k: compiled_calls(TEST_BATCHES + N_VIS) * v
+                    for k, v in WANT_PREDICT_LAUNCHES[path].items()}
             print(f"[tooling] test {path} with vis_compare, n_vis={N_VIS}: "
                   f"{time.perf_counter() - t0:.2f} s, kernel launches "
                   + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
@@ -2578,8 +2911,10 @@ def _tooling_flops(dev, card, serve, train, predict_ms, new_times):
     rows = []
     for i, name in enumerate(PATHS):
         s = train["steps"][name]
-        rows.append((name, count_flops(serve["suite"].predict, frames, pred_frames=PRED,
-                                       model_idx=i), predict_ms[name],
+        model = serve["suite"].models[i].model   # an eager predict: a replay runs no ops
+        serving = make_predict_fn(model, {"context_frames": CTX, "pred_frames": PRED},
+                                  use_jit=False)
+        rows.append((name, count_flops(serving, {"frames": frames.to(dev)}), predict_ms[name],
                      count_flops(s["step"], s["state"], train["batch"]), s["lat"]))
     run_config = {"context_frames": CTX, "pred_frames": PRED}
     batch = {"frames": torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device=dev,
@@ -2938,7 +3273,8 @@ def _parallel_facade(out_dir):
             suite.train(batch_size=B, out_dir=str(out_dir / f"i_{tag}_{path}"), fsdp=fsdp,
                         ckpt_backend=backend, epochs=2, **kw, **run_kw)
             torch.cuda.synchronize()
-            launches, want = read_counts(counters), want_suite_launches(path, 2, PAR_STEPS)
+            launches = read_counts(counters)
+            want = want_suite_launches(path, 2, PAR_STEPS, compiled=not grouped)
             check(launches == want, f"(i) {tag} {path}: train launched {launches}, not {want}")
             fps[(tag, path)] = entry.train_epoch_fps[-1]
             written = out_dir / f"i_{tag}_{path}" / "final_model"
@@ -3003,7 +3339,7 @@ def _parallel_pair(out_dir):
         if path == "fused_scan":
             shard_params_fsdp(model, mesh)
         state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-        step = make_train_step(model, run_config, mesh=mesh)
+        step = make_train_step(model, run_config, mesh=mesh, use_jit=False)
         torch.cuda.synchronize()
         counters = reset_counts()
         _, metrics = step(state, batch)
@@ -3117,7 +3453,7 @@ def _tp_one_process_step(path, frames):
     model = _tp_model(path)
     p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
     state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-    step = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED})
+    step = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED}, use_jit=False)
     _, metrics = step(state, {"frames": frames})
     loss = float(metrics["total"])
     after = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -3185,14 +3521,14 @@ def _tp_world_of_one(out_dir):
             if grouped:
                 shard_params_tp(shard_params(model, mesh), mesh)
             state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-            step = make_train_step(model, run, mesh=mesh if grouped else None)
+            step = make_train_step(model, run, mesh=mesh if grouped else None, use_jit=False)
             torch.cuda.synchronize()
             counters = reset_counts()
             step(state, {"frames": frames})
             torch.cuda.synchronize()
             train = read_counts(counters)
             counters = reset_counts()
-            make_predict_fn(model, run)({"frames": frames})
+            make_predict_fn(model, run, use_jit=False)({"frames": frames})
             torch.cuda.synchronize()
             predict = read_counts(counters)
             check(train == WANT_TRAIN_LAUNCHES[path] and predict == WANT_PREDICT_LAUNCHES[path],
@@ -3231,13 +3567,13 @@ def _tp_pair(out_dir):
                                                   specs[k].local)) if k in specs
                     else torch.equal(v, full[k]) for k, v in model.named_parameters())
         counters = reset_counts()
-        preds, _ = make_predict_fn(model, run)(batch)
+        preds, _ = make_predict_fn(model, run, use_jit=False)(batch)
         torch.cuda.synchronize()
         predict = read_counts(counters)
         check(predict == WANT_PREDICT_LAUNCHES[path],
               f"(t2) {path}: process {rank}'s predict launched {predict}")
         state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-        step = make_train_step(model, run, mesh=mesh)
+        step = make_train_step(model, run, mesh=mesh, use_jit=False)
         counters = reset_counts()
         with record() as log:
             _, metrics = step(state, batch)
@@ -3301,7 +3637,7 @@ def _tp_2d(out_dir):
     torch.cuda.synchronize()
     counters = reset_counts()
     _, metrics = make_train_step(model, {"context_frames": CTX, "pred_frames": PRED},
-                                 mesh=mesh)(state, batch)
+                                 mesh=mesh, use_jit=False)(state, batch)
     torch.cuda.synchronize()
     launches = read_counts(counters)
     check(launches == WANT_TRAIN_LAUNCHES["fused_scan"],
@@ -3505,14 +3841,14 @@ def _model_parallel_pair(out_dir):
     for path in ("per_step", "fused_scan"):
         model = _tp_model(path)
         counters = reset_counts()
-        preds, _ = make_predict_fn(model, run, mesh=mesh)(batch)
+        preds, _ = make_predict_fn(model, run, mesh=mesh, use_jit=False)(batch)
         torch.cuda.synchronize()
         predict = read_counts(counters)
         check(predict == WANT_PREDICT_LAUNCHES[path],
               f"(s) {path}: process {rank}'s predict launched {predict}")
         state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
         with spatial_halo_convs(mesh):
-            step = make_train_step(model, run, mesh=mesh)
+            step = make_train_step(model, run, mesh=mesh, use_jit=False)
         torch.cuda.synchronize()
         counters = reset_counts()
         t0 = time.perf_counter()
@@ -3564,9 +3900,9 @@ def _model_parallel_pair(out_dir):
     dist.all_gather_into_tensor = counted
     try:
         counters = reset_counts()
-        preds = make_predict_fn(model, run_q)(frames)[0]
+        preds = make_predict_fn(model, run_q, use_jit=False)(frames)[0]
         state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-        _, metrics = make_train_step(model, run_q)(state, frames)
+        _, metrics = make_train_step(model, run_q, use_jit=False)(state, frames)
         torch.cuda.synchronize()
     finally:
         dist.all_gather_into_tensor = gather
@@ -3943,7 +4279,8 @@ def time_paths(serve, train):
 def profile(name, fn, pick=()):
     r"""One call of ``fn`` under ``torch.profiler``: device busy share and the
     kernels that take most of the device time, and the device time of the
-    kernels whose names hold each string of ``pick``."""
+    kernels whose names hold each string of ``pick``; returns ``(device ms,
+    host ms)``, the device time None where the profiler saw no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3955,7 +4292,7 @@ def profile(name, fn, pick=()):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy:
         print(f"[profile] {name}: device time not measured (the profiler saw no CUDA kernels)")
-        return None
+        return None, wall
     print(f"[profile] {name}: {busy:.2f} ms of device time in {wall:.2f} ms under the profiler "
           f"(busy {busy / wall:.0%}), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -3965,7 +4302,7 @@ def profile(name, fn, pick=()):
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         print(f"[profile] {name}: {key} {ms:.3f} ms of the {busy:.2f} ms of device time "
               f"({ms / busy:.1%}), {sum(e.count for e in hits)} launches")
-    return busy
+    return busy, wall
 
 
 if __name__ == "__main__":

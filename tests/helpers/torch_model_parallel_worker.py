@@ -131,8 +131,8 @@ def run_sp(mesh, rank):
     batch = shard_video_batch({"frames": torch.from_numpy(frames(1))}, mesh)
     for path in PATHS:
         model = ef_model(path)
-        preds, targets = make_predict_fn(model, RUN, mesh=mesh)(batch)
-        metrics = make_eval_step(model, RUN, mesh=mesh)(None, batch)
+        preds, targets = make_predict_fn(model, RUN, mesh=mesh, use_jit=False)(batch)
+        metrics = make_eval_step(model, RUN, mesh=mesh, use_jit=False)(None, batch)
         out[path] = {"preds": preds, "targets": targets, "eval": float(metrics["total"])}
     return out
 
@@ -152,7 +152,7 @@ def run_data_sp(mesh, rank):
         state = create_train_state(model, lr=LR, optimizer="sgd")
         with spatial_halo_convs(mesh):
             check_train_mesh(mesh)
-            step = make_train_step(model, RUN, mesh=mesh)
+            step = make_train_step(model, RUN, mesh=mesh, use_jit=False)
         with spatial.record() as log:
             _, metrics = step(state, batch)
         out[path] = {"loss": float(metrics["total"]), "exchanges": len(log),
@@ -177,7 +177,7 @@ def _train_in_context(model, mesh):
     from vp_suite_tpu_torch.parallel import spatial_halo_convs
     from vp_suite_tpu_torch.training.loop import make_train_step
     with spatial_halo_convs(mesh):
-        make_train_step(model, RUN, mesh=mesh)
+        make_train_step(model, RUN, mesh=mesh, use_jit=False)
 
 
 def _scan_case(mesh, f, u, h0, spec=None, h0_rows=slice(None)):

@@ -173,7 +173,7 @@ def run_steps(out_dir, rank):
                 return mask, ms
             model.scheduled_sampling_mask = recording
         step = make_train_step(model, {"context_frames": ctx, "pred_frames": pred}, accum_steps=k,
-                               mesh=mesh)
+                               mesh=mesh, use_jit=False)
         batch = shard_batch({"frames": torch.from_numpy(case_frames(name))}, mesh)
         _, metrics = step(state, batch)
         results[name] = {
@@ -240,7 +240,8 @@ def card_step(path, device, mesh=None):
             shard_params_fsdp(model, mesh, min_size=FSDP_MIN_SIZE)
         batch = shard_batch(batch, mesh)
     state = create_train_state(model, lr=LR, optimizer="sgd")
-    step = make_train_step(model, {"context_frames": 2, "pred_frames": 2}, mesh=mesh)
+    step = make_train_step(model, {"context_frames": 2, "pred_frames": 2}, mesh=mesh,
+                           use_jit=False)
     before = read_launches()
     _, metrics = step(state, batch)
     torch.cuda.synchronize()

@@ -164,7 +164,7 @@ def run_tp(out_dir, rank):
     # the checkpoints of a tp-sharded model after one Adam step
     model = shard_params_tp(ef_model("fused"), mesh)
     state = create_train_state(model, lr=LR, optimizer="adam")
-    make_train_step(model, RUN, mesh=mesh)(state, batch)
+    make_train_step(model, RUN, mesh=mesh, use_jit=False)(state, batch)
     out["ckpt"] = save_both(out_dir, "", model, state)
     try:
         restore_checkpoint_orbax(os.path.join(out_dir, "ckpt_orbax"), state)
@@ -187,7 +187,8 @@ def run_tp(out_dir, rank):
             state = create_train_state(model, lr=LR, optimizer="sgd")
             if model_id == "predrnn-pp":
                 state.model_state = dict(PREDRNN_STATE)
-            _, metrics = make_train_step(model, run, mesh=mesh if tp else None)(state, x)
+            _, metrics = make_train_step(model, run, mesh=mesh if tp else None,
+                                             use_jit=False)(state, x)
             got[tp] = {"loss": float(metrics["total"]), "state_dict": whole_state(model),
                        "sharded": sorted(sharded_params(model))}
         out["others"][model_id] = got
@@ -213,7 +214,7 @@ def run_data_tp(out_dir, rank):
         specs = sharded_params(model)
         state = create_train_state(model, lr=LR, optimizer=opt)
         with record() as log:
-            _, metrics = make_train_step(model, RUN, mesh=mesh)(state, batch)
+            _, metrics = make_train_step(model, RUN, mesh=mesh, use_jit=False)(state, batch)
         out[name] = {"loss": float(metrics["total"]), "state_dict": whole_state(model),
                      "step": kinds(log),
                      "counts": {n: ((p.to_local() if isinstance(p, DTensor) else p).numel(),
@@ -224,12 +225,12 @@ def run_data_tp(out_dir, rank):
     # the checkpoints of a 2-D model after one Adam step
     model = shard_params_tp_fsdp(ef_model("fused"), mesh, min_size=TP_FSDP_MIN_SIZE)
     state = create_train_state(model, lr=LR, optimizer="adam")
-    make_train_step(model, RUN, mesh=mesh)(state, batch)
+    make_train_step(model, RUN, mesh=mesh, use_jit=False)(state, batch)
     out["ckpt"] = save_both(out_dir, "_2d", model, state)
     # the evaluation of tp-sharded models on each process's rows, averaged over data
     eval_batch = shard_video_batch({"frames": torch.from_numpy(frames(1))}, mesh)
     out["eval"] = {path: float(make_eval_step(shard_params_tp(ef_model(path), mesh), RUN,
-                                              mesh=mesh)(None, eval_batch)["total"])
+                                              mesh=mesh, use_jit=False)(None, eval_batch)["total"])
                    for path in PATHS}
 
     refused = {}
@@ -268,7 +269,7 @@ def run_card_one(out_dir):
             if grouped:
                 shard_params_tp(shard_params(model, mesh), mesh)
             state = create_train_state(model, lr=LR, optimizer="sgd")
-            step = make_train_step(model, RUN, mesh=mesh if grouped else None)
+            step = make_train_step(model, RUN, mesh=mesh if grouped else None, use_jit=False)
             before = P.read_launches()
             step(state, batch)
             torch.cuda.synchronize()

@@ -797,14 +797,16 @@ def test_measure_limits_see_tf32_in_the_convolutions(cuda_default_tf32, monkeypa
 
 
 @pytest.mark.parametrize("cfg,want", [
-    ({}, dict(K1=4 * 15)),
+    ({}, dict(K1=2 * 15)),
     (dict(use_fused_scan=True, interleaved_encode=False, interleaved_forecast=False),
-     dict(K3=4 * 6))], ids=["per_step", "fused_scan"])
+     dict(K3=2 * 6))], ids=["per_step", "fused_scan"])
 def test_facade_test_on_the_card_launches_the_kernels(cuda_default_tf32, monkeypatch, tmp_path,
                                                        cfg, want):
     r"""One ``VPSuite.test`` over 4 test sequences (3 -> 2 frames, so 15 cell
-    steps per forward): exactly each batch's K1 (or K3), and no other kernel;
-    every horizon's metrics finite, for the model and CopyLastFrame."""
+    steps per forward): exactly the K1 (or K3) of the compiled predictor's
+    first two batches (its eager call and its capture; the other batches
+    replay the graph, launching from the card), and no other kernel; every
+    horizon's metrics finite, for the model and CopyLastFrame."""
     monkeypatch.setattr(SETTINGS, "_run_path", tmp_path)
     suite = VPSuite()
     suite.load_dataset("MMF", split="test", img_size=16, digit_source="synthetic", n_seqs=4)

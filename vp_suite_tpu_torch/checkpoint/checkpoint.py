@@ -3,9 +3,10 @@ schedules, with the configuration that rebuilds the model.
 
 A checkpoint directory holds
 - ``checkpoint.pt``: ``torch.save`` of ``{"model": state_dict, "optimizer":
-  the optimizer's state_dict (its moments and learning rate), "optimizer_name",
-  "step", "model_state"}`` (``optimizer`` and ``optimizer_name`` are None
-  for a model with nothing to train);
+  the optimizer's state_dict (its moments and learning rate, a float:
+  it loads into a capturable optimizer on the card or a plain one on the
+  CPU), "optimizer_name", "step", "model_state"}`` (``optimizer`` and
+  ``optimizer_name`` are None for a model with nothing to train);
 - ``model_config.json``: ``{"model_id", "model_config"}``, from which the
   registry rebuilds the model;
 - ``run_cfg.json``: the run configuration, where one is given.
@@ -29,7 +30,8 @@ from vp_suite_tpu_torch.models import MODEL_CLASSES, build_model
 from vp_suite_tpu_torch.parallel.distributed import process_index
 from vp_suite_tpu_torch.parallel.mesh import is_fsdp
 from vp_suite_tpu_torch.parallel.tensor import sharded_params, whole
-from vp_suite_tpu_torch.training.train_state import create_train_state
+from vp_suite_tpu_torch.training.train_state import (create_train_state, load_optimizer_state,
+                                                      optimizer_state_dict)
 from vp_suite_tpu_torch.utils.utils import resolve_device, torch_dtype
 
 CHECKPOINT_FILE = "checkpoint.pt"
@@ -103,7 +105,7 @@ def _unsharded_state(state, cpu_offload):
     rank 0's CPU with ``cpu_offload``, else to every process's device."""
     model, opt = state.model, state.optimizer
     if not is_fsdp(model):
-        return model.state_dict(), opt.state_dict() if opt is not None else None
+        return model.state_dict(), optimizer_state_dict(opt) if opt is not None else None
     from torch.distributed.checkpoint.state_dict import (StateDictOptions, get_model_state_dict,
                                                          get_state_dict)
     options = StateDictOptions(full_state_dict=True, cpu_offload=cpu_offload)
@@ -115,6 +117,7 @@ def _unsharded_state(state, cpu_offload):
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     index = {n: i for i, n in enumerate(names)}
     group = {k: v for k, v in fqn_sd["param_groups"][0].items() if k != "params"}
+    group["lr"] = float(group["lr"])
     return model_sd, {"state": {index[n]: st for n, st in fqn_sd["state"].items()},
                       "param_groups": [{**group, "params": list(range(len(names)))}]}
 
@@ -154,7 +157,7 @@ def load_checkpoint(ckpt_dir, device="cuda"):
     model.load_state_dict(ckpt["model"])
     state = create_train_state(model, optimizer=ckpt["optimizer_name"] or "adam")
     if ckpt["optimizer"] is not None:
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(state.optimizer, ckpt["optimizer"])
     state.step = ckpt["step"]
     state.model_state = ckpt["model_state"]
     return model, state, cfg["model_id"]

@@ -33,7 +33,8 @@ import torch.distributed.checkpoint as dcp
 from vp_suite_tpu_torch.checkpoint.checkpoint import model_from_config, write_sidecars
 from vp_suite_tpu_torch.parallel.distributed import is_grouped, process_index
 from vp_suite_tpu_torch.parallel.tensor import sharded_params
-from vp_suite_tpu_torch.training.train_state import create_train_state
+from vp_suite_tpu_torch.training.train_state import (create_train_state, optimizer_form,
+                                                      restore_optimizer_form)
 from vp_suite_tpu_torch.utils.utils import resolve_device
 
 STATE_DIR = "orbax_state"
@@ -61,14 +62,16 @@ def _global(name, t, specs):
 def _state_dict(state):
     r"""What DCP writes and reads: the model's and the optimizer's state
     dicts in their present layout (DTensors under FSDP, and over the whole
-    mesh under tensor parallelism), the step, the schedules and the
-    optimizer's name."""
+    mesh under tensor parallelism; the learning rate a float, as a capturable
+    optimizer's tensor would not load into a plain one), the step, the
+    schedules and the optimizer's name."""
     from torch.distributed.checkpoint.state_dict import get_model_state_dict, get_state_dict
     opt = state.optimizer
     if opt is None:
         model_sd, opt_sd = get_model_state_dict(state.model), {}
     else:
         model_sd, opt_sd = get_state_dict(state.model, opt)
+        opt_sd["param_groups"] = [{**g, "lr": float(g["lr"])} for g in opt_sd["param_groups"]]
     specs = sharded_params(state.model)
     if specs:
         model_sd = {k: _global(k, v, specs) for k, v in model_sd.items()}
@@ -125,8 +128,10 @@ def restore_checkpoint_orbax(ckpt_dir, template_state):
         opt_sd["param_groups"] = [{**opt_sd["param_groups"][0], "params": g} for g in groups]
     set_model_state_dict(template_state.model, sd["model"])
     if template_state.optimizer is not None:
+        form = optimizer_form(template_state.optimizer)
         set_optimizer_state_dict(template_state.model, template_state.optimizer, sd["optimizer"],
                                  options=StateDictOptions(strict=False))
+        restore_optimizer_form(template_state.optimizer, form)
     template_state.step = sd["step"]
     template_state.model_state = sd["model_state"]
     return template_state

@@ -128,6 +128,12 @@ class FrechetVideoDistance(VPMeasure):
             else torch.tensor(dist, dtype=torch.float32, device=pred.device)
 
     def get_distance(self, pred, target):
+        if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the FVD measure cannot run inside a captured CUDA graph: its distance waits for "
+                "the card (wasserstein2_numpy reads the I3D features back to the host; "
+                "torch.linalg.eigh checks its result on the host): build the step with "
+                "use_jit=False (VPSuite.train does so with an FVD loss)")
         params = placed(self.params, self._placed, pred)
         logits_pred = i3d_features(pred, params)
         logits_target = i3d_features(target, params)

@@ -9,9 +9,11 @@ previous step's prediction, where the sampling mask is ones for the warm-up
 steps (the context, or the first step under reverse scheduled sampling)
 followed by ``mask_true``; without ``mask_true`` it is the test mask. The
 training schedules (``training_iteration``, ``sampling_eta``) live in the
-train state's ``model_state``: :meth:`PredRNN_V2.scheduled_sampling_mask`
-draws a mask from a ``torch.Generator`` and returns the updated schedule,
-on the host, with the JAX package's f32 arithmetic.
+train state's ``model_state``: :meth:`PredRNN_V2.sampling_rates` advances
+the schedule on the host, with the JAX package's f32 arithmetic, and
+:meth:`PredRNN_V2.scheduled_sampling_mask` draws a mask with those rates
+from a ``torch.Generator`` (the train step passes the rates as 0-d tensors,
+which a captured step reads anew at every replay).
 
 With ``action_conditional`` (which forces ``conv_actions_on_input`` and
 reverse scheduled sampling, as in the reference), two strided convs embed
@@ -117,26 +119,14 @@ class PredRNN_V2(VPModel):
     def init_model_state(self):
         return {"training_iteration": 1, "sampling_eta": 1.0}
 
-    def scheduled_sampling_mask(self, model_state, generator, batch_size, context_frames,
-                                pred_frames, train: bool, device=None):
-        r"""``(mask_true, model_state)``: the mask ``[b, steps, 1, 1, 1]``
-        (it broadcasts over the patches) and the updated schedule. Drawn from
-        ``generator`` (on the device the mask goes to) when ``train``; the
-        test mask otherwise (ones for the context under reverse scheduled
-        sampling, zeros for the predicted steps), on ``device``. Standard
-        scheduled sampling decays ``sampling_eta`` before each draw (0 from
-        ``sampling_stop_iter`` on); ``training_iteration`` advances in the
-        train step, once per step."""
-        if not train:
-            steps = context_frames + pred_frames - 2 if self._rss else pred_frames - 1
-            mask = torch.zeros((batch_size, steps, 1, 1, 1), device=device)
-            if self._rss:
-                mask[:, :context_frames - 1] = 1.0
-            return mask, model_state
-
-        def flips(n):
-            return torch.rand((batch_size, n), generator=generator, device=generator.device)
-
+    def sampling_rates(self, model_state):
+        r"""``(rates, model_state)`` of the next training draw, computed on the
+        host: ``{"r_eta": ..., "eta": ...}`` under reverse scheduled sampling
+        (from ``training_iteration``), ``{"eta": ...}`` under standard
+        scheduled sampling, which decays ``sampling_eta`` before each draw (0
+        from ``sampling_stop_iter`` on) and keeps it in the returned schedule,
+        and ``{}`` without scheduled sampling. ``training_iteration`` advances
+        in the train step, once per step."""
         itr = model_state["training_iteration"]
         if self._rss:
             s1, s2 = self.r_sampling_step_1, self.r_sampling_step_2
@@ -147,16 +137,45 @@ class PredRNN_V2(VPModel):
                 eta = 0.5 - (0.5 / (s2 - s1)) * (itr - s1)
             else:
                 r_eta, eta = 1.0, 0.0
-            r_mask = (flips(context_frames - 1) < r_eta).float()
-            mask = torch.cat([r_mask, (flips(pred_frames - 1) < eta).float()], dim=1)
-            return mask[:, :, None, None, None], model_state
+            return {"r_eta": r_eta, "eta": eta}, model_state
         if not self.scheduled_sampling:
-            return torch.zeros((batch_size, pred_frames - 1, 1, 1, 1),
-                               device=generator.device), model_state
+            return {}, model_state
         eta = 0.0 if itr >= self.sampling_stop_iter else \
             float(np.float32(model_state["sampling_eta"]) - np.float32(self.sampling_changing_rate))
-        mask = (flips(pred_frames - 1) < eta).float()
-        return mask[:, :, None, None, None], {**model_state, "sampling_eta": eta}
+        return {"eta": eta}, {**model_state, "sampling_eta": eta}
+
+    def scheduled_sampling_mask(self, model_state, generator, batch_size, context_frames,
+                                pred_frames, train: bool, device=None, rates=None):
+        r"""``(mask_true, model_state)``: the mask ``[b, steps, 1, 1, 1]``
+        (it broadcasts over the patches) and the schedule after it. Drawn from
+        ``generator`` (on the device the mask goes to) when ``train``, as
+        ``flips < rate``, with ``rates`` where given (:meth:`sampling_rates`'
+        dict, its values floats or 0-d f32 tensors; ``model_state`` then comes
+        back as it went in) and else with :meth:`sampling_rates` of
+        ``model_state``; the test mask otherwise (ones for the context under
+        reverse scheduled sampling, zeros for the predicted steps), on
+        ``device``."""
+        if not train:
+            steps = context_frames + pred_frames - 2 if self._rss else pred_frames - 1
+            mask = torch.zeros((batch_size, steps, 1, 1, 1), device=device)
+            if self._rss:
+                mask[:, :context_frames - 1] = 1.0
+            return mask, model_state
+        if rates is None:
+            rates, model_state = self.sampling_rates(model_state)
+
+        def flips(n):
+            return torch.rand((batch_size, n), generator=generator, device=generator.device)
+
+        if self._rss:
+            r_mask = (flips(context_frames - 1) < rates["r_eta"]).float()
+            mask = torch.cat([r_mask, (flips(pred_frames - 1) < rates["eta"]).float()], dim=1)
+        elif not self.scheduled_sampling:
+            return torch.zeros((batch_size, pred_frames - 1, 1, 1, 1),
+                               device=generator.device), model_state
+        else:
+            mask = (flips(pred_frames - 1) < rates["eta"]).float()
+        return mask[:, :, None, None, None], model_state
 
     def _normalized_adapter(self, delta):
         v = self.adapter(delta)

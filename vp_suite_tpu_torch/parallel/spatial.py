@@ -28,7 +28,7 @@ does a slab of fewer than 2 rows or one that does not cover its halo.
 
     mesh = make_mesh_nd({"data": 2, "sp": 2})
     with spatial_halo_convs(mesh):
-        step = make_train_step(model, run_config, mesh=mesh)   # the step reopens it
+        step = make_train_step(model, run_config, mesh=mesh, use_jit=False)   # reopens it
     state, metrics = step(state, shard_video_batch(batch, mesh))
 
 Ops that are not row-local gather the rows (:func:`gather_rows`, whose

@@ -6,6 +6,16 @@ activation traffic and runs the convolutions on the tensor cores), the
 parameters stay f32 (each op casts its weights at use, so autograd returns
 f32 gradients to them) and the predictions come back as f32, so that the
 loss and its gradient start in full precision.
+
+Each builder takes the JAX package's ``use_jit`` (default True): on the card
+the step is then captured into CUDA graphs and replayed
+(``training/graphs.py``), the counterpart of ``jax.jit``; on CPU tensors it
+runs eagerly either way. ``make_train_step`` also takes ``donate`` (default
+True): the port's step always updates the state in place, which is what
+donation gives the JAX package, so ``donate=False`` raises. What a step
+computes on the host for each call (the teacher-forcing ratio, the sampling
+rates, the schedules, the step count) stays outside the graph and enters it
+as 0-d tensors.
 """
 import contextlib
 
@@ -22,6 +32,7 @@ from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over
                                               replica_group)
 from vp_suite_tpu_torch.parallel.spatial import active_spatial, gather_rows, spatial_halo_convs
 from vp_suite_tpu_torch.parallel.tensor import sharded_params
+from vp_suite_tpu_torch.training.graphs import CompiledStep
 
 #: the registry models whose every op is row-local, so that they run on a mesh
 #: with ``sp`` > 1 (each process on its slab of image rows)
@@ -56,6 +67,16 @@ def _spatial(model, mesh, loss_provider=None):
 def _opened(spatial):
     r"""The spatial context of ``spatial`` (a ``(mesh, axis)`` or None)."""
     return contextlib.nullcontext() if spatial is None else spatial_halo_convs(*spatial)
+
+
+def _check_compiled(model, mesh, use_jit):
+    r"""Raises for ``use_jit`` on a mesh on the card: the collectives of a
+    step on a mesh (gloo's, NCCL's) are not captured into CUDA graphs."""
+    on_card = any(t.is_cuda for t in (*model.parameters(), *model.buffers()))
+    if mesh is not None and use_jit and on_card:
+        raise NotImplementedError("use_jit=True on a mesh: the port does not capture a step's "
+                                  "collectives into a CUDA graph; build the step with "
+                                  "use_jit=False")
 
 
 def _apply_model(model, x, *args, **kwargs):
@@ -96,7 +117,7 @@ def _unpack(model, batch, cfg):
 
 
 def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_steps: int = None,
-                    mesh=None):
+                    mesh=None, use_jit: bool = True, donate: bool = True):
     r"""Builds the train step for the model's ``TRAIN_REGIME``:
     ``(state, batch, epoch=0) -> (state, metrics)``, one forward, loss,
     backward and update of ``state.optimizer``; ``state`` is updated in place
@@ -104,6 +125,18 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     ``metrics`` is ``{"total": ..., <loss name>: ...}`` as 0-d f32 tensors on
     the model's device (reading them waits for the card). The JAX step's
     ``optimizer`` argument has no counterpart: the state holds the optimizer.
+
+    ``use_jit`` (the JAX package's, default True): on the card the step's
+    device work (everything but the host's ratio, rates, schedules and step
+    count) runs eagerly at the first call, is captured into a CUDA graph at
+    the second and replayed from then on, one graph per batch shape and
+    dtype (``training/graphs.py``); the metrics are new tensors at every
+    call. The optimizer must be the capturable form ``create_train_state``
+    builds on the card, and every loss must run on the card alone (an FVD
+    loss raises while it is captured). On CPU tensors, and with
+    ``use_jit=False``, every call runs eagerly. ``donate`` (default True)
+    must stay True: the step updates ``state`` in place, as the JAX step
+    donates it.
 
     ``loss_provider`` defaults to one built from
     ``run_config["losses_and_scales"]``, and ``accum_steps`` to
@@ -165,7 +198,16 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     part of the losses (MSE, L1 and smooth L1 only: they sum over pixels), and
     the gradients of the replicated parameters and the losses are summed over
     ``sp`` and averaged over ``data`` (``all_reduce_gradients``).
+
+    On a mesh on the card ``use_jit`` must be False (``NotImplementedError``
+    otherwise): the port does not capture collectives.
     """
+    if not donate:
+        raise ValueError("donate=False is not ported: the port's train step always updates the "
+                         "state in place (parameters, moments, buffers), which is what the JAX "
+                         "step does with a donated state; copy the state before the step where "
+                         "the old one is needed")
+    _check_compiled(model, mesh, use_jit)
     regime = getattr(model, "TRAIN_REGIME", "default")
     if regime not in ("default", "teacher_forcing", "scheduled_sampling"):
         raise NotImplementedError(f"the '{regime}' training regime is not ported")
@@ -188,51 +230,63 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             total = total + v
         return total, loss_values
 
-    def default_loss(batch, model_state, generator, epoch):
+    def default_loss(batch, generator, scalars):
         inputs, targets, kw = _unpack(model, batch, cfg)
         preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, **kw)
-        return losses(preds, targets, aux), model_state
+        return losses(preds, targets, aux)
 
-    def teacher_forcing_loss(batch, model_state, generator, epoch):
+    def teacher_forcing_loss(batch, generator, scalars):
         inputs, _, actions = VPModel.unpack_data(batch, cfg, complete=True)
-        decay = np.float32(epoch) * np.float32(model.teacher_forcing_decay)
-        ratio = float(max(np.float32(0.0), np.float32(1.0) - decay))
-        coin = torch.rand((), generator=generator, device=generator.device) < ratio
+        coin = torch.rand((), generator=generator, device=generator.device) < scalars["ratio"]
         kw = {"actions": actions} if model.CAN_HANDLE_ACTIONS else {}
         preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True,
                                   teacher_forcing=coin, **kw)
-        return losses(preds, inputs[:, 1:], aux), model_state
+        return losses(preds, inputs[:, 1:], aux)
 
-    def scheduled_sampling_loss(batch, model_state, generator, epoch):
+    def scheduled_sampling_loss(batch, generator, scalars):
         inputs, targets, _ = VPModel.unpack_data(batch, cfg, needs_complete_input=True)
         b = inputs.shape[0]
         rows = slice(rank * b, (rank + 1) * b)   # this process's rows of the global masks
-        mask, model_state = model.scheduled_sampling_mask(model_state, generator, b * world, ctx,
-                                                          pred, train=True)
+        mask, _ = model.scheduled_sampling_mask(None, generator, b * world, ctx, pred, train=True,
+                                                rates=scalars["rates"])
         if model.reverse_input:
             inputs_rev, targets_rev, _ = VPModel.unpack_data(batch, cfg, reverse=True,
                                                              needs_complete_input=True)
-            mask_rev, model_state = model.scheduled_sampling_mask(model_state, generator,
-                                                                  b * world, ctx, pred, train=True)
+            mask_rev, _ = model.scheduled_sampling_mask(None, generator, b * world, ctx, pred,
+                                                        train=True, rates=scalars["rates_rev"])
             inputs, targets = torch.cat([inputs, inputs_rev]), torch.cat([targets, targets_rev])
             mask = torch.cat([mask[rows], mask_rev[rows]])
         else:
             mask = mask[rows]
         preds, aux = _apply_model(model, inputs, pred_frames=pred, train=True, mask_true=mask)
-        model_state = {**model_state,
-                       "training_iteration": model_state["training_iteration"] + 1}
-        return losses(preds, targets, aux), model_state
+        return losses(preds, targets, aux)
 
     loss_fn = {"default": default_loss, "teacher_forcing": teacher_forcing_loss,
                "scheduled_sampling": scheduled_sampling_loss}[regime]
 
+    def host_scalars(state, epoch):
+        r"""``(scalars, model_state)``: the values the host computes for a
+        step (floats, which enter the step as 0-d f32 tensors) and the
+        schedules after it."""
+        if regime == "teacher_forcing":
+            decay = np.float32(epoch) * np.float32(model.teacher_forcing_decay)
+            return {"ratio": float(max(np.float32(0.0), np.float32(1.0) - decay))}, \
+                state.model_state
+        if regime == "scheduled_sampling":
+            rates, model_state = model.sampling_rates(state.model_state)
+            scalars = {"rates": rates}
+            if model.reverse_input:
+                scalars["rates_rev"], model_state = model.sampling_rates(model_state)
+            return scalars, {**model_state,
+                             "training_iteration": model_state["training_iteration"] + 1}
+        return {}, state.model_state
+
     replicated = whole = None   # the parameters whose gradients the step all-reduces
 
-    def train_step(state, batch, epoch=0):
+    def device_step(state, generator, batch, scalars):
+        r"""The step's work on the device: forward, loss, backward and the
+        optimizer's update, for ``k`` microbatches; returns the metrics."""
         nonlocal replicated, whole
-        b = batch["frames"].shape[0]
-        if b % k:
-            raise ValueError(f"batch {b} not divisible by accum_steps {k}")
         state.optimizer.zero_grad(set_to_none=True)
         sharded = mesh is not None and is_fsdp(model)
         total, loss_values, buffers = 0.0, {}, None
@@ -241,12 +295,10 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             if sharded:
                 model.set_requires_gradient_sync(i == k - 1)
             with batch_statistics_over(group), _opened(spatial):
-                (t, lv), model_state = loss_fn(mb, state.model_state, state.generator, epoch)
+                t, lv = loss_fn(mb, generator, scalars)
             (t / k).backward()
-            if i == 0:
-                new_model_state = model_state
-                if k > 1:
-                    buffers = [buf.detach().clone() for buf in model.buffers()]
+            if i == 0 and k > 1:
+                buffers = [buf.detach().clone() for buf in model.buffers()]
             total = total + t.detach() / k
             for name, v in lv.items():
                 loss_values[name] = loss_values.get(name, 0.0) + v.detach() / k
@@ -269,14 +321,26 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             total, loss_values = means[0], dict(zip(names, means[1:]))
             average_over_tp(whole, mesh)
         state.optimizer.step()
-        state.step += 1
-        state.model_state = new_model_state
-        return state, {"total": total, **loss_values}
+        return {"total": total, **loss_values}
 
+    run = CompiledStep(device_step, "the train step", use_jit)
+
+    def train_step(state, batch, epoch=0):
+        b = batch["frames"].shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} not divisible by accum_steps {k}")
+        scalars, model_state = host_scalars(state, epoch)
+        metrics = run(state, state.generator, batch, scalars)
+        state.step += 1
+        state.model_state = model_state
+        return state, metrics
+
+    train_step.compiled = run   # its graphs, one per batch signature
     return train_step
 
 
-def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=None):
+def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=None,
+                   use_jit: bool = True):
     r"""Builds the evaluation step: ``(state, batch) -> {"total": ..., <loss
     name>: ...}``, the model run with ``train=False`` under
     ``torch.inference_mode()``. With a ``mesh``, ``batch`` is this process's
@@ -284,7 +348,10 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
     mesh with ``sp`` > 1, where the convolutions exchange halo rows) and the
     metrics are the global batch's, in one all-reduce over the mesh's ``data``
     x ``sp`` processes: averaged over ``data``, summed over ``sp`` (each
-    process's image rows' part of the row-additive losses)."""
+    process's image rows' part of the row-additive losses). ``use_jit`` as
+    for :func:`make_train_step`: captured per batch shape on the card (False
+    on a mesh there), new metric tensors at every call."""
+    _check_compiled(model, mesh, use_jit)
     _, cfg, loss_provider = _step_config(run_config, loss_provider)
     group = replica_group(mesh)
     shares = data_coordinate(mesh)[1]
@@ -304,10 +371,11 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
                 total, loss_values = means[0], dict(zip(names, means[1:]))
         return {"total": total, **loss_values}
 
-    return eval_step
+    return CompiledStep(eval_step, "the eval step", use_jit)
 
 
-def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=None):
+def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=None,
+                    use_jit: bool = True):
     r"""Builds the inference function ``batch -> (preds, targets)`` for
     ``run_config``'s context and horizon. It runs under
     ``torch.inference_mode()``. ``pre`` maps the inputs into the model's
@@ -319,7 +387,10 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=
     this process's share (``shard_video_batch``), the convolutions exchange
     halo rows, and the predictions and targets come back as whole frames,
     gathered over ``sp``, as the JAX package returns a global array (the
-    adapters, which resize whole frames, are refused there)."""
+    adapters, which resize whole frames, are refused there). ``use_jit`` as
+    for :func:`make_train_step`: captured per input shape on the card (False
+    on a mesh there), new prediction tensors at every call."""
+    _check_compiled(model, mesh, use_jit)
     cfg = {"context_frames": run_config["context_frames"],
            "pred_frames": run_config["pred_frames"]}
     spatial = _spatial(model, mesh)
@@ -342,4 +413,4 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=
                 preds, targets = gather_rows(preds, 2, *spatial), gather_rows(targets, 2, *spatial)
         return preds, targets
 
-    return predict
+    return CompiledStep(predict, "the predict function", use_jit)

@@ -1,6 +1,7 @@
 r"""Learning-rate scheduling: the reference's ``ReduceLROnPlateau(patience=5,
 factor=0.2, min_lr=1e-6)``, stepped on the host with each epoch's validation
 indicator; :func:`set_learning_rate` writes the rate into the optimizer."""
+import torch
 
 
 class ReduceLROnPlateau:
@@ -33,7 +34,12 @@ class ReduceLROnPlateau:
 
 def set_learning_rate(state, lr):
     r"""Writes ``lr`` into every parameter group of the state's optimizer
-    (a state without one is left as it is); returns the state."""
+    (a state without one is left as it is); returns the state. A rate held
+    as a tensor on the card is filled in place, so that the steps captured
+    in a CUDA graph read it on their next replay."""
     for group in state.optimizer.param_groups if state.optimizer is not None else ():
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return state

@@ -38,6 +38,14 @@ large parameters and their Adam moments over it, and ``ckpt_backend="orbax"``
 writes the sharded checkpoint (``checkpoint/orbax_backend.py``), which
 ``load_model`` reads as it reads the other. ``num_devices`` is 0 (the whole
 group, or one device without a group) or 1.
+
+The steps are compiled where the JAX facade jits them (``use_jit=True`` of
+the step builders, ``training/graphs.py``): on the card ``train``'s train,
+eval and predict steps, ``test``'s predictors and ``predict``'s cached
+functions each run their first call of a batch shape eagerly, capture the
+second into a CUDA graph and replay it from then on. ``train`` builds them
+with ``use_jit=False`` in a process group (the port does not capture
+collectives) and with an FVD loss (FVD reads back to the host).
 """
 import itertools
 import json
@@ -336,7 +344,12 @@ class VPSuite:
         every process takes part in each checkpoint. The card-made batches
         and the device-memory cache stay off in a group of more than one
         process. Build the suite after ``initialize_multihost``: the model
-        must lie on the process's own card."""
+        must lie on the process's own card.
+
+        On one card without a group the steps are captured into CUDA graphs
+        (``use_jit=True``): each batch shape's first step runs eagerly, its
+        second is captured and replayed. In a group, or with ``"fvd"`` among
+        the losses, they run eagerly (``use_jit=False``)."""
         entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
                                                             **run_kwargs)
         model = entry.model
@@ -417,10 +430,15 @@ class VPSuite:
             raise ValueError(f"Validation criterion '{config['val_rec_criterion']}' has "
                              f"to be one of the chosen losses: "
                              f"{list(config['losses_and_scales'].keys())}")
+        # the compiled steps, as the JAX facade always asks for them; not on a
+        # mesh (collectives are not captured) or with an FVD loss (it reads back)
+        use_jit = mesh is None and "fvd" not in loss_provider.losses
         train_step = make_train_step(model, run_config, loss_provider,
-                                     accum_steps=run_config["accum_steps"], mesh=mesh)
-        eval_step = make_eval_step(model, run_config, loss_provider)
-        predict_fn = make_predict_fn(model, run_config)
+                                     accum_steps=run_config["accum_steps"], mesh=mesh,
+                                     use_jit=use_jit)
+        eval_step = make_eval_step(model, run_config, loss_provider, use_jit=use_jit)
+        predict_fn = make_predict_fn(model, run_config, use_jit=use_jit)
+        entry.predict_fns.clear()   # the run may re-cast or re-shard the model
         profile_dir = run_config["profile_dir"]
 
         # uint8 host-to-device copies are exact up to 1/510 for [0, 1] data
