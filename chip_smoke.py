@@ -64,8 +64,9 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    them against the same weights run on the CPU in f32;
 10. drives the training path: ``create_train_state`` and ``make_train_step``
     (Adam, lr 1e-4, MSE) on the same models' configurations, b=32, 5 -> 10,
-    bf16: EF-ConvLSTM per-step (K1 + K2) and fused (K3s + K4), EF-TrajGRU (the
-    warp forward and backward), with the counts set to 0 just before the first
+    bf16: EF-ConvLSTM per-step (K1 45 and, under the cells' default
+    ``remat_policy="gates"``, 45 again in the backward, + K2 45) and fused
+    (K3s + K4), EF-TrajGRU (the warp forward and backward), with the counts set to 0 just before the first
     step and read just after; checks losses, gradients and launch counts,
     prints the share of the warp backward's taps outside their block's band
     for the indices of EF-TrajGRU's second step, and at b=2 holds one f32 SGD
@@ -193,7 +194,7 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     step's without a group; (t2) two processes on the one card over gloo on
     ``{"data": 1, "tp": 2}`` under ``shard_params_tp``: each process holds
     exactly its slice of every sharded leaf, ``predict`` (K1 45 or K3 6 a
-    process) within 1e-4 of one process's, the SGD step (K1 45 + K2 45 or
+    process) within 1e-4 of one process's, the SGD step (K1 90 + K2 45 or
     K3s 6 + K4 6 a process) within the SGD gate of the one-process step, its
     time beside the one-process step's and its tp collectives' time (CUDA
     events around each alone, summed; two processes on one card measure no
@@ -204,8 +205,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     card: (s) each EF-ConvLSTM path at full width on ``{"data": 1, "sp": 2}``
     (each process 32 of the 64 image rows, its convolutions exchanging halo
     rows): ``predict`` (whole frames) within 1e-4 of one process's, the f32
-    SGD step at b=8 within the SGD gate of the one-process step, K1 45 (+ K2
-    45) or K3 6 (K3s 6 + K4 6) a process, the step's spatial collectives
+    SGD step at b=8 within the SGD gate of the one-process step, K1 45 (90
+    and K2 45 in the step) or K3 6 (K3s 6 + K4 6) a process, the step's spatial collectives
     counted, sized and timed alone; (q) MinConvRNN at its defaults, 6 -> 10,
     with its context scan over ``{"seq": 2}``, ``predict`` and an SGD step
     against one process; (p) ``gpipe_apply`` of a 3x3 conv + tanh stage over
@@ -222,7 +223,21 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     ``predict`` against the eager ones (a ReduceLROnPlateau cut after the
     capture), and PhyDNet's teacher-forcing coins and PredRNN++'s sampling
     masks, graphed against eager, across the epoch and iteration where they
-    change.
+    change;
+21. drives rematerialisation (``drive_remat``, after step 20; ``remat``,
+    ``vp_suite_tpu_torch.nn.remat``) on and off for the Adam train step at
+    b=32 bf16 on EF-ConvLSTM per-step under the cells' ``"gates"`` and
+    ``"full"`` policies, fused, EF-TrajGRU and the other eight models: the
+    peak card memory of one eager step above what was live, the launches of
+    the eager call and of the capture (K1 45 + 45 on the per-step path with
+    remat on, 45 off; K2, K3s / K4 and the warp as before; none on the other
+    models), the graphed step's latency; ``predict``'s launches on the three
+    kernel paths, equal with remat on and off; and in f32 at b=2 the SGD step
+    with remat on against off (bit-identical; EF-TrajGRU within the SGD gate)
+    and the graphed step under ``"full"`` against the eager one.
+
+Step 1 also prints which video decoders the machine offers (the ``ffmpeg``
+binary, the ``avcodec`` library, ``torchvision``, ``torchcodec``).
 
 Since the compiled step is the builders' default, the facade's runs in steps
 11-13 and 16 count the launches of the first two calls of each step (the
@@ -282,10 +297,15 @@ def _launches(**counts):
 #: layer); the fused path's K3 count is also held against the model's scans.
 WANT_PREDICT_LAUNCHES = {"per_step": _launches(K1=45), "fused_scan": _launches(K3=6),
                          "trajgru": _launches(warp_fwd=45)}
-#: launches per train step on each path.
-WANT_TRAIN_LAUNCHES = {"per_step": _launches(K1=45, K2=45),
+#: launches per train step on each path, with each model's default ``remat``: the
+#: per-step cells' ``"gates"`` policy keeps each step's gate pre-activations and
+#: launches K1 again in the backward (45 + 45); the fused path and EF-TrajGRU's
+#: policy (which keeps the warp tensor) launch no kernel again.
+WANT_TRAIN_LAUNCHES = {"per_step": _launches(K1=90, K2=45),
                        "fused_scan": _launches(K3s=6, K4=6),
                        "trajgru": _launches(warp_fwd=45, warp_bwd=45)}
+#: and with ``remat`` off (the cells' ``remat=False``)
+WANT_TRAIN_LAUNCHES_NO_REMAT = {**WANT_TRAIN_LAUNCHES, "per_step": _launches(K1=45, K2=45)}
 #: the facade's runs: ``load_dataset("MMF", ...)`` -> ``create_model`` ->
 #: ``train``, as (path, dataset backend, epochs, steps per epoch); each epoch
 #: validates on one batch of B sequences, which the host loader makes.
@@ -607,6 +627,7 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}, "
           f"python {sys.version.split()[0]}")
+    print(decoder_probe())
 
     t0 = time.time()
     log = io.StringIO()
@@ -640,6 +661,7 @@ def main():
     predict_ms = time_paths(serve, train)
     new_times = drive_new_models(dev, tf32_defaults)
     drive_graphs(card, new_times)
+    drive_remat(card)
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
     drive_parallel(card)
     drive_tensor_parallel(card)
@@ -880,14 +902,24 @@ def recording_band_shares(shares):
     from vp_suite_tpu_torch.ops.warp import WarpFunction
     plain = WarpFunction.backward
 
+    class Saved:
+        r"""``ctx`` with its saved tensors read once: a checkpointed step
+        (``remat``) lets a backward read them only once."""
+
+        def __init__(self, ctx, saved):
+            self.ctx, self.saved_tensors = ctx, saved
+
+        def __getattr__(self, name):
+            return getattr(self.ctx, name)
+
     def backward(ctx, g):
-        iy, ix, img = ctx.saved_tensors
+        iy, ix, img = saved = ctx.saved_tensors
         _, h, w, c = img.shape
         (outside, taps), _ = band_share(iy, ix, h, w, c, img.dtype == torch.bfloat16)
         acc = shares.setdefault((h, w, c), [0, 0])
         acc[0] += outside
         acc[1] += taps
-        return plain(ctx, g)
+        return plain(Saved(ctx, saved), g)
 
     WarpFunction.backward = staticmethod(backward)
     try:
@@ -2335,7 +2367,7 @@ def drive_graphs(card, new_times):
                   f"{name} {what}: the profiler saw {seen} in one replay, not {by_name(want)}")
             for how, fn in (("eager", eager), ("graphed", graphed)):
                 call(fn)
-                ms, times = _median_ms(lambda: call(fn), 3 if what == "predict" else 5)
+                ms, times = _median_ms(lambda: call(fn), 3)
                 dev_ms, wall = profile(f"{what} {name} {how}", lambda: call(fn),
                                        pick=("warp_fwd_kernel", "warp_bwd_kernel")
                                        if name == "trajgru" else ())
@@ -2421,6 +2453,185 @@ def drive_graphs(card, new_times):
                     "not measured"
                 print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
     print(f"[graphs] phase {time.time() - t_phase:.1f} s")
+
+
+def decoder_probe():
+    r"""What this machine offers to decode video files (the JAX package reads
+    them through ``cv2.VideoCapture``, which the port may not import): the
+    ``ffmpeg`` binary, the ``avcodec`` library, and whether ``torchvision``
+    and ``torchcodec`` import; one line."""
+    import ctypes.util
+    import importlib
+    import shutil
+    found = {"ffmpeg": shutil.which("ffmpeg"), "avcodec": ctypes.util.find_library("avcodec")}
+    for name in ("torchvision", "torchcodec"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except Exception as e:      # absent, or present and broken: either way no decoder
+            found[name] = f"does not import ({type(e).__name__}: {str(e)[:80]})"
+    return "[probe] video decoders: " + "; ".join(f"{k} {v}" for k, v in found.items())
+
+
+#: drive_remat's paths at bench shapes: (a) per step under each of the cells'
+#: policies, (b), (c) and (h)-(o); name -> (registry id, configuration)
+REMAT_PATHS = {"per_step": PATHS["per_step"],
+               "per_step_full": ("convlstm-shi", dict(remat_policy="full")),
+               "fused_scan": PATHS["fused_scan"], "trajgru": PATHS["trajgru"], **NEW_MODELS}
+#: replays timed per path and setting
+REMAT_REPLAYS = 3
+
+
+def _remat_model(name, remat_on, dtype, seed=SEED):
+    r"""Path ``name``'s model on the card with ``remat`` on or off."""
+    from vp_suite_tpu_torch.models import build_model
+    model_id, cfg = REMAT_PATHS[name]
+    model = build_model(model_id, seed, "cuda", img_shape=IMG, action_size=0,
+                        tensor_value_range=(0.0, 1.0), compute_dtype=dtype, **cfg)
+    return _set_remat(model, remat_on)
+
+
+def _set_remat(model, remat_on):
+    r"""``model`` with ``remat`` on or off: the model's hyperparameter and every
+    block's (EF-ConvLSTM's cells' own: the model's never reaches them, as in
+    the JAX package)."""
+    for module in model.modules():
+        if hasattr(module, "remat"):
+            module.remat = remat_on
+    return model
+
+
+def _want_remat_launches(name, remat_on):
+    if name in NEW_MODELS:
+        return _launches()
+    path = "per_step" if name == "per_step_full" else name
+    return (WANT_TRAIN_LAUNCHES if remat_on else WANT_TRAIN_LAUNCHES_NO_REMAT)[path]
+
+
+def drive_remat(card):
+    r"""Rematerialisation (``remat``, ``nn.remat``) on and off, at bench
+    shapes (b=32, 64x64, 5 -> 10, bf16 over f32, Adam) for paths (a) under the
+    cells' ``"gates"`` and ``"full"`` policies, (b), (c) and (h)-(o): the peak
+    card memory of one eager train step above what was live before it
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``) and that
+    step's host time (its builder's first call, after the compiled step's
+    eager call warmed the model up; ending in a read of the loss), the launches
+    of the eager call and of the capture of the compiled step (each held:
+    K1 45 + 45 again on (a) with remat on, 45 off; K2, K3s / K4 and the warp
+    as before; none on (h)-(o)), the graphed step's latency (median of
+    replays, each ending in a read of the loss); ``predict``'s launches on
+    (a)-(c) equal with remat on and off; and in f32 at b=2 under cuDNN's
+    deterministic algorithms the SGD step with remat on against off on (a)
+    under each policy, (b) and (c) (bit-identical parameters; on (c), whose
+    warp backward sums by float atomics, within the SGD gate) and the graphed
+    step under ``"full"`` against the eager one (``drive_graphs`` holds the
+    default policy's)."""
+    import torch
+    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t_phase = time.time()
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
+    batch = {"frames": frames}
+    rows = {}
+    for name in REMAT_PATHS:
+        model = _remat_model(name, False, torch.bfloat16)
+        for remat_on in (False, True):
+            _set_remat(model, remat_on)
+            state = create_train_state(model, lr=LR, seed=SEED)
+            eager = make_train_step(model, run, use_jit=False)
+            graphed = make_train_step(model, run)
+            launches = []
+
+            def counted(step):
+                counters = reset_counts()
+                float(step(state, batch)[1]["total"])     # waits for the card
+                launches.append(read_counts(counters))
+            counted(graphed)         # the compiled step's eager first call (and the warm-up)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            counted(eager)
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+            counted(graphed)         # the capture
+            ms, losses, _ = _time_step(graphed, state, batch, n=REMAT_REPLAYS, warmup=0)
+            want = _want_remat_launches(name, remat_on)
+            check(launches == [want] * 3,
+                  f"{name} remat {remat_on}: the compiled step's eager call, the eager step and "
+                  f"the capture launched {launches}, not {want}")
+            check(all(map(math.isfinite, losses)), f"{name} remat {remat_on}: losses {losses}")
+            rows[(name, remat_on)] = (peak, ms, eager_ms)
+            print(f"[remat] {name} remat {'on ' if remat_on else 'off'} bf16 b={B} {CTX}->{PRED} "
+                  f"at 64x64: peak memory of an eager train step {peak:.3f} GiB above what was "
+                  f"live, its host time {eager_ms:.2f} ms; graphed step {ms:.2f} ms; launches "
+                  f"per eager call and per capture "
+                  + (", ".join(f"{k} {v}" for k, v in want.items() if v) or "none"))
+            del state, eager, graphed
+            torch.cuda.empty_cache()
+        del model
+        (p0, t0, e0), (p1, t1, e1) = rows[(name, False)], rows[(name, True)]
+        print(f"[remat] {name}: remat on against off, peak {p1:.3f} / {p0:.3f} GiB "
+              f"({p1 / p0 - 1:+.1%}), graphed step {t1:.2f} / {t0:.2f} ms ({t1 / t0 - 1:+.1%}), "
+              f"eager step {e1:.2f} / {e0:.2f} ms (one call each) on {card}")
+
+    # predict launches what it launched: remat acts only where a gradient is built
+    for name in PATHS:
+        got = {}
+        for remat_on in (False, True):
+            predict = make_predict_fn(_remat_model(name, remat_on, torch.bfloat16), run,
+                                      use_jit=False)
+            counters = reset_counts()
+            predict(batch)
+            torch.cuda.synchronize()
+            got[remat_on] = read_counts(counters)
+        print(f"[remat] {name} predict launches, remat off / on: "
+              + ", ".join(f"{k} {got[False][k]} / {got[True][k]}" for k in KERNEL_IDS
+                          if got[False][k] or got[True][k]))
+        check(got[False] == got[True] == WANT_PREDICT_LAUNCHES[name],
+              f"{name}: predict launched {got} with remat off / on")
+
+    # f32 b=2: remat on against off, and the graphed step under "full" against eager
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    small = {"frames": frames[:2]}
+    lr = 1e-2
+    for name in ("per_step", "per_step_full", "fused_scan", "trajgru"):
+        deltas = {}
+        for how, remat_on, jit in (("off", False, False), ("on", True, False),
+                                   ("on, graphed", True, True)):
+            if jit and name != "per_step_full":
+                continue
+            model = _remat_model(name, remat_on, torch.float32)
+            p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+            state = create_train_state(model, lr=lr, optimizer="sgd")
+            step = make_train_step(model, run, use_jit=jit)
+            for _ in range(3 if jit else 1):   # graphed: the eager call, the capture, a replay
+                model.load_state_dict(p0, strict=False)
+                loss = float(step(state, small)[1]["total"])
+            deltas[how] = (loss, {k: (p0[k] - v.detach()) / lr
+                                  for k, v in model.named_parameters()})
+        for how in [h for h in deltas if h != "off"]:
+            ref = deltas["on" if how == "on, graphed" else "off"]
+            same = sum(torch.equal(deltas[how][1][k], v) for k, v in ref[1].items())
+            worst, where = _delta_excess(deltas[how][1], ref[1])
+            exact = name != "trajgru"
+            print(f"[remat] {name} f32 b=2 SGD step, remat {how} against "
+                  f"{'eager' if how == 'on, graphed' else 'off'}: loss {deltas[how][0]:.6f} vs "
+                  f"{ref[0]:.6f}; {same} of {len(ref[1])} parameters' (p0-p1)/lr bit-identical; "
+                  f"max(|diff| - rtol*|ref|) {worst:.3g} at {where} "
+                  + ("(must be bit-identical)" if exact else
+                     f"(rtol {STEP_TOL}, must stay <= atol {STEP_TOL}: the warp backward sums "
+                     f"by float atomics)"))
+            if exact:
+                check(same == len(ref[1]) and deltas[how][0] == ref[0],
+                      f"{name}: the f32 step with remat {how} is not bit-identical")
+            else:
+                check(worst <= STEP_TOL and abs(deltas[how][0] - ref[0]) <= 1e-5 * abs(ref[0]),
+                      f"{name}: the f32 step with remat {how} parts from the reference")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"[remat] phase {time.time() - t_phase:.1f} s")
 
 
 def _delta_excess(got, want):

@@ -6,18 +6,21 @@ jaxpr walker (``vp_suite_tpu/utils/flops.py``), traced on the CPU.
 - Each kernel operator's formula, and the formula against the products of the
   operator's plain version where the two compute the same ones.
 - ``predict`` and the train step of every registry model at a small size
-  (b=2, 3 -> 3) against the JAX count of the same model and shapes (the JAX
-  models with ``remat=False``, since the port has no rematerialization). The
+  (b=2, 3 -> 3) against the JAX count of the same model and shapes, both
+  with ``remat=False`` (EF-ConvLSTM's cells checkpoint whatever the model's
+  ``remat`` says, in both packages; their recompute, the gate block's
+  elementwise work, counts 0), and the train step with ``remat=True`` on both
+  sides, whose counts include the backward's recompute in both. The
   two counters differ in how they count a convolution that XLA lowers with
   an input dilation: JAX counts a transposed convolution over its output
   (the zeros of the dilated input included), and the input gradient of a
   strided convolution over the gradient dilated by the stride; PyTorch's
   counter counts both over the undilated tensor. :func:`count_as_jax` counts
   the port's call with JAX's convention for those; the rest of each
-  difference is named in :data:`DIFFERENCES`, and computed where a part of
-  the JAX package alone accounts for it.
+  difference is named in :data:`DIFFERENCES` (and, with ``remat``, in
+  :data:`REMAT_DIFFERENCES`), and computed where a part of the JAX package
+  alone accounts for it.
 """
-import dataclasses
 import functools
 import math
 
@@ -221,10 +224,10 @@ def _frames(img_shape):
 
 
 @functools.cache
-def _port_counts(name):
+def _port_counts(name, remat=False):
     model_id, kw = MODELS[name]
     kw = {**BASE, **kw}
-    model = build_model(model_id, 0, "cpu", **kw)
+    model = build_model(model_id, 0, "cpu", remat=remat, **kw)
     batch = {"frames": torch.from_numpy(_frames(kw["img_shape"])),
              "actions": torch.zeros(B, CTX + PRED, 1)}
     predict = make_predict_fn(model, RUN_CONFIG)
@@ -237,13 +240,11 @@ def _port_counts(name):
 
 
 @functools.cache
-def _jax_counts(name):
+def _jax_counts(name, remat=False):
     r"""The JAX counts of ``predict`` and the train step, traced on abstract
     parameters (``jax.eval_shape`` of the state: nothing is initialised)."""
     model_id, kw = MODELS[name]
-    kw = {**BASE, **kw}
-    if "remat" in {f.name for f in dataclasses.fields(JAX_MODELS[model_id])}:
-        kw["remat"] = False
+    kw = {**BASE, **kw, "remat": remat}
     model = JAX_MODELS[model_id](**kw)
     optimizer = optax.adam(1e-4)
     state = jax.eval_shape(lambda: jax_create_train_state(
@@ -327,6 +328,35 @@ DIFFERENCES = {
     ("st-phy", "train"): (lambda: 4036096, "the first scan step's gradients (ST-Phy's dead "
                           "layers, trap v, are skipped by both counts' products)"),
 }
+
+
+#: ``model -> (what the JAX train step's recompute counts beyond the port's with remat on
+#: both sides, the cause)``, beyond the model's entry in :data:`DIFFERENCES`. Elsewhere the
+#: two recomputes count the same products.
+REMAT_DIFFERENCES = {
+    "phy": (39591936, "the JAX step encodes each context frame inside its checkpointed step, "
+                      "so its backward encodes them again; the port encodes the context in "
+                      "one batch before its steps"),
+    "st-phy": (1209200640, "the JAX step decodes each step's frame inside its checkpointed "
+                           "step, so its backward decodes them again; the port decodes the "
+                           "latents in one batch after its steps"),
+}
+
+
+@pytest.mark.parametrize("name", [n for n in MODELS if n != "copy"])
+def test_train_counts_with_remat_match_jax(name):
+    r"""Both train steps with ``remat=True``: each count includes its
+    backward's recompute, and they differ by the entries of
+    :data:`DIFFERENCES` and :data:`REMAT_DIFFERENCES`; the port's recompute
+    adds products wherever JAX's does."""
+    _, as_jax = _port_counts(name, True)["train"]
+    want = _jax_counts(name, True)["train"]
+    extra = DIFFERENCES.get((name, "train"), (lambda: 0, "none"))[0]()
+    recompute, cause = REMAT_DIFFERENCES.get(name, (0, "none"))
+    assert want - as_jax == extra + recompute, f"{name}: {cause}"
+    port_rise = as_jax - _port_counts(name)["train"][1]
+    jax_rise = want - _jax_counts(name)["train"]
+    assert port_rise == jax_rise - recompute and (port_rise > 0) == (jax_rise > 0)
 
 
 @pytest.mark.parametrize("name", list(MODELS))

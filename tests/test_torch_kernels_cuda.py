@@ -311,14 +311,15 @@ def test_sgd_step_on_the_card_matches_the_cpu(cuda, cfg):
 
 
 @pytest.mark.parametrize("cfg,want", [
-    ({}, dict(K1=3 * 15, K2=15)),
+    ({}, dict(K1=4 * 15, K2=15)),
     (dict(use_fused_scan=True, interleaved_encode=False, interleaved_forecast=False),
      dict(K3=2 * 6, K3s=6, K4=6))], ids=["per_step", "fused_scan"])
 def test_facade_train_on_the_card_launches_the_kernels(cuda, tmp_path, cfg, want):
     r"""One device-backend ``VPSuite.train`` step (b=2, 3 -> 2 frames, so 15
     cell steps per forward) and its validation over two batches: exactly the
     train step's K1 + K2 (or K3s + K4) and each validation forward's K1 (or
-    K3), and no other kernel."""
+    K3), and no other kernel. The per-step cells' default ``remat_policy``
+    (``"gates"``) launches K1 again in the train step's backward: 15 + 15."""
     suite = VPSuite()
     suite.load_dataset("MMF", img_size=16, digit_source="synthetic", backend="device",
                        n_seqs={"train": 8, "val": 4, "test": 4})

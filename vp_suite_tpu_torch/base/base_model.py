@@ -6,6 +6,13 @@ unknown names, as the JAX package's dataclass fields do. Parameters are
 created by the subclass constructor and initialised by
 :meth:`VPModel.reset_parameters` from a ``torch.Generator``, so a model's
 initial weights depend on its seed alone. Tensors are ``[b, t, h, w, c]``.
+
+``remat`` (default True, as in the JAX package) checkpoints the models'
+recurrent steps and blocks under training (:mod:`vp_suite_tpu_torch.nn.remat`,
+the counterpart of ``jax.checkpoint``); UNet-3D and CopyLastFrame accept it
+and change nothing, as in the JAX package. The JAX package's ``scan_unroll``
+and ``use_pallas`` are refused as unknown: eager PyTorch has no loop to
+unroll, and the port has one gate path (its kernels on CUDA tensors).
 """
 import torch
 from torch import nn
@@ -32,6 +39,7 @@ class VPModel(nn.Module):
     tensor_value_range = (0.0, 1.0)
     action_conditional = False
     compute_dtype = torch.float32   #: torch.bfloat16 for bf16 activations over f32 params.
+    remat = True                    #: checkpoint recurrent steps and blocks under training
 
     def __init__(self, **hparams):
         super().__init__()

@@ -4,15 +4,22 @@ r"""The ndrplz ConvLSTM cell (the JAX package's
 K1/K3 compute, is another function (peepholes, another gate order), so this
 cell runs on cuDNN's conv and elementwise launches.
 
+The cell's gate pre-activations are named ``"convlstm_gates"``
+(``nn.remat.named``), as in PhyDNet's JAX step, so that a step checkpointed
+with that name keeps them.
+
 ``ConvLSTMNdrplz`` stacks such cells over a sequence, layer by layer: each
 layer runs the whole sequence that the layer below it produced, with the
 input half of its gate conv (the weight's first ``in`` input channels) run
-once over all steps, and only the hidden half inside the time loop.
+once over all steps, and only the hidden half inside the time loop. Its
+``remat`` (default True, the JAX block's) checkpoints each step under
+training, whole (``conv_lstm_ndrplz.py:125-126``).
 """
 import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.functional import conv2d
 from vp_suite_tpu_torch.nn.layers import Conv2d
 
@@ -43,7 +50,8 @@ class ConvLSTMCellNdrplz(VPModelBlock):
         r"""``x`` ``[b, h, w, in]``, ``state`` ``(h, c)`` each ``[b, h, w,
         hid]`` -> ``(h_new, c_new)``."""
         h, c = state
-        return convlstm_ndrplz_gates(self.conv(torch.cat([x, h], dim=-1)), c)
+        gates = remat.named("convlstm_gates", self.conv, torch.cat([x, h], dim=-1))
+        return convlstm_ndrplz_gates(gates, c)
 
 
 class ConvLSTMNdrplz(VPModelBlock):
@@ -55,8 +63,9 @@ class ConvLSTMNdrplz(VPModelBlock):
     MATCHES_REFERENCE = "Yes (Code Reference)"
 
     def __init__(self, input_dim, hidden_dim, kernel_size, num_layers, batch_first=False,
-                 bias=True, return_all_layers=False):
+                 bias=True, return_all_layers=False, remat=True):
         super().__init__()
+        self.remat = remat
         hidden_dims = [hidden_dim] * num_layers if isinstance(hidden_dim, int) \
             else list(hidden_dim)
         kernel_sizes = [kernel_size] * num_layers if isinstance(kernel_size[0], int) \
@@ -87,9 +96,13 @@ class ConvLSTMNdrplz(VPModelBlock):
             h_weight = conv.weight[:, in_dim:]
             h = c = cur.new_zeros((b, *cur.shape[2:4], h_weight.shape[1]))
             outs = []
-            for step in range(t):
-                h, c = convlstm_ndrplz_gates(
-                    i2h[:, step] + conv2d(h, h_weight, None, 1, conv.padding), c)
+
+            def step(h, c, x, h_weight=h_weight, padding=conv.padding):
+                return convlstm_ndrplz_gates(x + conv2d(h, h_weight, None, 1, padding), c)
+
+            for s in range(t):
+                h, c = remat.checkpoint(step, h, c, i2h[:, s]) if self.remat \
+                    else step(h, c, i2h[:, s])
                 outs.append(h)
             cur = torch.stack(outs, dim=1)
             layer_outputs.append(cur)

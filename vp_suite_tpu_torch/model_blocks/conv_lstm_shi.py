@@ -17,14 +17,31 @@ whole recurrence as one launch of
 :func:`vp_suite_tpu_torch.ops.convlstm.convlstm_scan_fused` (for 3x3,
 stride-1, padding-1 cells whose input half is hoisted or absent; K3 forward,
 K3s and K4 under training). Both paths train through the kernels' autograd
-Functions; the per-step path's backward (autograd over the cuDNN convs and
-the K2 Function) is the counterpart of the JAX package's hand-written
-recurrence VJP (``ops/scan_vjp.py``, ``remat_policy="scan_vjp"``). The JAX
-block's ``remat``, ``remat_policy`` and ``scan_unroll`` steer XLA's
-rematerialisation and loop unrolling; eager PyTorch has nothing they would
-steer, so they have no counterpart. The block is time-major
-(``[t, b, ...]``), the JAX block's ``time_major=True``: the Encoder-Forecaster
-stack, its only user, runs time-major end to end.
+Functions.
+
+``remat`` and ``remat_policy`` are the JAX block's, with its branches
+(``conv_lstm_shi.py:147-205``), as activation checkpointing
+(:mod:`vp_suite_tpu_torch.nn.remat`) of the per-step path; the fused path
+takes none (its kernels keep K3s's residuals, as in JAX):
+
+- ``"scan_vjp"`` where the input half is hoisted or absent (decode): no
+  checkpoint; the per-step autograd over the cuDNN convs and the K2 Function
+  is the counterpart of JAX's hand-written recurrence VJP
+  (``ops/scan_vjp.py``). With raw inputs (``hoist_i2h=False`` and inputs on
+  the state's grid) JAX checkpoints the whole step, and so does the port;
+- ``"gates"`` keeps each step's gate pre-activations (after the tensor-
+  parallel gather) besides its inputs: the gate conv is not run again, K1 is
+  (a checkpoint of the gate block alone, so that the backward relaunches K1
+  for ``c'``), and with raw inputs the conv keeps ``x_t`` and ``h`` and builds
+  its input ``[x_t, h]`` again in the backward
+  (:func:`~vp_suite_tpu_torch.nn.remat.recompute_saved`);
+- any other policy checkpoints the whole step: the backward runs the gate
+  conv, the gather and K1 again.
+
+The JAX block's ``use_pallas`` and ``scan_unroll`` have no counterpart: the
+port has one gate path, and eager PyTorch has no loop to unroll. The block
+is time-major (``[t, b, ...]``), the JAX block's ``time_major=True``: the
+Encoder-Forecaster stack, its only user, runs time-major end to end.
 
 Parameters keep the reference vp-suite's names and layouts: ``_conv``
 (weight ``[4enc, in+enc, k, k]``, bias ``[4enc]``) and the peepholes
@@ -49,10 +66,13 @@ K3s / K4 on the whole image on every ``sp`` process and takes its rows of
 the result back (as the JAX package's partitioner gathers around its Pallas
 scan); the gather's backward sums the processes' cotangents.
 """
+import contextlib
+
 import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.functional import conv2d
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.cells import convlstm_gate_fuse
@@ -69,7 +89,8 @@ class ConvLSTMShi(VPModelBlock):
 
     def __init__(self, in_channels: int, enc_channels: int, state_h: int, state_w: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 use_fused_scan: bool = False, hoist_i2h: bool = True):
+                 use_fused_scan: bool = False, hoist_i2h: bool = True, remat: bool = True,
+                 remat_policy: str = "gates"):
         super().__init__()
         self.in_channels = in_channels
         self.enc_channels = enc_channels
@@ -77,6 +98,8 @@ class ConvLSTMShi(VPModelBlock):
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.use_fused_scan = use_fused_scan  #: whole recurrence in one kernel launch
         self.hoist_i2h = hoist_i2h            #: batch the input-half conv over time
+        self.remat = remat                    #: checkpoint the per-step path's steps
+        self.remat_policy = remat_policy      #: "gates", "scan_vjp" or any other ("full")
         self._conv = Conv2d(in_channels + enc_channels, 4 * enc_channels, kernel_size,
                             stride, padding)
         shape = (1, enc_channels, state_h, state_w)
@@ -165,20 +188,39 @@ class ConvLSTMShi(VPModelBlock):
                 outputs = spatial.own_rows(outputs, 2, *sp)
                 h_last, c_last = spatial.own_rows(h_last, 1, *sp), spatial.own_rows(c_last, 1, *sp)
         else:
-            wci, wcf, wco = (p[rows].contiguous() for p in (wci, wcf, wco))
+            peep = tuple(p[rows].contiguous() for p in (wci, wcf, wco))
+            policy = self.remat_policy if self.remat else None
+            if policy == "scan_vjp" and not raw_xs:
+                policy = None
+
+            def cat(x, h):
+                return torch.cat([x, h], dim=-1)
+
+            def step(h, c, x):
+                if raw_xs:
+                    xh = cat(x, h)
+                    with remat.recompute_saved(xh, cat, x, h) if policy == "gates" \
+                            else contextlib.nullcontext():
+                        gates = conv2d(xh, weight, bias, self.stride, self.padding,
+                                       gather_output=False)
+                else:
+                    gates = conv2d(h, h_weight, bias if x is None else None, self.stride,
+                                   self.padding, gather_output=False)
+                    gates = gates if x is None else x + gates
+                if spec is not None:
+                    gates = gather(gates, spec, -1)
+                if policy == "gates":
+                    return remat.checkpoint(convlstm_gate_fuse, gates, c, *peep)
+                return convlstm_gate_fuse(gates, c, *peep)
+
             h, c = h0, c0
             outs = []
             for t in range(seq_len):
-                if raw_xs:
-                    gates = conv2d(torch.cat([i2h_t[t], h], dim=-1), weight, bias,
-                                   self.stride, self.padding)
+                x = None if i2h_t is None else i2h_t[t]
+                if policy in (None, "gates"):
+                    h, c = step(h, c, x)
                 else:
-                    conv_h = conv2d(h, h_weight, bias if i2h_t is None else None,
-                                    self.stride, self.padding, gather_output=False)
-                    gates = conv_h if i2h_t is None else i2h_t[t] + conv_h
-                    if spec is not None:
-                        gates = gather(gates, spec, -1)
-                h, c = convlstm_gate_fuse(gates, c, wci, wcf, wco)
+                    h, c = remat.checkpoint(step, h, c, x)
                 outs.append(h)
             outputs, h_last, c_last = torch.stack(outs), h, c
         return outputs, (h_last, c_last)

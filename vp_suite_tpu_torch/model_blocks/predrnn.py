@@ -9,11 +9,16 @@ cell's convs have no bias; the action-conditional cell's have one, and its
 ``layer_norm``, each gate conv is followed by ``LayerNorm([c, h, w])``. The
 parameters keep the reference's names: ``conv_x.0`` (and ``conv_x.1``, the
 LayerNorm), ``conv_h``, ``conv_a``, ``conv_m``, ``conv_o``, ``conv_last``.
+
+The three gate pre-activations (after their LayerNorms) are named
+``"st_gates"`` (``nn.remat.named``), as in the JAX cell, so that a model step
+checkpointed with that name keeps them.
 """
 import torch
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
+from vp_suite_tpu_torch.nn.remat import named
 from vp_suite_tpu_torch.nn.layers import Conv2d, LayerNormCHW
 
 
@@ -47,12 +52,14 @@ class SpatioTemporalLSTMCell(VPModelBlock):
         r"""One step on ``[b, h, w, ch]`` tensors; returns ``(h, c, m, delta_c,
         delta_m)``, the deltas for the decoupling loss."""
         nh, fb = self.num_hidden, self.FORGET_BIAS
-        i_x, f_x, g_x, i_xp, f_xp, g_xp, o_x = torch.split(self.conv_x(x), nh, dim=-1)
-        h_concat = self.conv_h(h)
+        x_concat = named("st_gates", self.conv_x, x)
+        h_concat = named("st_gates", self.conv_h, h)
+        m_concat = named("st_gates", self.conv_m, m)
+        i_x, f_x, g_x, i_xp, f_xp, g_xp, o_x = torch.split(x_concat, nh, dim=-1)
         if self.action_conditional:
             h_concat = h_concat * self.conv_a(a)
         i_h, f_h, g_h, o_h = torch.split(h_concat, nh, dim=-1)
-        i_m, f_m, g_m = torch.split(self.conv_m(m), nh, dim=-1)
+        i_m, f_m, g_m = torch.split(m_concat, nh, dim=-1)
 
         delta_c = torch.sigmoid(i_x + i_h) * torch.tanh(g_x + g_h)
         c_new = torch.sigmoid(f_x + f_h + fb) * c + delta_c

@@ -23,9 +23,17 @@ is inert): with probability ``zoneout`` per step, item and channel the block
 keeps its previous hidden state. The keep masks ``[t, b, 1, 1, enc]`` are
 passed in or drawn from ``generator`` (an explicit ``torch.Generator``;
 zoneout > 0 without either raises, as the JAX block needs its ``zoneout`` rng).
-The default is 0.0, as in every configuration. The JAX block's ``remat`` and
-``scan_unroll`` steer XLA and have no counterpart in eager PyTorch; the warp
-tensor is saved under autograd as its remat policy saves it.
+The default is 0.0, as in every configuration.
+
+``remat`` (the JAX block's, default True) checkpoints each step under
+training (:mod:`vp_suite_tpu_torch.nn.remat`) with the JAX block's policy
+(``traj_gru.py:124-131, 182-189``): autograd keeps the step's inputs, its
+flows (``"trajgru_flows"``) and the warp tensor (``"warp_ret_warped"``), so
+the backward launches neither the flow conv nor the warp forward again; it
+runs the flow net's first conv, the flows' indices, the ``ret`` GEMM and the
+gate math again. The keep masks are drawn before the loop, outside the
+steps. The JAX block's ``scan_unroll`` has no counterpart: eager PyTorch has
+no loop to unroll.
 
 Parameters keep the reference vp-suite's names: ``i2h``, ``i2f_conv1``,
 ``h2f_conv1``, ``flows_conv`` and ``ret``, torch-layout convs. f32
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.grid_sample import warp_flow_ret
 
@@ -60,7 +69,7 @@ class TrajGRU(VPModelBlock):
     def __init__(self, in_channels: int, enc_channels: int, state_h: int, state_w: int,
                  zoneout: float = 0.0, L: int = 5, i2h_kernel=(3, 3), i2h_stride=(1, 1),
                  i2h_pad=(1, 1), h2h_kernel=(5, 5), h2h_dilate=(1, 1), act_slope: float = 0.2,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = True):
         super().__init__()
         f = enc_channels
         self.in_channels, self.enc_channels = in_channels, enc_channels
@@ -69,6 +78,7 @@ class TrajGRU(VPModelBlock):
         self.i2h_kernel, self.i2h_stride, self.i2h_pad = i2h_kernel, i2h_stride, i2h_pad
         self.h2h_kernel, self.h2h_dilate = h2h_kernel, h2h_dilate
         self.generator = generator  #: draws the zoneout masks that the caller does not pass
+        self.remat = remat          #: checkpoint each step under training
         self.sh, self.sw = conv_rnn_state_size(state_h, state_w, i2h_kernel, i2h_stride, i2h_pad)
         pad = FLOW_KERNEL // 2
         self.i2h = Conv2d(in_channels, 3 * f, i2h_kernel, i2h_stride, i2h_pad)
@@ -118,16 +128,17 @@ class TrajGRU(VPModelBlock):
         # ret's kernel [3f, L*f, 1, 1] as the GEMM operand [L*f, 3f]; input
         # channel l*f + k is channel k of warp l, the warps' flattened order
         ret_w = self.ret.weight.view(3 * f, self.L * f).t()
-        h, outs = states, []
-        for t in range(seq_len):
+
+        def step(h, i2h_t, i2f_t, mask):
             f_conv1 = self.h2f_conv1(h)
-            if inputs is not None:
-                f_conv1 = f_conv1 + i2f[t]
-            flows = self.flows_conv(self._act(f_conv1))          # [b, sh, sw, 2L]
+            if i2f_t is not None:
+                f_conv1 = f_conv1 + i2f_t
+            flows = remat.named("trajgru_flows", self.flows_conv,
+                                self._act(f_conv1))                  # [b, sh, sw, 2L]
             h2h = warp_flow_ret(h, -flows, ret_w, self.ret.bias)  # [b, sh, sw, 3f]
             hr, hu, hm = h2h.chunk(3, dim=-1)
-            if inputs is not None:
-                ir, iu, im = i2h[t].chunk(3, dim=-1)
+            if i2h_t is not None:
+                ir, iu, im = i2h_t.chunk(3, dim=-1)
                 reset = torch.sigmoid(ir + hr)
                 update = torch.sigmoid(iu + hu)
                 new_mem = self._act(im + reset * hm)
@@ -136,8 +147,16 @@ class TrajGRU(VPModelBlock):
                 update = torch.sigmoid(hu)
                 new_mem = self._act(reset * hm)
             next_h = update * h + (1.0 - update) * new_mem
-            if zoneout_masks is not None:
-                next_h = torch.where(zoneout_masks[t], h, next_h)
-            outs.append(next_h)
-            h = next_h
+            return next_h if mask is None else torch.where(mask, h, next_h)
+
+        h, outs = states, []
+        for t in range(seq_len):
+            xs = (None, None) if inputs is None else (i2h[t], i2f[t])
+            mask = None if zoneout_masks is None else zoneout_masks[t]
+            if self.remat:
+                h = remat.checkpoint(step, h, *xs, mask,
+                                     saved=("trajgru_flows", "warp_ret_warped"))
+            else:
+                h = step(h, *xs, mask)
+            outs.append(h)
         return torch.stack(outs), h

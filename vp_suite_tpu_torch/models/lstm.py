@@ -18,6 +18,10 @@ parameters ``weight_ih`` ``[4h, in]``, ``weight_hh``, ``bias_ih``,
 their parameters cast at use, as the JAX package does. The flattened code
 is ``(h, w, c)``-major, the JAX package's layout, so ``to_linear``'s and
 ``from_linear``'s weights are the JAX kernels transposed.
+
+``remat`` checkpoints each autoregressive step (encode, cells, decode) under
+training, as the JAX model checkpoints its ``ar_body`` (``lstm.py:178-179``);
+the warm-up over the context is not checkpointed, as in JAX.
 """
 import math
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
 from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, Dense
 from vp_suite_tpu_torch.ops.image import resize_bilinear
@@ -137,7 +142,17 @@ class LSTM(VPModel):
                                 actions[:, step] if self.action_conditional else None)
         preds = [self._decode(states[-1][0])]
         for step in range(t, t + pred_frames - 1):
-            states = self._step(states, self._encode(preds[-1]),
-                                actions[:, step] if self.action_conditional else None)
-            preds.append(self._decode(states[-1][0]))
+            action = actions[:, step] if self.action_conditional else None
+            if self.remat:
+                states, pred = remat.checkpoint(self._ar_step, states, preds[-1], action)
+            else:
+                states, pred = self._ar_step(states, preds[-1], action)
+            preds.append(pred)
         return torch.stack(preds, dim=1), None
+
+    def _ar_step(self, states, prev, action):
+        r"""One autoregressive step: encode the previous prediction, step the
+        cells, decode; returns the new states and the prediction (JAX's
+        ``ar_body``, the region that ``remat`` checkpoints)."""
+        states = self._step(states, self._encode(prev), action)
+        return states, self._decode(states[-1][0])

@@ -15,7 +15,9 @@ The model has no dtype of its own: it computes in its input's dtype (the
 train step casts the input to ``compute_dtype``), so under bf16 the gates,
 ``1 - f`` and the recurrence run in bf16, as in the JAX package. Parameters:
 ``enc1``, ``enc2``, ``layers.{i}.f`` / ``.g`` / ``.out``, ``dec1``, ``dec2``
-(torch layouts).
+(torch layouts). ``remat`` checkpoints each step of the rollout under
+training, as the JAX model does (``min_conv_rnn.py:146-147``); the context
+scan is not checkpointed.
 
 ``context_mesh`` (a ``DeviceMesh`` with a ``seq`` axis, as in the JAX
 package) shards each layer's context scan over ``seq``
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
 
 
@@ -129,11 +132,20 @@ class MinConvRNN(VPModel):
         frame = self._decode(z[-1])
         preds = [frame]
         for _ in range(pred_frames - 1):
-            zz = self._encode(frame)
-            for i, layer in enumerate(self.layers):
-                f, u = layer.gates(zz)
-                hs[i] = f * hs[i] + u
-                zz = zz + layer.out(hs[i])
-            frame = self._decode(zz)
+            if self.remat:
+                hs, frame = remat.checkpoint(self._ar_step, hs, frame)
+            else:
+                hs, frame = self._ar_step(hs, frame)
             preds.append(frame)
         return torch.stack(preds, dim=1), None
+
+    def _ar_step(self, hs, frame):
+        r"""One step of every layer on the encoded previous frame; returns the
+        new states and the next frame (JAX's ``step``, the region that
+        ``remat`` checkpoints)."""
+        zz, new = self._encode(frame), []
+        for h, layer in zip(hs, self.layers):
+            f, u = layer.gates(zz)
+            new.append(f * h + u)
+            zz = zz + layer.out(new[-1])
+        return new, self._decode(zz)

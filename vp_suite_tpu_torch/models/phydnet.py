@@ -23,8 +23,13 @@ action convs. ``decoder_D`` ends in ``ops.image.resize_bilinear`` to the
 image size, which is the identity wherever the model runs: the encoder
 keeps ``h // 4`` only where ``h`` is a multiple of 4, and at other sizes the
 branch states, made at ``h // 4``, do not fit its output (the JAX model
-fails alike). The JAX package's ``remat`` and ``scan_unroll`` have no
-counterpart.
+fails alike). ``remat`` checkpoints each step under training with the JAX
+model's policy (``phydnet.py:133-136, 177-180``): the ConvLSTM cells' gate
+pre-activations (``"convlstm_gates"``) are kept with the step's inputs, and
+the rest of the step (the encoding of a frame after the context, both
+branches, the decoding) runs again in the backward; the teacher-forcing coin
+is drawn outside. The JAX package's ``scan_unroll`` has no counterpart:
+eager PyTorch has no loop to unroll.
 """
 import torch
 from torch import nn
@@ -35,6 +40,7 @@ from vp_suite_tpu_torch.model_blocks.enc import (DCGANDecoder, DCGANEncoder, Dec
                                                  EncoderSplit)
 from vp_suite_tpu_torch.model_blocks.phydnet import (PhyCell, inflate_action, k2m_matrices,
                                                      moment_constraints, moment_loss)
+from vp_suite_tpu_torch.nn import remat
 
 
 class _CellList(nn.Module):
@@ -115,6 +121,19 @@ class PhyDNet(VPModel):
     def _decode(self, phy, conv):
         return torch.sigmoid(self.decoder_D(self.decoder_Dp(phy) + self.decoder_Dr(conv)))
 
+    def _step(self, carry, inputs, action, decode):
+        r"""One step: ``inputs`` are the context's encodings ``(phys, conv)``,
+        a frame ``(frame,)`` or its blend ``(x_t, out, g)``; returns the new
+        PhyCell states, ConvLSTM ``h`` and ``c`` and, where ``decode``, the
+        decoded frame (JAX's ``step``, the region that ``remat``
+        checkpoints)."""
+        if len(inputs) == 3:
+            x_t, out, g = inputs
+            inputs = (g * x_t + (1 - g) * out,)
+        inp_phys, inp_conv = inputs if len(inputs) == 2 else self._encode(inputs[0])
+        phy_h, conv_h, conv_c = self._recur(inp_phys, inp_conv, action, *carry)
+        return phy_h, conv_h, conv_c, self._decode(phy_h[-1], conv_h[-1]) if decode else None
+
     def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False,
                 teacher_forcing=False, **kwargs):
         r"""``x`` ``[b, t, h, w, c]`` (in train mode context and targets, else
@@ -143,18 +162,21 @@ class PhyDNet(VPModel):
         out, outs = None, []     # a step after the context reads the one before it
         for step in range(n_steps):
             if step < ctx:
-                inp_phys, inp_conv = ctx_phys[step], ctx_conv[step]
+                inputs = (ctx_phys[step], ctx_conv[step])
+            elif torch.is_tensor(g) or g not in (0, 1):
+                inputs = (x[:, step], out, g)
             else:
-                if torch.is_tensor(g) or g not in (0, 1):
-                    frame = g * x[:, step] + (1 - g) * out
-                else:
-                    frame = x[:, step] if g else out
-                inp_phys, inp_conv = self._encode(frame)
+                inputs = (x[:, step] if g else out,)
             action = actions[:, step] if self.action_conditional else None
-            phy_h, conv_h, conv_c = self._recur(inp_phys, inp_conv, action, phy_h, conv_h,
-                                                conv_c)
-            if step >= first_decoded:
-                out = self._decode(phy_h[-1], conv_h[-1])
+            carry = (phy_h, conv_h, conv_c)
+            decode = step >= first_decoded
+            if self.remat:
+                phy_h, conv_h, conv_c, new = remat.checkpoint(
+                    self._step, carry, inputs, action, decode, saved=("convlstm_gates",))
+            else:
+                phy_h, conv_h, conv_c, new = self._step(carry, inputs, action, decode)
+            if decode:
+                out = new
                 outs.append(out)
         preds = torch.stack(outs, dim=1)
         if not train:

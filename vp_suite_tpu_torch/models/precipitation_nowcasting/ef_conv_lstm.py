@@ -2,8 +2,12 @@ r"""EF-ConvLSTM (Shi et al.): the Encoder-Forecaster stack with Shi ConvLSTM
 blocks and the reference vp-suite's default hyperparameters (intended for
 64x64 inputs; hidden states 64x64x64, 32x32x96 and 16x16x96).
 
-The JAX package's ``use_pallas``, ``remat_policy`` and ``scan_unroll`` have no
-counterpart (see :mod:`vp_suite_tpu_torch.model_blocks.conv_lstm_shi`).
+``remat_policy`` goes to every cell, as in the JAX package; the model's
+``remat`` does not: the JAX model never passes it to its cells
+(``ef_conv_lstm.py:78-99``), so the cells checkpoint by their own default
+(True) whatever the model's says. The JAX package's ``use_pallas`` and
+``scan_unroll`` have no counterpart (see
+:mod:`vp_suite_tpu_torch.model_blocks.conv_lstm_shi`).
 """
 from vp_suite_tpu_torch.model_blocks.conv_lstm_shi import ConvLSTMShi
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_blocks import EncoderForecasterBase
@@ -50,11 +54,13 @@ class EF_ConvLSTM(EncoderForecasterBase):
 
     use_fused_scan = False  #: run each cell's whole recurrence as one CUDA kernel launch
     hoist_i2h = False       #: batch the cells' input-half convs over time
+    remat_policy = "gates"  #: the cells' checkpoint policy ("gates", "scan_vjp", "full")
 
     def _build_encoder_decoder(self):
         r"""Conv specs and ConvLSTM blocks per stage (reference
         ``ef_conv_lstm.py:70-108``)."""
-        cell_kw = dict(use_fused_scan=self.use_fused_scan, hoist_i2h=self.hoist_i2h)
+        cell_kw = dict(use_fused_scan=self.use_fused_scan, hoist_i2h=self.hoist_i2h,
+                       remat_policy=self.remat_policy)
         layer_in_c = self.img_c
         enc_convs, enc_rnns = [], []
         for n in range(self.num_layers):

@@ -5,9 +5,10 @@ block).
 
 The blocks' state is one tensor ``h``, where EF-ConvLSTM's is ``(h, c)``; the
 stack in :mod:`~vp_suite_tpu_torch.models.precipitation_nowcasting.ef_blocks`
-passes states through as they come. The JAX package's ``remat`` and
-``scan_unroll`` have no counterpart (see
-:mod:`vp_suite_tpu_torch.model_blocks.traj_gru`).
+passes states through as they come. The model's ``remat`` goes to every
+block, as in the JAX package (see
+:mod:`vp_suite_tpu_torch.model_blocks.traj_gru`); its ``scan_unroll`` has no
+counterpart.
 """
 from vp_suite_tpu_torch.model_blocks.traj_gru import TrajGRU
 from vp_suite_tpu_torch.models.precipitation_nowcasting.ef_blocks import EncoderForecasterBase
@@ -69,7 +70,7 @@ class EF_TrajGRU(EncoderForecasterBase):
         return TrajGRU(in_channels=in_c, enc_channels=enc_c, state_h=state_h, state_w=state_w,
                        zoneout=p("z"), L=p("L"), i2h_kernel=p("i2h_k"), i2h_stride=p("i2h_s"),
                        i2h_pad=p("i2h_p"), h2h_kernel=p("h2h_k"), h2h_dilate=p("h2h_d"),
-                       act_slope=self.act_slope)
+                       act_slope=self.act_slope, remat=self.remat)
 
     def _build_encoder_decoder(self):
         r"""Conv specs and TrajGRU blocks per stage (reference

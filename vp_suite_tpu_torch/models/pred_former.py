@@ -18,14 +18,16 @@ The layers are flax's (:mod:`~vp_suite_tpu_torch.model_blocks.transformer`:
 LayerNorm with epsilon 1e-6 and f32 statistics, lecun-normal Dense,
 attention with the query scaled before the product and the softmax in the
 compute dtype); GELU is the tanh approximation (``jax.nn.gelu``'s default).
-Every layer computes in ``compute_dtype``; the output is f32. The JAX
-package's ``remat`` has no counterpart.
+Every layer computes in ``compute_dtype``; the output is f32. ``remat``
+checkpoints each block under training, as the JAX model wraps each in
+``nn.remat`` (``pred_former.py:102``).
 """
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.model_blocks.transformer import (LayerNorm, LecunDense,
                                                          MultiHeadDotProductAttention)
 
@@ -95,7 +97,7 @@ class PredFormer(VPModel):
         c, ih, iw = self.img_shape
         z = window + self.pos_spatial.to(dt) + self.pos_temporal[:, :window.shape[1]].to(dt)
         for block in self.blocks:
-            z = block(z)
+            z = remat.checkpoint(block, z) if self.remat else block(z)
         y = self.head(self.ln_out(z[:, -1]))                          # [b, n, p*p*c]
         y = y.reshape(-1, ih // p, iw // p, p, p, c).transpose(2, 3)
         return y.reshape(-1, ih, iw, c)

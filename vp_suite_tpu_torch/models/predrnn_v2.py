@@ -19,8 +19,12 @@ With ``action_conditional`` (which forces ``conv_actions_on_input`` and
 reverse scheduled sampling, as in the reference), two strided convs embed
 the frame patches and the actions before the cells and two transposed convs
 (with residuals from the input convs when ``residual_on_action_conv``) map
-back. The time loop is a Python loop; the JAX package's ``remat`` and
-``scan_unroll`` have no counterpart.
+back. The time loop is a Python loop. ``remat`` checkpoints each time step
+under training with the JAX model's policy (``predrnn_v2.py:294-296``): the
+cells' gate pre-activations (``"st_gates"``) are kept with the step's
+inputs, and the rest of the step runs again in the backward; the masks are
+drawn before the loop. The JAX package's ``scan_unroll`` has no
+counterpart: eager PyTorch has no loop to unroll.
 """
 import math
 
@@ -30,6 +34,7 @@ from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
 from vp_suite_tpu_torch.model_blocks.predrnn import SpatioTemporalLSTMCell
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
 from vp_suite_tpu_torch.ops.patch import patchify, unpatchify
 from vp_suite_tpu_torch.utils.models import conv_output_shape
@@ -182,6 +187,35 @@ class PredRNN_V2(VPModel):
         v = v.reshape(v.shape[0], -1, v.shape[-1])                 # [b, hw, c]
         return v / v.square().sum(dim=1, keepdim=True).sqrt().clamp_min(1e-12)
 
+    def _step(self, carry, inputs):
+        r"""One time step: ``carry`` ``(h, c, memory, x_gen, decoupling sum)``
+        and ``inputs`` ``(frame patches, mask, action patches or None)`` ->
+        the new carry (JAX's ``step``, the region that ``remat``
+        checkpoints)."""
+        h_t, c_t, memory, x_gen, dl_sum = carry
+        x_t, m_t, a_t = inputs
+        h_t, c_t = list(h_t), list(c_t)
+        ac = self.action_conditional
+        net = m_t * x_t + (1.0 - m_t) * x_gen
+        action = None
+        if ac:
+            input_net1 = self.conv_input1(net)
+            net = input_net2 = self.conv_input2(input_net1)
+            action = self.action_conv_input2(self.action_conv_input1(a_t))
+        for i, cell in enumerate(self.cell_list):
+            h_t[i], c_t[i], memory, dc, dm = cell(net, h_t[i], c_t[i], memory, action)
+            cos = (self._normalized_adapter(dc) * self._normalized_adapter(dm)).sum(dim=1)
+            dl_sum = dl_sum + cos.abs().mean()
+            net = h_t[i]
+        if ac and self.residual_on_action_conv:
+            y = self.deconv_output1(h_t[-1] + input_net2)
+            x_gen = self.deconv_output2(y + input_net1)
+        elif ac:
+            x_gen = self.deconv_output2(self.deconv_output1(h_t[-1]))
+        else:
+            x_gen = self.conv_last(h_t[-1])
+        return h_t, c_t, memory, x_gen, dl_sum
+
     def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False,
                 mask_true=None, **kwargs):
         r"""``x`` ``[b, T, h, w, c]``, the context and the ``pred_frames``
@@ -219,25 +253,13 @@ class PredRNN_V2(VPModel):
         dl_sum = x.new_zeros((), dtype=torch.float32)
         x_gens = []
         for t in range(total - 1):
-            m_t = mask[:, t]
-            net = m_t * x_patch[:, t] + (1.0 - m_t) * x_gen
-            action = None
-            if ac:
-                input_net1 = self.conv_input1(net)
-                net = input_net2 = self.conv_input2(input_net1)
-                action = self.action_conv_input2(self.action_conv_input1(a_patch[:, t]))
-            for i, cell in enumerate(self.cell_list):
-                h_t[i], c_t[i], memory, dc, dm = cell(net, h_t[i], c_t[i], memory, action)
-                cos = (self._normalized_adapter(dc) * self._normalized_adapter(dm)).sum(dim=1)
-                dl_sum = dl_sum + cos.abs().mean()
-                net = h_t[i]
-            if ac and self.residual_on_action_conv:
-                y = self.deconv_output1(h_t[-1] + input_net2)
-                x_gen = self.deconv_output2(y + input_net1)
-            elif ac:
-                x_gen = self.deconv_output2(self.deconv_output1(h_t[-1]))
+            carry = (h_t, c_t, memory, x_gen, dl_sum)
+            inputs = (x_patch[:, t], mask[:, t], a_patch[:, t] if ac else None)
+            if self.remat:
+                carry = remat.checkpoint(self._step, carry, inputs, saved=("st_gates",))
             else:
-                x_gen = self.conv_last(h_t[-1])
+                carry = self._step(carry, inputs)
+            h_t, c_t, memory, x_gen, dl_sum = carry
             x_gens.append(x_gen)
 
         predictions = unpatchify(torch.stack(x_gens[-pred_frames:], dim=1), self.patch_size)

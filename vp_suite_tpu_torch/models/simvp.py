@@ -20,6 +20,10 @@ frames of the context and the chunks before it. The model computes in
 ``enc2``, ``enc2_gn``, ``trans_in``, ``translator.{i}.red`` / ``.gn1`` /
 ``.mid`` / ``.gn2`` / ``.exp``, ``trans_out``, ``dec1``, ``dec1_gn``,
 ``dec2``, ``dec2_gn``, ``readout`` (torch layouts).
+
+``remat`` checkpoints each chunk's forward under training where the horizon
+takes more than one chunk, as the JAX model checkpoints its body only then
+(``simvp.py:146``).
 """
 import math
 
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vp_suite_tpu_torch.base.base_model import VPModel
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, GroupNorm
 
 
@@ -114,8 +119,11 @@ class SimVP(VPModel):
             raise ValueError(f"SimVP(in_frames={t_in}) needs at least {t_in} "
                              f"context frames, got {x.shape[1]}")
         window, preds = x[:, -t_in:], []
+        # JAX checkpoints the body only when it runs more than once (simvp.py:146)
+        checkpointed = self.remat and pred_frames > self.out_frames
         for _ in range(math.ceil(pred_frames / self.out_frames)):
-            chunk = self._one_shot(window)
+            chunk = remat.checkpoint(self._one_shot, window) if checkpointed \
+                else self._one_shot(window)
             preds.append(chunk)
             window = torch.cat([window, chunk], dim=1)[:, -t_in:]
         return torch.cat(preds, dim=1)[:, :pred_frames], None

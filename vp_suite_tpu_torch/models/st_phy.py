@@ -26,8 +26,14 @@ mode those from step ``ctx - 1`` on. In train mode the decoupling term of
 each layer and step (the mean over samples and channels of ``|sum over
 pixels|`` of the adapted, pixel-normalized deltas) is summed in f32 and
 divided by ``num_layers * n_steps``. The moment loss carries the JAX
-package's scale twice (``moment_loss_scale ** 2`` times the base value). The
-JAX package's ``remat`` and ``scan_unroll`` have no counterpart.
+package's scale twice (``moment_loss_scale ** 2`` times the base value).
+
+``remat`` checkpoints each step under training with the JAX model's policy
+(``st_phy.py:177-179``): the ST-LSTM cells' gate pre-activations
+(``"st_gates"``) are kept with the step's inputs, and the rest of the step
+runs again in the backward; the teacher-forcing coin is drawn outside. The
+JAX package's ``scan_unroll`` has no counterpart: eager PyTorch has no loop
+to unroll.
 """
 import torch
 from torch import nn
@@ -37,6 +43,7 @@ from vp_suite_tpu_torch.model_blocks.enc import Autoencoder
 from vp_suite_tpu_torch.model_blocks.phydnet import (PhyCellCell, k2m_matrices,
                                                      moment_constraints, moment_loss)
 from vp_suite_tpu_torch.model_blocks.predrnn import SpatioTemporalLSTMCell
+from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d, Dense
 
 
@@ -104,6 +111,27 @@ class STPhy(VPModel):
         v = self.adapter(delta).flatten(1, 2)                     # [b, hw, c]
         return v / v.square().sum(dim=1, keepdim=True).sqrt().clamp_min(1e-12)
 
+    def _step(self, carry, code, action, inflated, train):
+        r"""One step: ``carry`` ``(st_h, st_c, phy_h, memory, decoupling
+        sum)``, ``code`` the step's code ``(enc_t,)`` or its blend ``(enc_t,
+        x_gen, g)``; returns the new carry and the latent (JAX's ``step``,
+        the region that ``remat`` checkpoints)."""
+        st_h, st_c, phy_h, memory, decoupling = carry
+        st_h, st_c, last = list(st_h), list(st_c), self.num_layers - 1
+        if len(code) == 3:
+            enc_t, x_gen, g = code
+            code = g * enc_t + (1 - g) * x_gen
+        else:
+            code = code[0]
+        for i, cell in enumerate(self.st_cell_list):
+            st_h[i], st_c[i], memory, d_c, d_m = cell(code, st_h[i], st_c[i], memory, inflated)
+            if train:
+                term = self._normalized_adapter(d_c) * self._normalized_adapter(d_m)
+                decoupling = decoupling + term.sum(dim=1).abs().mean()
+        phy_h = self.phycell_list[last](code, action, phy_h)
+        x_gen = self.hidden_conv_list[last](torch.cat([st_h[last], phy_h], dim=-1))
+        return st_h, st_c, phy_h, memory, decoupling, x_gen
+
     def forward(self, x, pred_frames: int = 1, actions=None, train: bool = False,
                 teacher_forcing=False, **kwargs):
         r"""``x`` ``[b, t, h, w, c]`` (in train mode context and targets, else
@@ -114,7 +142,7 @@ class STPhy(VPModel):
         b, t = x.shape[:2]
         ctx = t - pred_frames if train else t
         n_steps = ctx + pred_frames - 1
-        ac, last = self.action_conditional, self.num_layers - 1
+        ac = self.action_conditional
         if ac and (actions is None or actions.shape[-1] != self.action_size):
             raise ValueError("Given actions are None or of the wrong size!")
         g = teacher_forcing if train else 0
@@ -135,20 +163,19 @@ class STPhy(VPModel):
         latents = []
         for step in range(n_steps):
             if step < ctx or (not blend and g):
-                code = enc[step]
+                code = (enc[step],)
             elif blend:
-                code = g * enc[step] + (1 - g) * x_gen
+                code = (enc[step], x_gen, g)
             else:
-                code = x_gen
-            a = act[step] if ac else None
-            for i, cell in enumerate(self.st_cell_list):
-                st_h[i], st_c[i], memory, d_c, d_m = cell(code, st_h[i], st_c[i], memory,
-                                                          inflated[step] if ac else None)
-                if train:
-                    term = self._normalized_adapter(d_c) * self._normalized_adapter(d_m)
-                    decoupling = decoupling + term.sum(dim=1).abs().mean()
-            phy_h = self.phycell_list[last](code, a, phy_h)
-            x_gen = self.hidden_conv_list[last](torch.cat([st_h[last], phy_h], dim=-1))
+                code = (x_gen,)
+            carry = (st_h, st_c, phy_h, memory, decoupling)
+            xs = (act[step], inflated[step]) if ac else (None, None)
+            if self.remat:
+                carry = remat.checkpoint(self._step, carry, code, *xs, train,
+                                         saved=("st_gates",))
+            else:
+                carry = self._step(carry, code, *xs, train)
+            st_h, st_c, phy_h, memory, decoupling, x_gen = carry
             latents.append(x_gen)
         if not train:
             latents = latents[ctx - 1:]

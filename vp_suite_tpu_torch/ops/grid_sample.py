@@ -14,6 +14,7 @@ channel-major.
 """
 import torch
 
+from vp_suite_tpu_torch.nn.remat import named
 from vp_suite_tpu_torch.ops.warp import warp_sample
 
 
@@ -106,10 +107,12 @@ def warp_flow_ret(img, flows, w, bias):
     Returns ``[b, h, w, O]`` gate pre-activations in ``img``'s dtype: the
     warps' ``[b*P, L*c]`` output times ``w`` as one GEMM, bias added in its
     epilogue. Under autograd the warp tensor is saved for ``w``'s gradient,
-    as the JAX package saves it (``warp_ret_warped``).
+    as the JAX package saves it; it is named ``"warp_ret_warped"``
+    (``nn.remat.named``), so that a checkpointed step keeps it and does not
+    launch the warp again.
     """
     b, h, wd, c = img.shape
     iy, ix = _flow_to_indices(img, flows)
-    warped = warp_sample(iy, ix, img)                       # [b, P, L, c]
+    warped = named("warp_ret_warped", warp_sample, iy, ix, img)   # [b, P, L, c]
     out = torch.addmm(bias.to(img.dtype), warped.view(b * h * wd, -1), w.to(img.dtype))
     return out.view(b, h, wd, -1)

@@ -66,6 +66,19 @@ def spatial_halo_convs(mesh, axis: str = "sp"):
         _ACTIVE = prev
 
 
+@contextmanager
+def reopened(active):
+    r"""Sets the open spatial context to ``active`` (a ``(mesh, axis)`` that
+    :func:`active_spatial` returned, or None) while open: a region run again
+    in the backward (``nn.remat``) takes the path its forward took."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, active
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
 def coordinate(mesh, axis: str = "sp"):
     r"""``(this process's coordinate on mesh's axis, the axis's size, its
     process group)``."""

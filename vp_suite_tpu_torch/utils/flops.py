@@ -14,11 +14,15 @@ kernels (K1, K2) and the warp (a gather) 0. The operator, not its
 implementation, is what the counter sees, so a model and its shapes give the
 same count on the CPU and on the card.
 
-Where the count differs from the JAX package's on the CPU: the JAX counter
-counts a transposed convolution as the convolution XLA lowers it to, over
-the input dilated with zeros (``flops.py:36-43``), and counts the
-recomputation of ``remat``; PyTorch counts the transposed convolution's own
-products, and the port has no ``remat``.
+A train step's count includes the recompute of the regions that ``remat``
+checkpoints (:mod:`vp_suite_tpu_torch.nn.remat`): the backward runs them
+again under the counter, as the JAX counter counts the recompute of its
+``remat`` (``flops.py:13-16, 97``); an op whose output a region keeps by name
+does not run again and is not counted again. Where the count differs from
+the JAX package's on the CPU: the JAX counter counts a transposed
+convolution as the convolution XLA lowers it to, over the input dilated with
+zeros (``flops.py:36-43``); PyTorch counts the transposed convolution's own
+products.
 """
 from torch.utils.flop_counter import FlopCounterMode
 
