@@ -160,8 +160,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     card and the CPU for every registry model at a small size, and at bench
     shapes for paths (a)-(c) and the eight other models with TFLOP per call and
     the share of 989 TFLOP/s at the latencies measured above; the
-    ``torch.export`` programs of the three paths at b=32 and
-    batch-polymorphic (b=8 and 32), whose graphs call the kernels' operators
+    batch-polymorphic ``torch.export`` programs of the three paths (run at b=8
+    and 32), whose graphs call the kernels' operators
     and whose every call launches K1 45, K3 6 or the warp forward 45 times,
     within the bf16 gate of ``predict`` and timed beside it; and a
     reference-named stand-in module and its ``state_dict`` through
@@ -234,7 +234,19 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     models), the graphed step's latency; ``predict``'s launches on the three
     kernel paths, equal with remat on and off; and in f32 at b=2 the SGD step
     with remat on against off (bit-identical; EF-TrajGRU within the SGD gate)
-    and the graphed step under ``"full"`` against the eager one.
+    and the graphed step under ``"full"`` against the eager one;
+22. drives FVD as a loss inside the compiled steps (``drive_fvd_loss``, after
+    step 21): E1, the Jacobi eigensolver (``csrc/sym_eig.cu``), against
+    ``torch.linalg.eigh`` in f64 (the card's f32 one printed beside) at b = 1,
+    2, 4, 10, 32, 128, 160 and 256 on FVD-made matrices, on repeated
+    eigenvalues and on a batch of three, twice bit-identical; its time at b=32
+    beside its bound and ``torch.linalg.eigh``'s; ``wasserstein2_torch`` on the
+    card against the CPU, value and gradient; the Adam train step of paths (a)
+    and (b) at b=32 bf16 with ``{"mse", "fvd"}``, eager and graphed (E1 once a
+    call beside K1 45 + 45 and K2 45, or K3s 6 and K4 6; replays under
+    ``torch.cuda.set_sync_debug_mode("error")``); an f32 SGD step at b=4 on the
+    card against the CPU and graphed against eager; and ``VPSuite.train`` of
+    (a) with ``val_rec_criterion="fvd"`` (1 epoch of 3 compiled steps).
 
 Step 1 also prints which video decoders the machine offers (the ``ffmpeg``
 binary, the ``avcodec`` library, ``torchvision``, ``torchcodec``).
@@ -286,7 +298,7 @@ PATHS = {
     "trajgru": ("trajgru", {}),
 }
 KERNEL_IDS = ("K1", "K2", "K3", "K3s", "K4", "warp_fwd", "warp_bwd", "warp_ret_fwd", "warp_ret_bwd",
-              "warp_contract_fwd", "warp_contract_bwd")
+              "warp_contract_fwd", "warp_contract_bwd", "E1")
 
 
 def _launches(**counts):
@@ -662,13 +674,15 @@ def main():
     new_times = drive_new_models(dev, tf32_defaults)
     drive_graphs(card, new_times)
     drive_remat(card)
+    kernels.append(drive_fvd_loss(card))
     drive_tooling(dev, card, serve, train, predict_ms, new_times)
     drive_parallel(card)
     drive_tensor_parallel(card)
     drive_model_parallel(card)
     print(f"[done] {time.time() - t_start:.0f} s; kernel times below are per predict (K1, K3, "
           f"warp_fwd) or per train step (K2, K3s, K4, warp_bwd), all of their launches, or (K8, "
-          f"K9) one call at each of the three layer shapes, in bf16, on {card}")
+          f"K9) one call at each of the three layer shapes, in bf16, or (E1) one launch at the "
+          f"FVD batch b={B} in f32, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1287,6 +1301,7 @@ def reset_counts():
     r"""Sets every kernel's launch count to 0; returns the counters by kernel id."""
     from vp_suite_tpu_torch.ops.cells import convlstm_gate_backward, convlstm_gate_fuse
     from vp_suite_tpu_torch.ops.convlstm import convlstm_scan_backward, convlstm_scan_fused
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig
     from vp_suite_tpu_torch.ops.warp import (warp_contract_backward, warp_contract_forward,
                                              warp_ret_backward, warp_ret_forward, warp_sample,
                                              warp_sample_backward)
@@ -1299,7 +1314,8 @@ def reset_counts():
                 "warp_ret_fwd": (warp_ret_forward, "launches"),
                 "warp_ret_bwd": (warp_ret_backward, "launches"),
                 "warp_contract_fwd": (warp_contract_forward, "launches"),
-                "warp_contract_bwd": (warp_contract_backward, "launches")}
+                "warp_contract_bwd": (warp_contract_backward, "launches"),
+                "E1": (sym_eig, "launches")}
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     return counters
@@ -2256,7 +2272,7 @@ def _time_new_model(name, frames, batch, run_config):
 #: on the model paths
 KERNEL_NAMES = {"K1": "_convlstm_gate_fwd", "K2": "_convlstm_gate_bwd", "K3": "scan_fwd_",
                 "K3s": "scan_fwd_", "K4": "scan_bwd_", "warp_fwd": "warp_fwd_kernel",
-                "warp_bwd": "warp_bwd_kernel"}
+                "warp_bwd": "warp_bwd_kernel", "E1": "sym_eig_kernel"}
 #: the graphed-against-eager gates: f32 steps at b=2 on one batch, the learning
 #: rate cut by ReduceLROnPlateau before the last (after the capture)
 GRAPH_STEPS = 4
@@ -2632,6 +2648,261 @@ def drive_remat(card):
                       f"{name}: the f32 step with remat {how} parts from the reference")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     print(f"[remat] phase {time.time() - t_phase:.1f} s")
+
+
+#: the FVD loss (``drive_fvd_loss``): E1's sizes against ``torch.linalg.eigh``, FVD
+#: batches (b=1 the zero matrix; A and V in shared memory up to about 168, in the
+#: scratch above)
+E1_SIZES = (1, 2, 4, 10, 32, 128, 160, 256)
+#: E1's eigenvalues within this of the largest, against ``torch.linalg.eigh`` in f64 on
+#: the CPU; the reconstruction ``v diag(w) v^T`` (of the largest eigenvalue) and ``v^T v -
+#: I`` likewise: an f32 solver's rounding, well below the limit up to b = 256. The card's f32
+#: ``torch.linalg.eigh`` (cuSOLVER) is printed beside it: its eigenvalues part from f64 by
+#: 2.8e-5 of the largest at b = 128 (while E1's reconstruction holds to 2e-7), so it is not
+#: the reference
+E1_TOL = 1e-5
+FVD_LOSSES = {"mse": 1.0, "fvd": 1.0}
+#: ``wasserstein2_torch`` on the card (E1, cuBLAS) against the CPU (LAPACK) on
+#: independent 400-wide features at b=32, value relative and gradient relative to its
+#: largest: f32 sums in another order, where the covariance part is well determined
+W2_RTOL = 1e-4
+#: each train or eval call with an FVD loss of 10 predicted frames (one I3D chunk)
+#: launches E1 once, beside the path's kernels
+WANT_FVD_TRAIN_LAUNCHES = {path: {**WANT_TRAIN_LAUNCHES[path], "E1": 1}
+                           for path in ("per_step", "fused_scan")}
+#: the f32 SGD gate's batch (card against CPU, graphed against eager), held as
+#: ``(p0 - p1) / lr`` relative to the largest of each tensor (at least 1), as UNet-3D's
+#: and PredRNN++'s: FVD's gradients reach some 250 (the output bias) at this batch,
+#: and its covariance part is a difference of nearly equal I3D features (the random
+#: model's predictions barely vary across the batch), so f32 sums in another order (the
+#: CPU's own step on 1 and on 8 threads, too) part by more than the elementwise form's
+#: atol at elements near 0, and by far less than the limit relative to the largest
+FVD_SGD_B = 4
+FVD_SUITE_STEPS = 3
+
+
+def fvd_matrix(b, seed, noise=0.05, width=400):
+    r"""FVD's ``m = a a^T`` (``a = c_p^T c_t``) of ``b`` feature sets, the
+    target the prediction plus ``noise``, f32 on the CPU: centring leaves it
+    one exact zero eigenvalue."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn((b, width), generator=g)
+    t = p + noise * torch.randn((b, width), generator=g)
+    a = ((p - p.mean(0)) @ (t - t.mean(0)).T) * (1.0 if b < 2 else 1.0 / (b - 1))
+    return a @ a.T
+
+
+def eig_errors(w, v, m, want_w):
+    r"""E1's ``(eigenvalue error, reconstruction error)`` relative to the
+    largest wanted eigenvalue and its orthogonality error, in f64."""
+    import torch
+    w, v, m, want_w = (x.double().cpu() for x in (w, v, m, want_w))
+    scale = want_w.abs().max().item() or 1.0
+    eye = torch.eye(m.shape[-1], dtype=torch.float64)
+    return ((w - want_w).abs().max().item() / scale,
+            (v @ torch.diag_embed(w) @ v.transpose(-1, -2) - m).abs().max().item() / scale,
+            (v.transpose(-1, -2) @ v - eye).abs().max().item())
+
+
+def drive_fvd_loss(card):
+    r"""FVD as a loss inside the compiled steps (E1, ``csrc/sym_eig.cu``): E1
+    against ``torch.linalg.eigh`` at :data:`E1_SIZES` on FVD-made matrices, on
+    one with repeated eigenvalues and on a batch of three, twice bit-identical;
+    its time at b=32 beside its bound and ``torch.linalg.eigh``'s;
+    ``wasserstein2_torch`` on the card against the CPU, value and gradient;
+    the Adam train step of paths (a) and (b) at b=32 bf16 with ``{"mse",
+    "fvd"}``, eager and graphed, with exact launch counts (E1 once a call) and
+    the replays under ``torch.cuda.set_sync_debug_mode("error")``; an f32 SGD
+    step at b=4 on the card against the CPU and graphed against eager; and a
+    ``VPSuite.train`` run of (a) with ``val_rec_criterion="fvd"``. Returns
+    E1's entry of the kernels' JSON line."""
+    import shutil
+    import torch
+    from vp_suite_tpu_torch.measure.fvd.fvd import wasserstein2_torch
+    from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig, sym_eig_reference
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t_phase = time.time()
+
+    # E1 against torch.linalg.eigh
+    worst = 0.0
+    cases = [(f"FVD-made b={b}", fvd_matrix(b, SEED + b)) for b in E1_SIZES]
+    q, _ = torch.linalg.qr(torch.randn(16, 16, generator=torch.Generator().manual_seed(SEED)))
+    cases.append(("repeated eigenvalues b=16",
+                  (q * torch.tensor([1.0] * 6 + [2.0] * 6 + [0.0] * 4)) @ q.T))
+    cases.append(("a batch of three b=16", torch.stack([cases[-1][1], fvd_matrix(16, SEED),
+                                                        torch.zeros(16, 16)])))
+    for what, m in cases:
+        m = m.cuda()
+        w, v = sym_eig(m)
+        again = sym_eig(m)
+        card_w = sym_eig_reference(m)[0]
+        exact = sym_eig_reference(m.double().cpu())[0]
+        torch.cuda.synchronize()
+        errs = eig_errors(w, v, m, exact)
+        worst = max(worst, (w.double().cpu() - exact).abs().max().item())
+        scale = exact.abs().max().item() or 1.0
+        print(f"[fvd] E1 {what}: "
+              f"eigenvalues against f64 {errs[0]:.3g} of the largest (the card's f32 "
+              f"torch.linalg.eigh {(card_w.double().cpu() - exact).abs().max().item() / scale:.3g}, "
+              f"E1 against it {(w - card_w).abs().max().item() / scale:.3g}), reconstruction "
+              f"{errs[1]:.3g} of the largest, orthogonality {errs[2]:.3g} (limit {E1_TOL})")
+        check(max(errs) <= E1_TOL, f"E1 {what}: errors {errs} above {E1_TOL}")
+        check(torch.equal(w, again[0]) and torch.equal(v, again[1]),
+              f"E1 {what}: two launches gave other bits")
+
+    # E1's time at the FVD batch, beside its bound and torch.linalg.eigh's
+    m = fvd_matrix(B, SEED + B).cuda()
+    ms = graph_ms(lambda: sym_eig(m))
+    eager = cuda_ms(lambda: sym_eig(m), warmup=3, iters=20)
+    plain = cuda_ms(lambda: torch.linalg.eigh(m), warmup=3, iters=20)
+    nbytes, ops = (2 * B * B + B) * 4, 9 * B ** 3
+    bound, by = bound_ms(nbytes, ops, F32_FLOPS)
+    print(f"[fvd] E1 b={B} f32: {ms * 1e3:.1f} us a launch from a CUDA graph (eager {eager * 1e3:.1f}"
+          f" us), torch.linalg.eigh (the plain version and the one PyTorch call) {plain * 1e3:.1f}"
+          f" us eager; bound {bound * 1e3:.3g} us by {by} ({nbytes} B, {ops} flops at 67 TFLOP/s)"
+          f" on {card}")
+
+    # the distance on the card against the CPU, value and gradient
+    g = torch.Generator().manual_seed(SEED + 26)
+    feats = [torch.randn((B, 400), generator=g) for _ in range(2)]
+    got = []
+    for device in ("cuda", "cpu"):
+        p = feats[0].to(device).requires_grad_()
+        d = wasserstein2_torch(p, feats[1].to(device))
+        d.backward()
+        got.append((d.item(), p.grad.cpu()))
+    d_val = abs(got[0][0] - got[1][0]) / abs(got[1][0])
+    d_grad = rel_err(got[0][1], got[1][1])
+    print(f"[fvd] wasserstein2_torch b={B} x 400 on the card (E1) against the CPU (LAPACK): "
+          f"{got[0][0]:.6f} vs {got[1][0]:.6f} ({d_val:.3g} relative), gradient {d_grad:.3g} of "
+          f"its largest (limit {W2_RTOL})")
+    check(d_val <= W2_RTOL and d_grad <= W2_RTOL, "wasserstein2_torch on the card parts from the CPU")
+
+    # paths (a) and (b): the Adam train step with an FVD loss, eager and graphed
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    losses = PredictionLossProvider({"losses_and_scales": FVD_LOSSES, "img_c": IMG[0]})
+    frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 26))
+    batch = {"frames": frames}
+    launches = {}
+    for path, want in WANT_FVD_TRAIN_LAUNCHES.items():
+        model_id, cfg = PATHS[path]
+        model = build_model(model_id, SEED, "cuda", img_shape=IMG, action_size=0,
+                            tensor_value_range=(0.0, 1.0), compute_dtype=torch.bfloat16, **cfg)
+        state = create_train_state(model, lr=LR, seed=SEED)
+        eager = make_train_step(model, run, losses, use_jit=False)
+        graphed = make_train_step(model, run, losses)
+        counts, totals = [], []
+        for n in range(3):     # eager, the capture (and its replay), a replay
+            counters = reset_counts()
+            torch.cuda.set_sync_debug_mode("error" if n == 2 else 0)
+            try:
+                _, metrics = graphed(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            counts.append(read_counts(counters))
+            totals.append({k: float(v) for k, v in metrics.items()})
+        launches[path] = counts[0]
+        print(f"[fvd] ({path}) Adam train step bf16 b={B} {CTX}->{PRED} with {FVD_LOSSES}: "
+              f"launches in the eager call " + ", ".join(f"{k} {v}" for k, v in counts[0].items()
+                                                         if v)
+              + ", in the capture " + ", ".join(f"{k} {v}" for k, v in counts[1].items() if v)
+              + f", from the host in a replay {sum(counts[2].values())}; losses "
+              + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in t.items()) for t in totals))
+        check(counts[0] == want and counts[1] == want and counts[2] == _launches(),
+              f"({path}) FVD train step: the eager call, the capture and a replay launched "
+              f"{counts}, not {want}, {want} and none")
+        check(all(math.isfinite(v) for t in totals for v in t.values()) and "fvd" in totals[0],
+              f"({path}) FVD train step losses {totals}")
+        for how, fn in (("eager", eager), ("graphed", graphed)):
+            ms_, times = _median_ms(lambda: float(fn(state, batch)[1]["total"]), 3)
+            dev_ms, wall = profile(f"FVD train step ({path}) {how}",
+                                   lambda: float(fn(state, batch)[1]["total"]),
+                                   pick=("sym_eig_kernel",))
+            busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
+                "not measured"
+            print(f"[fvd] ({path}) FVD train step {how}: median {ms_:.2f} ms (runs "
+                  f"{', '.join(f'{t * 1e3:.2f}' for t in times)}); device {busy}")
+        del model, state, eager, graphed
+    torch.cuda.empty_cache()
+
+    # f32 SGD at b=4: the card against the CPU, graphed against eager
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    lr, small = 1e-2, frames[:FVD_SGD_B]
+    deltas, totals = {}, {}
+    for how in ("cpu", "eager", "graphed"):
+        device = "cpu" if how == "cpu" else "cuda"
+        model = build_model("convlstm-shi", SEED, device, img_shape=IMG, action_size=0,
+                            tensor_value_range=(0.0, 1.0), compute_dtype=torch.float32)
+        p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        state = create_train_state(model, lr=lr, optimizer="sgd")
+        step = make_train_step(model, run, losses, use_jit=how == "graphed")
+        sb = {"frames": small.to(device)}
+        if how == "graphed":    # its eager call and capture from p0, then a replay from p0
+            step(state, sb)
+            with torch.no_grad():
+                for k, v in model.named_parameters():
+                    v.copy_(p0[k])
+            step(state, sb)
+            with torch.no_grad():
+                for k, v in model.named_parameters():
+                    v.copy_(p0[k])
+        _, metrics = step(state, sb)
+        totals[how] = {k: float(v) for k, v in metrics.items()}
+        deltas[how] = {k: ((p0[k] - v.detach()) / lr).cpu() for k, v in model.named_parameters()}
+    same = sum(torch.equal(deltas["eager"][k], v) for k, v in deltas["graphed"].items())
+    for a, b_ in (("eager", "cpu"), ("graphed", "eager")):
+        rel, at = _worst_step_diff(deltas[a], deltas[b_])
+        excess, _ = _delta_excess(deltas[a], deltas[b_])
+        d_loss = abs(totals[a]["total"] - totals[b_]["total"]) / abs(totals[b_]["total"])
+        print(f"[fvd] (per_step) f32 b={FVD_SGD_B} SGD step with {FVD_LOSSES}, {a} against "
+              f"{b_}: losses {totals[a]} vs {totals[b_]} ({d_loss:.3g} relative); (p0-p1)/lr "
+              f"max |diff| {rel:.3g} of the largest at {at} (limit {STEP_TOL}; elementwise, "
+              f"printed: max(|diff| - rtol*|{b_}|) {excess:.3g})"
+              + (f"; {same} of {len(deltas['eager'])} parameters bit-identical"
+                 if a == "graphed" else ""))
+        check(rel <= STEP_TOL and d_loss <= 1e-4,
+              f"the f32 SGD step with an FVD loss, {a} against {b_}, parts")
+    torch.backends.cudnn.deterministic = False
+
+    # the facade: train (a) with an FVD loss, validating on FVD
+    out = ROOT / "vp-suite-data" / "chip_smoke" / "fvd_run"
+    shutil.rmtree(out, ignore_errors=True)
+    suite = _mmf_suite(B * FVD_SUITE_STEPS)
+    entry = suite.create_model(PATHS["per_step"][0], compute_dtype=torch.bfloat16, seed=SEED,
+                               **PATHS["per_step"][1])
+    torch.cuda.synchronize()
+    counters = reset_counts()
+    best = suite.train(epochs=1, steps_per_epoch=FVD_SUITE_STEPS, batch_size=B, context_frames=CTX,
+                       pred_frames=PRED, no_vis=True, no_wandb=True, out_dir=str(out),
+                       losses_and_scales=FVD_LOSSES, val_rec_criterion="fvd")
+    torch.cuda.synchronize()
+    got = read_counts(counters)
+    want = {k: compiled_calls(FVD_SUITE_STEPS) * WANT_FVD_TRAIN_LAUNCHES["per_step"].get(k, 0)
+            + compiled_calls(1) * (WANT_PREDICT_LAUNCHES["per_step"][k] + (k == "E1"))
+            for k in KERNEL_IDS}
+    with open(out / "metrics.jsonl") as f:
+        val = [json.loads(line) for line in f]
+    print(f"[fvd] VPSuite.train (per_step) bf16 b={B} with {FVD_LOSSES}, val_rec_criterion "
+          f"'fvd', 1 epoch of {FVD_SUITE_STEPS} steps (compiled): launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+          + f"; validation {val}; best {best}; frames/s {entry.train_epoch_fps}")
+    check(got == want, f"VPSuite.train with an FVD loss launched {got}, not {want}")
+    check(len(val) == 1 and math.isfinite(val[0]["fvd"]) and best == val[0]["fvd"],
+          f"VPSuite.train with an FVD loss: validation {val}, best {best}")
+    shutil.rmtree(out, ignore_errors=True)
+    del suite, entry
+    torch.cuda.empty_cache()
+    print(f"[fvd] phase {time.time() - t_phase:.1f} s")
+    return dict(name="sym_eig (E1)", route="cuda", source="vp_suite_tpu_torch/csrc/sym_eig.cu",
+                replaces="vp_suite_tpu/measure/fvd/fvd.py:96 (jnp.linalg.eigh, left to XLA; "
+                         "no Pallas kernel)",
+                launches=launches["per_step"]["E1"], max_abs_err=worst, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=plain)
 
 
 def _delta_excess(got, want):
@@ -3150,52 +3421,50 @@ def _tooling_flops(dev, card, serve, train, predict_ms, new_times):
 
 def _tooling_export(dev, serve, out_root):
     r"""``export_predictor`` -> ``save_predictor`` -> ``load_predictor`` of
-    each path's bf16 model, at b=32 and batch-polymorphic (run at b=8 and
-    b=32): the graph calls the kernel's operator, each call launches K1 45,
-    K3 6 or the warp forward 45 times, the output matches ``VPSuite.predict``
-    within the bf16 gate, and the loaded program's latency beside
-    ``predict``'s."""
+    each path's bf16 model, batch-polymorphic (run at b=8 and b=32): the
+    graph calls the kernel's operator, each call launches K1 45, K3 6 or the
+    warp forward 45 times, the output matches ``VPSuite.predict`` within the
+    bf16 gate, and the loaded program's latency beside ``predict``'s."""
     import torch
     from vp_suite_tpu_torch.serving import export_predictor, load_predictor, save_predictor
     suite, frames = serve["suite"], serve["frames"]
     x = frames.to(dev)
     for i, name in enumerate(PATHS):
         model = suite.models[i].model
-        for batch_size in (B, None):
-            t0 = time.time()
-            exported = export_predictor(model, None, CTX, PRED, batch_size=batch_size)
-            t_export = time.time() - t0
-            ops = {str(n.target) for n in exported.graph.nodes
-                   if "vp_suite_tpu_torch" in str(n.target)}
-            check(ops == {f"vp_suite_tpu_torch.{EXPORT_OPS[name]}.default"},
-                  f"{name}: the exported graph calls {ops}")
-            path = save_predictor(exported, out_root / f"{name}_{batch_size or 'poly'}.pt2")
-            predict = load_predictor(path)
-            for b in ((B,) if batch_size else EXPORT_POLY_BATCHES):
-                want = suite.predict(frames[:b], pred_frames=PRED, model_idx=i)
-                torch.cuda.synchronize()
-                counters = reset_counts()
-                got = predict(x[:b])
-                torch.cuda.synchronize()
-                launches = read_counts(counters)
-                check(launches == WANT_PREDICT_LAUNCHES[name],
-                      f"{name}: one call of the exported program launched {launches}")
-                diff = (got - want).abs().max().item()
-                check(tuple(got.shape) == tuple(want.shape) and got.dtype == torch.float32
-                      and diff <= PREDICT_ATOL_BF16,
-                      f"{name}: the exported program gives {tuple(got.shape)} {got.dtype}, "
-                      f"max diff {diff:.3g} from predict")
-                prog_ms, _ = _median_ms(lambda: (predict(x[:b]), torch.cuda.synchronize()), 3)
-                pred_ms, _ = _median_ms(lambda: (suite.predict(frames[:b], pred_frames=PRED,
-                                                               model_idx=i),
-                                                 torch.cuda.synchronize()), 3)
-                mib = path.stat().st_size / 2 ** 20
-                print(f"[export] {name} bf16 {'b=' + str(B) if batch_size else 'batch-polymorphic'}"
-                      f" (exported in {t_export:.1f} s, {mib:.1f} MiB) at b={b}: launches "
-                      + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-                      + f"; max diff from predict {diff:.3g} (atol {PREDICT_ATOL_BF16}); loaded "
-                      f"program median {prog_ms:.2f} ms, predict {pred_ms:.2f} ms (its frames "
-                      f"copied from the host)")
+        t0 = time.time()
+        exported = export_predictor(model, None, CTX, PRED, batch_size=None)
+        t_export = time.time() - t0
+        ops = {str(n.target) for n in exported.graph.nodes
+               if "vp_suite_tpu_torch" in str(n.target)}
+        check(ops == {f"vp_suite_tpu_torch.{EXPORT_OPS[name]}.default"},
+              f"{name}: the exported graph calls {ops}")
+        path = save_predictor(exported, out_root / f"{name}_poly.pt2")
+        predict = load_predictor(path)
+        for b in EXPORT_POLY_BATCHES:
+            want = suite.predict(frames[:b], pred_frames=PRED, model_idx=i)
+            torch.cuda.synchronize()
+            counters = reset_counts()
+            got = predict(x[:b])
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            check(launches == WANT_PREDICT_LAUNCHES[name],
+                  f"{name}: one call of the exported program launched {launches}")
+            diff = (got - want).abs().max().item()
+            check(tuple(got.shape) == tuple(want.shape) and got.dtype == torch.float32
+                  and diff <= PREDICT_ATOL_BF16,
+                  f"{name}: the exported program gives {tuple(got.shape)} {got.dtype}, "
+                  f"max diff {diff:.3g} from predict")
+            prog_ms, _ = _median_ms(lambda: (predict(x[:b]), torch.cuda.synchronize()), 3)
+            pred_ms, _ = _median_ms(lambda: (suite.predict(frames[:b], pred_frames=PRED,
+                                                           model_idx=i),
+                                             torch.cuda.synchronize()), 3)
+            mib = path.stat().st_size / 2 ** 20
+            print(f"[export] {name} bf16 batch-polymorphic"
+                  f" (exported in {t_export:.1f} s, {mib:.1f} MiB) at b={b}: launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+                  + f"; max diff from predict {diff:.3g} (atol {PREDICT_ATOL_BF16}); loaded "
+                  f"program median {prog_ms:.2f} ms, predict {pred_ms:.2f} ms (its frames "
+                  f"copied from the host)")
 
 
 def _standin_class(base, name):

@@ -2,7 +2,7 @@ r"""One process of a two-process gloo world on the CPU, for
 ``tests/test_torch_parallel.py``: it imports torch and the port only.
 
     RANK=r WORLD_SIZE=2 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
-        python torch_parallel_worker.py {steps|facade} <out_dir>
+        python torch_parallel_worker.py {steps|fvd|facade} <out_dir>
 
 ``steps``: one train step of each case of ``CASES`` through
 ``make_train_step(..., mesh=make_mesh())`` on this process's half of a
@@ -11,6 +11,14 @@ draws from seed 0; writes ``steps_{rank}.pt``: per case the loss, the
 parameters and buffers after the step (whole, gathered under FSDP), the
 names of the parameters left without a gradient, FSDP's per-process shares
 and the scheduled-sampling masks drawn.
+
+``fvd`` (for ``tests/test_torch_fvd_loss.py``): EF-ConvLSTM with the
+weights of ``<out_dir>/fvd_weights.pt`` (a ``state_dict``) and the losses
+``FVD_LOSSES`` on this process's half of ``fvd_frames()``: the
+eval step on the mesh, the facade's validation (an eval step without the mesh
+inside ``fvd_in_step(mesh)``, then ``mean_over``) and one SGD train step on
+the mesh with :func:`standin_features` for I3D; writes ``fvd_{rank}.pt``:
+their metrics and the parameters after the step.
 
 ``facade``: ``VPSuite(device="cpu")`` -> ``load_dataset("MMF")`` ->
 ``create_model("convlstm-shi")`` -> ``train(multihost=True)`` once per run of
@@ -58,6 +66,10 @@ FSDP_MIN_SIZE = 1024
 #: PredRNN++'s schedule at the step: a sampling probability of one half, so
 #: that the masks are random
 PREDRNN_STATE = {"training_iteration": 1, "sampling_eta": 0.5}
+#: the ``fvd`` task: its losses, frames config and global batch
+FVD_LOSSES = {"mse": 1.0, "fvd": 1.0}
+FVD_RUN = {"context_frames": 2, "pred_frames": 9}   # FVD needs 9 frames
+FVD_B = 4
 #: the facade's runs: (name, checkpoint backend, fsdp)
 FACADE_RUNS = (("msgpack", "msgpack", False), ("orbax", "orbax", True))
 
@@ -134,6 +146,29 @@ def case_frames(name):
     return np.random.default_rng(seed).random((b, ctx + pred, h, w, 3), dtype=np.float32)
 
 
+def fvd_frames():
+    r"""The ``fvd`` task's global batch: ``[4, 11, 16, 16, 3]`` in [0, 1)."""
+    return np.random.default_rng(26).random((FVD_B, 11, 16, 16, 3), dtype=np.float32)
+
+
+def standin_weight():
+    r"""The projection of :func:`standin_features`: ``[9 * 7 * 7 * 3, 400]``
+    f32 from a numpy seed."""
+    n = 9 * 7 * 7 * 3
+    return (np.random.default_rng(400).standard_normal((n, 400)) / np.sqrt(n)).astype(np.float32)
+
+
+def standin_features(x, params=None):
+    r"""A cheap stand-in for ``i3d_features`` in the ``fvd`` task's train
+    step, ``[b, 9, 224, 224, 3]`` -> ``[b, 400]``: the means of each frame's
+    32x32 blocks through one fixed projection and tanh. I3D's backward takes
+    minutes a call in JAX on the CPU; ``tests/test_torch_fvd_loss.py`` runs
+    the same function in JAX."""
+    b, t, _, _, c = x.shape
+    pooled = x.reshape(b, t, 7, 32, 7, 32, c).mean(dim=(3, 5))
+    return torch.tanh(pooled.reshape(b, -1) @ torch.from_numpy(standin_weight()))
+
+
 def case_model(name, device="cpu"):
     r"""The case's model, drawn from seed 0."""
     from vp_suite_tpu_torch.models import build_model
@@ -190,6 +225,36 @@ def run_steps(out_dir, rank):
             "lr": state.optimizer.param_groups[0]["lr"],
         }
     torch.save(results, os.path.join(out_dir, f"steps_{rank}.pt"))
+
+
+def run_fvd(out_dir, rank):
+    from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.parallel import make_mesh, shard_batch, shard_params
+    from vp_suite_tpu_torch.parallel.mesh import mean_over
+    from vp_suite_tpu_torch.training.loop import fvd_in_step, make_eval_step, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    mesh = make_mesh(0, "data", "cpu")
+    model = build_model("convlstm-shi", 0, "cpu", **EF)
+    model.load_state_dict(torch.load(os.path.join(out_dir, "fvd_weights.pt")))
+    model = shard_params(model, mesh)
+    losses = PredictionLossProvider({"losses_and_scales": FVD_LOSSES, "img_c": 3})
+    batch = shard_batch({"frames": torch.from_numpy(fvd_frames())}, mesh)
+    state = create_train_state(model, lr=LR, optimizer="sgd")
+    val = make_eval_step(model, FVD_RUN, losses, mesh=mesh)(state, batch)
+    with fvd_in_step(mesh):
+        local = make_eval_step(model, FVD_RUN, losses, use_jit=False)(state, batch)
+    facade = mean_over({k: float(v) for k, v in local.items()}, mesh)
+    step = make_train_step(model, FVD_RUN, losses, mesh=mesh, use_jit=False)
+    from vp_suite_tpu_torch.measure.fvd import fvd
+    real, fvd.i3d_features = fvd.i3d_features, standin_features
+    try:
+        _, metrics = step(state, batch)
+    finally:
+        fvd.i3d_features = real
+    torch.save({"val": {k: float(v) for k, v in val.items()}, "facade": facade,
+                "train": {k: float(v) for k, v in metrics.items()},
+                "state_dict": full_state_dict(model)}, os.path.join(out_dir, f"fvd_{rank}.pt"))
 
 
 def run_facade(out_dir, rank):
@@ -300,8 +365,8 @@ def main():
                                        backend="gloo")
     assert world == 2, world
     try:
-        {"steps": run_steps, "facade": run_facade, "card_pair": run_card_pair}[task](out_dir,
-                                                                                     rank)
+        {"steps": run_steps, "facade": run_facade, "fvd": run_fvd,
+         "card_pair": run_card_pair}[task](out_dir, rank)
     finally:
         torch.distributed.destroy_process_group()
 

@@ -212,6 +212,7 @@ def _operator_cases():
     iy, ix, img = torch.rand(b, P, L, generator=g) * h, torch.rand(b, P, L, generator=g) * w, \
         r(b, h, w, c)
     wr, br, A, Bm = r(L, c, 5), r(5), r(b, L, P, h), r(b, L, P, w)
+    sym = r(b, 5, 5)
     return {
         "convlstm_gate_forward": (gates, cell, *peep),
         "convlstm_gate_backward": (gates, cell, *peep, cell, cell),
@@ -223,13 +224,14 @@ def _operator_cases():
         "warp_ret_backward": (iy, ix, img, wr, br, r(b, P, 5)),
         "warp_contract_forward": (A, Bm, img),
         "warp_contract_backward": (A, Bm, img, r(b, L, P, c)),
+        "sym_eig": (sym @ sym.transpose(-1, -2),),
     }
 
 
 OPERATORS = ["convlstm_gate_forward", "convlstm_gate_backward", "convlstm_scan_forward",
              "convlstm_scan_backward", "warp_sample_forward", "warp_sample_backward",
              "warp_ret_forward", "warp_ret_backward", "warp_contract_forward",
-             "warp_contract_backward"]
+             "warp_contract_backward", "sym_eig"]
 
 
 @pytest.mark.parametrize("name", OPERATORS)

@@ -18,8 +18,8 @@ it reads as tensors, on the CPU, against the JAX package.
   PredRNN++ under reverse scheduled sampling over its three stages (before
   ``r_sampling_step_1``, between, after ``r_sampling_step_2``), the port's
   mask draws fed the JAX step's uniform numbers.
-- ``train`` builds its steps with ``use_jit=True``, and with ``False`` for
-  an FVD loss.
+- ``train`` builds its steps with ``use_jit=True``, an FVD loss included
+  (its device distance reads nothing back).
 - A checkpoint's optimizer state loads into either form of optimizer: a
   plain one's (float learning rate, host step counts, as checkpoints were
   written before the capturable form) into a capturable one with a
@@ -246,7 +246,7 @@ def test_train_compiles_its_steps_unless_a_loss_reads_back(losses, monkeypatch, 
     suite.create_model("convlstm-shi")
     suite.train(epochs=1, batch_size=2, context_frames=2, pred_frames=2, steps_per_epoch=2,
                 no_vis=True, no_wandb=True, losses_and_scales=losses, out_dir=str(tmp_path))
-    assert asked == [losses == {"mse": 1.0}] * 3
+    assert asked == [True] * 3
 
 
 def test_optimizer_state_loads_into_either_form():

@@ -18,7 +18,7 @@ predictions within its f32 ``predict`` gate (1e-4); PhyDNet across the epoch
 where its teacher-forcing ratio falls to 0, PredRNN++ across the iteration
 where its sampling rate does; one graph per batch shape; the outputs of
 every call new tensors; a learning rate cut after the capture reaching the
-next replay; the refusals on a mesh and of an FVD loss; a capturable state
+next replay; the refusal on a mesh; an FVD loss captured; a capturable state
 through a checkpoint.
 """
 import math
@@ -188,18 +188,61 @@ def test_a_mesh_refuses_the_compiled_step(card):
         torch.distributed.destroy_process_group()
 
 
-def test_an_fvd_loss_refuses_capture(card):
-    model = _model("per_step")
+def test_an_fvd_loss_captures(card):
+    r"""An FVD loss inside the captured train and eval steps: its device
+    distance (E1) reads nothing back (replays under the sync debug mode's
+    "error"), E1 launches once a call that launches (the eager call and the
+    capture), and the replays give the eager steps' losses and update; the
+    eager eval step takes the same device distance inside ``fvd_in_step``.
+    The host distance still refuses a capture."""
+    from vp_suite_tpu_torch.measure.fvd import fvd
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig
+    from vp_suite_tpu_torch.training.loop import fvd_in_step
     run = {"context_frames": 2, "pred_frames": 9}   # FVD needs 9 frames
     losses = PredictionLossProvider({"losses_and_scales": {"mse": 1.0, "fvd": 1.0}, "img_c": 3})
     assert "fvd" in losses.losses
-    step = make_train_step(model, run, losses)
-    state = create_train_state(model, lr=LR, optimizer="sgd")
-    c, h, w = model.img_shape
-    batch = {"frames": torch.rand((2, 11, h, w, c), device="cuda")}
-    step(state, batch)    # eager
-    with pytest.raises(RuntimeError, match="FVD"):
-        step(state, batch)
+    eager_model, graph_model = _model("per_step"), _model("per_step")
+    c, h, w = eager_model.img_shape
+    g = torch.Generator().manual_seed(3)
+    batch = {"frames": torch.rand((4, 11, h, w, c), generator=g).cuda()}
+    se, sg = (create_train_state(m, lr=LR, optimizer="sgd") for m in (eager_model, graph_model))
+    eager = make_train_step(eager_model, run, losses, use_jit=False)
+    graph = make_train_step(graph_model, run, losses)
+    sym_eig.launches = 0
+    for n in range(3):
+        if n == 1:
+            with torch.no_grad():
+                for mine, theirs in zip(graph_model.state_dict().values(),
+                                        eager_model.state_dict().values()):
+                    mine.copy_(theirs)
+            p0 = [p.detach().clone() for p in eager_model.parameters()]
+        _, want = eager(se, batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if n == 2 else 0)
+        try:
+            _, got = graph(sg, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for k in want:
+            assert abs(float(got[k]) - float(want[k])) <= 1e-5 * abs(float(want[k])) + 1e-6, \
+                f"step {n}: {k} {float(got[k])} against {float(want[k])}"
+        if n == 1:
+            deltas = [[(a - p.detach()) / LR for a, p in zip(p0, m.parameters())]
+                      for m in (graph_model, eager_model)]
+            assert _excess(*deltas) <= STEP_TOL
+    assert sym_eig.launches == 3 + 2
+    eval_eager = make_eval_step(eager_model, run, losses, use_jit=False)
+    eval_graph = make_eval_step(eager_model, run, losses)
+    with fvd_in_step():
+        want = eval_eager(None, batch)
+    outs = [eval_graph(None, batch) for _ in range(3)]
+    for got in outs:
+        for k in want:
+            assert abs(float(got[k]) - float(want[k])) <= 1e-5 * abs(float(want[k])) + 1e-6, k
+    measure, frames = fvd.FrechetVideoDistance(), batch["frames"][:, 2:]
+    with pytest.raises(RuntimeError, match="host distance"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()), torch.inference_mode():
+            measure(frames, frames)
 
 
 def test_a_capturable_state_goes_through_a_checkpoint(card, tmp_path):

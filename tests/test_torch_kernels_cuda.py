@@ -829,3 +829,81 @@ def test_facade_test_on_the_card_launches_the_kernels(cuda_default_tf32, monkeyp
     for horizons in results.values():
         assert len(horizons) == 2
         assert all(len(d) == 4 and all(np.isfinite(v) for v in d.values()) for d in horizons)
+
+
+# ---- E1: the symmetric eigensolver (csrc/sym_eig.cu) ---------------------------------------------
+
+#: E1's sizes: FVD batches (b=1 the zero matrix, odd sizes padded), A and V in shared memory up to
+#: about 168, in the scratch above
+E1_SIZES = (1, 2, 3, 4, 10, 32, 160, 256)
+#: eigenvalues within this of the largest, against torch.linalg.eigh in f64 on the CPU;
+#: reconstruction (relative to the largest) and orthogonality (absolute) likewise: an f32
+#: solver's rounding (cuSOLVER's own f32 eigenvalues part from f64 by more at b = 128, so
+#: they are not the reference)
+E1_TOL = 1e-5
+
+
+def _fvd_matrix(b, seed, noise=0.05, width=400):
+    r"""FVD's ``m = a a^T`` of ``b`` feature sets (the target the prediction
+    plus ``noise``), f32 on the CPU: one exact zero eigenvalue (centring)."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn((b, width), generator=g)
+    t = p + noise * torch.randn((b, width), generator=g)
+    a = ((p - p.mean(0)) @ (t - t.mean(0)).T) * (1.0 if b < 2 else 1.0 / (b - 1))
+    return a @ a.T
+
+
+def _assert_eig(w, v, m, want_w):
+    w, v, m, want_w = (x.double().cpu() for x in (w, v, m, want_w))
+    scale = float(want_w.abs().max()) or 1.0
+    eye = torch.eye(m.shape[-1], dtype=torch.float64)
+    assert float((w - want_w).abs().max()) <= E1_TOL * scale
+    assert float((v @ torch.diag_embed(w) @ v.transpose(-1, -2) - m).abs().max()) <= E1_TOL * scale
+    assert float((v.transpose(-1, -2) @ v - eye).abs().max()) <= E1_TOL
+
+
+@pytest.mark.parametrize("b", E1_SIZES)
+def test_sym_eig_kernel_matches_eigh(cuda, b):
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig, sym_eig_reference
+    m = _fvd_matrix(b, b).to(cuda)
+    sym_eig.launches = 0
+    w, v = sym_eig(m)
+    again = sym_eig(m)
+    torch.cuda.synchronize()
+    assert sym_eig.launches == 2
+    assert torch.equal(w, again[0]) and torch.equal(v, again[1]), "E1 is not deterministic"
+    _assert_eig(w, v, m, sym_eig_reference(m.double().cpu())[0])
+
+
+def test_sym_eig_kernel_takes_batches_and_repeated_eigenvalues(cuda):
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig, sym_eig_reference
+    q, _ = torch.linalg.qr(torch.randn(16, 16, generator=torch.Generator().manual_seed(0)))
+    repeated = (q * torch.tensor([1.0] * 6 + [2.0] * 6 + [0.0] * 4)) @ q.T
+    m = torch.stack([repeated, _fvd_matrix(16, 1), torch.zeros(16, 16)]).to(cuda)
+    sym_eig.launches = 0
+    w, v = sym_eig(m)
+    torch.cuda.synchronize()
+    assert sym_eig.launches == 1
+    for i in range(3):
+        _assert_eig(w[i], v[i], m[i], sym_eig_reference(m[i].double().cpu())[0])
+
+
+def test_sym_eig_gradient_on_the_card_matches_the_cpu(cuda):
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eigvals
+    a = torch.randn(32, 32, generator=torch.Generator().manual_seed(2))
+    m = a @ a.T + 0.5 * torch.eye(32)
+    grads = []
+    for device in ("cpu", cuda):
+        mt = m.to(device).detach().requires_grad_()
+        torch.sqrt(sym_eigvals(mt).clamp_min(0.0) + 1e-15).sum().backward()
+        grads.append(mt.grad.cpu())
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-4 * float(grads[0].abs().max())
+
+
+def test_sym_eig_rejects_what_it_does_not_take(cuda):
+    from vp_suite_tpu_torch.ops.sym_eig import sym_eig
+    m = _fvd_matrix(4, 0).to(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sym_eig(m.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sym_eig(torch.stack([m, m], -1)[..., 0])

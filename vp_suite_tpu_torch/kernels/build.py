@@ -161,3 +161,11 @@ def warp_contract_library() -> ctypes.CDLL:
     lib.vp_warp_contract_geometry.argtypes = [_INT] * 6 + [ctypes.POINTER(ctypes.c_int64)]
     lib.vp_warp_contract_geometry.restype = _INT
     return lib
+
+
+@functools.cache
+def sym_eig_library() -> ctypes.CDLL:
+    r"""The batched symmetric eigensolver library (``csrc/sym_eig.cu``: E1),
+    built on first call. ``int vp_sym_eig(m, w, v, scratch, int batch, int n,
+    void* stream)``."""
+    return _load("sym_eig.cu", {"vp_sym_eig": [_VP] * 4 + [_INT] * 2 + [_VP]})

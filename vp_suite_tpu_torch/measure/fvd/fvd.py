@@ -5,18 +5,43 @@ eigenvalue method of arXiv:2009.14075.
 
 Two paths, as in the JAX package: a metric copies the features to the host
 and takes the eigenvalues of a nonsymmetric product in f64 with numpy
-(:func:`wasserstein2_numpy`); a loss, which needs a gradient, stays on the
-device and takes the symmetric ``torch.linalg.eigh`` form in f32
-(:func:`wasserstein2_torch`). The JAX package picks the second path when its
-features are tracers; the port picks it when autograd records and the
-prediction requires grad.
+(:func:`wasserstein2_numpy`); a loss stays on the device and takes the
+eigenvalues of the symmetric form in f32 (:func:`wasserstein2_torch`; on the
+card from E1, ``ops/sym_eig.py``, which reads nothing back, so the loss runs
+inside a captured step). The JAX package picks the second path when its
+features are tracers: always in the train step, in the eval step when it is
+jitted, never in ``test``'s metrics. The port's step builders say so with
+:func:`step_distance`; outside one, FVD takes the device path when autograd
+records and the prediction requires grad, else the host's.
 """
+import contextlib
+
 import numpy as np
 import torch
 
 from vp_suite_tpu_torch.base.base_measure import VPMeasure, full_precision, placed
 from vp_suite_tpu_torch.measure.fvd.i3d import i3d_features, load_params
 from vp_suite_tpu_torch.ops.image import resize_bilinear
+from vp_suite_tpu_torch.ops.sym_eig import sym_eigvals
+
+#: the ``gather`` of each open :func:`step_distance` context, innermost last
+_STEPS = []
+
+
+@contextlib.contextmanager
+def step_distance(gather=None):
+    r"""Within the context, FVD computes the device distance
+    (:func:`wasserstein2_torch`), as inside a traced (jitted or
+    differentiated) step of the JAX package, whatever autograd records.
+    ``gather`` (a function from this process's I3D features ``[b, 400]`` to
+    the global batch's, or None) joins the features over a data mesh first,
+    so that each process computes the global batch's distance, as JAX's step
+    on a sharded batch does. The innermost context holds."""
+    _STEPS.append(gather)
+    try:
+        yield
+    finally:
+        _STEPS.pop()
 
 
 def calculate_n_chunks(num_frames, min_t=9, max_t=16):
@@ -72,9 +97,11 @@ def wasserstein2_torch(pred, target):
     r"""Differentiable f32 2-Wasserstein distance between feature sets
     ``[b, n]``, on their device. ``A A^T`` with ``A = c_p^T c_t`` is
     symmetric positive semi-definite, so its eigenvalues, which the host
-    path takes from a nonsymmetric product, come from ``torch.linalg.eigh``;
-    they are clamped at 0 and floored so that the square root's gradient
-    stays finite where the covariance is rank-deficient (b < n)."""
+    path takes from a nonsymmetric product, come from a symmetric
+    eigensolver (:func:`~vp_suite_tpu_torch.ops.sym_eig.sym_eigvals`: E1 on
+    CUDA tensors, ``torch.linalg.eigh`` on CPU tensors); they are clamped at 0
+    and floored so that the square root's gradient stays finite where the
+    covariance is rank-deficient (b < n)."""
     pred = pred.T.float()
     target = target.T.float()
     n, b = pred.shape
@@ -88,9 +115,11 @@ def wasserstein2_torch(pred, target):
         cov_t = e_t @ e_t.T * fact
         a = (e_p.T @ e_t) * fact                  # [b, b]: c_p^T c_t
         m = a @ a.T
-    s = torch.linalg.eigh(m)[0]
+    s = sym_eigvals(m)
     sq_tr_cov = torch.sqrt(s.clamp_min(0.0) + 1e-15).sum()
-    trace_term = torch.trace(cov_p + cov_t) - 2.0 * sq_tr_cov
+    # the diagonal's sum, not torch.trace, whose backward on the card reads the
+    # cotangent back to the host (index_fill_ of a tensor value), which a capture forbids
+    trace_term = torch.diagonal(cov_p + cov_t).sum() - 2.0 * sq_tr_cov
     diff = mu_t - mu_p
     return trace_term + (diff * diff).sum()
 
@@ -128,16 +157,19 @@ class FrechetVideoDistance(VPMeasure):
             else torch.tensor(dist, dtype=torch.float32, device=pred.device)
 
     def get_distance(self, pred, target):
-        if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        device, gather = (True, _STEPS[-1]) if _STEPS else \
+            (torch.is_grad_enabled() and pred.requires_grad, None)
+        if not device and pred.is_cuda and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "the FVD measure cannot run inside a captured CUDA graph: its distance waits for "
-                "the card (wasserstein2_numpy reads the I3D features back to the host; "
-                "torch.linalg.eigh checks its result on the host): build the step with "
-                "use_jit=False (VPSuite.train does so with an FVD loss)")
+                "the FVD measure's host distance cannot run inside a captured CUDA graph: "
+                "wasserstein2_numpy reads the I3D features back to the host; build the step "
+                "with use_jit=False")
         params = placed(self.params, self._placed, pred)
         logits_pred = i3d_features(pred, params)
         logits_target = i3d_features(target, params)
-        if torch.is_grad_enabled() and pred.requires_grad:
+        if gather is not None:
+            logits_pred, logits_target = gather(logits_pred), gather(logits_target)
+        if device:
             return wasserstein2_torch(logits_pred, logits_target)
         return wasserstein2_numpy(logits_pred.detach().cpu().numpy(),
                                   logits_target.detach().cpu().numpy())

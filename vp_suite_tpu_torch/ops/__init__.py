@@ -3,4 +3,4 @@ registers every kernel entry point as a ``torch.library`` operator in the
 ``vp_suite_tpu_torch`` namespace (:mod:`~vp_suite_tpu_torch.ops.library`),
 which is what a program exported by :mod:`vp_suite_tpu_torch.serving` needs
 to load."""
-from vp_suite_tpu_torch.ops import cells, convlstm, warp  # noqa: F401  (registers the operators)
+from vp_suite_tpu_torch.ops import cells, convlstm, sym_eig, warp  # noqa: F401  (registers the operators)

@@ -134,6 +134,22 @@ def data_group(mesh):
     return None if axis is None else mesh.get_group(axis)
 
 
+def gather_batch(x, mesh):
+    r"""The global batch's ``x`` from this process's rows (dim 0), joined in
+    rank order over the mesh's ``data`` axis, as a computation over a batch
+    sharded on ``data`` sees it in the JAX package; ``x`` itself where that
+    axis has one process. Differentiable: the backward sums the cotangent over
+    the ``data`` processes and keeps this process's rows
+    (``spatial.gather_rows``), so that after the step's mean over ``data``
+    the gradient is the global function's. The ``tp`` processes of one data
+    coordinate hold the same rows, so the gather runs over ``data`` alone."""
+    axis = None if mesh is None else _data_axis(mesh)
+    if axis is None or axis_size(mesh, axis) < 2:
+        return x
+    from vp_suite_tpu_torch.parallel.spatial import gather_rows
+    return gather_rows(x, 0, mesh, axis)
+
+
 def check_train_mesh(mesh):
     r"""Refuses a mesh with an active spatial axis (``sp`` > 1) for training
     outside a :func:`~vp_suite_tpu_torch.parallel.spatial.spatial_halo_convs`

@@ -24,11 +24,12 @@ import torch
 
 from vp_suite_tpu_torch.base.base_model import VPModel
 from vp_suite_tpu_torch.defaults import DEFAULT_RUN_CONFIG
+from vp_suite_tpu_torch.measure.fvd.fvd import step_distance
 from vp_suite_tpu_torch.measure.loss_provider import PredictionLossProvider
 from vp_suite_tpu_torch.parallel.distributed import batch_statistics_over
 from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over_tp, axis_size,
                                               check_same_gradients, check_train_mesh,
-                                              data_coordinate, data_group, is_fsdp,
+                                              data_coordinate, data_group, gather_batch, is_fsdp,
                                               replica_group)
 from vp_suite_tpu_torch.parallel.spatial import active_spatial, gather_rows, spatial_halo_convs
 from vp_suite_tpu_torch.parallel.tensor import sharded_params
@@ -67,6 +68,20 @@ def _spatial(model, mesh, loss_provider=None):
 def _opened(spatial):
     r"""The spatial context of ``spatial`` (a ``(mesh, axis)`` or None)."""
     return contextlib.nullcontext() if spatial is None else spatial_halo_convs(*spatial)
+
+
+def fvd_in_step(mesh=None):
+    r"""The context in which a step computes its FVD loss as the JAX package's
+    traced steps do: the device distance, which needs no read-back (so the
+    step captures), over the global batch. On a data mesh each process's I3D
+    features are first gathered over ``data`` (:func:`gather_batch`), so every
+    process computes the whole batch's distance: FVD's covariances are taken
+    over the batch, so it does not add up over rows, where MSE, L1 and smooth
+    L1 (means of per-row values) do and are averaged over ``data`` with the
+    gradients. The gather's backward sums the cotangent over ``data``, so the
+    step's mean over ``data`` gives the global distance's gradient."""
+    gather = None if data_coordinate(mesh)[1] < 2 else (lambda x: gather_batch(x, mesh))
+    return step_distance(gather)
 
 
 def _check_compiled(model, mesh, use_jit):
@@ -132,9 +147,10 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     the second and replayed from then on, one graph per batch shape and
     dtype (``training/graphs.py``); the metrics are new tensors at every
     call. The optimizer must be the capturable form ``create_train_state``
-    builds on the card, and every loss must run on the card alone (an FVD
-    loss raises while it is captured). On CPU tensors, and with
-    ``use_jit=False``, every call runs eagerly. ``donate`` (default True)
+    builds on the card. On CPU tensors, and with ``use_jit=False``, every
+    call runs eagerly. An FVD loss takes the device distance (E1 on the
+    card) over the global batch (:func:`fvd_in_step`), as JAX's step, which
+    always traces, takes ``wasserstein2_jax``. ``donate`` (default True)
     must stay True: the step updates ``state`` in place, as the JAX step
     donates it.
 
@@ -294,7 +310,7 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
             mb = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
             if sharded:
                 model.set_requires_gradient_sync(i == k - 1)
-            with batch_statistics_over(group), _opened(spatial):
+            with batch_statistics_over(group), _opened(spatial), fvd_in_step(mesh):
                 t, lv = loss_fn(mb, generator, scalars)
             (t / k).backward()
             if i == 0 and k > 1:
@@ -350,15 +366,23 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
     x ``sp`` processes: averaged over ``data``, summed over ``sp`` (each
     process's image rows' part of the row-additive losses). ``use_jit`` as
     for :func:`make_train_step`: captured per batch shape on the card (False
-    on a mesh there), new metric tensors at every call."""
+    on a mesh there), new metric tensors at every call.
+
+    An FVD loss takes the distance JAX's eval step takes: with ``use_jit``,
+    or on a mesh (whose step JAX jits; the port runs it eagerly only because
+    it does not capture collectives), the device distance over the global
+    batch (:func:`fvd_in_step`); with ``use_jit=False`` and no mesh, the
+    host's f64 distance, as JAX's unjitted step computes it."""
     _check_compiled(model, mesh, use_jit)
     _, cfg, loss_provider = _step_config(run_config, loss_provider)
     group = replica_group(mesh)
     shares = data_coordinate(mesh)[1]
     spatial = _spatial(model, mesh, loss_provider)
+    traced = use_jit or mesh is not None
 
     def eval_step(state, batch):
-        with torch.inference_mode(), _opened(spatial):
+        with torch.inference_mode(), _opened(spatial), \
+                fvd_in_step(mesh) if traced else contextlib.nullcontext():
             inputs, targets, kw = _unpack(model, batch, cfg)
             preds, _ = _apply_model(model, inputs, pred_frames=cfg["pred_frames"], train=False,
                                     **kw)

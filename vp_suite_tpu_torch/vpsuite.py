@@ -45,7 +45,9 @@ eval and predict steps, ``test``'s predictors and ``predict``'s cached
 functions each run their first call of a batch shape eagerly, capture the
 second into a CUDA graph and replay it from then on. ``train`` builds them
 with ``use_jit=False`` in a process group (the port does not capture
-collectives) and with an FVD loss (FVD reads back to the host).
+collectives). An FVD loss trains and validates on the card's distance (E1)
+inside the captured steps, as the JAX facade's jitted steps take
+``wasserstein2_jax``; in a group over the global batch's I3D features.
 """
 import itertools
 import json
@@ -73,7 +75,8 @@ from vp_suite_tpu_torch.parallel.mesh import (is_fsdp, make_mesh, mean_over, sha
                                               shard_params_fsdp)
 from vp_suite_tpu_torch.training.data import (BatchLoader, HBMCachedLoader, device_prefetch,
                                              estimate_cache_bytes)
-from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
+from vp_suite_tpu_torch.training.loop import (fvd_in_step, make_eval_step, make_predict_fn,
+                                             make_train_step)
 from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
 from vp_suite_tpu_torch.training.train_state import create_train_state, rebuild_optimizer
 from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
@@ -348,8 +351,10 @@ class VPSuite:
 
         On one card without a group the steps are captured into CUDA graphs
         (``use_jit=True``): each batch shape's first step runs eagerly, its
-        second is captured and replayed. In a group, or with ``"fvd"`` among
-        the losses, they run eagerly (``use_jit=False``)."""
+        second is captured and replayed. In a group they run eagerly
+        (``use_jit=False``). An FVD loss takes the device distance in training
+        and validation alike (``training.loop.fvd_in_step``), over the global
+        batch in a group."""
         entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
                                                             **run_kwargs)
         model = entry.model
@@ -431,8 +436,8 @@ class VPSuite:
                              f"to be one of the chosen losses: "
                              f"{list(config['losses_and_scales'].keys())}")
         # the compiled steps, as the JAX facade always asks for them; not on a
-        # mesh (collectives are not captured) or with an FVD loss (it reads back)
-        use_jit = mesh is None and "fvd" not in loss_provider.losses
+        # mesh (collectives are not captured)
+        use_jit = mesh is None
         train_step = make_train_step(model, run_config, loss_provider,
                                      accum_steps=run_config["accum_steps"], mesh=mesh,
                                      use_jit=use_jit)
@@ -515,7 +520,10 @@ class VPSuite:
             if with_validation:
                 val_batches = val_cache.epoch_iterator(seed=0, shuffle=False) \
                     if val_cache is not None else device_prefetch(val_loader, self.device, depth=1)
-                agg = [eval_step(state, batch) for batch in val_batches]
+                # FVD as in JAX's jitted eval step: the device distance, over the
+                # global batch on a mesh (the eval step runs eagerly there)
+                with fvd_in_step(mesh):
+                    agg = [eval_step(state, batch) for batch in val_batches]
                 if not agg:
                     raise RuntimeError("validation set is empty")
                 # the mean over the shards: every process decides alike
