@@ -133,9 +133,11 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     at b=32, 64x64, 5 -> 10, bf16, under PyTorch's default TF32 flags (a
     user's): ``predict`` and the Adam train step with every kernel's launch
     count set to 0 just before and held at 0 just after (no such model
-    reaches a port kernel), their latencies (median of 3 predicts, of 5
-    steps after 2) and one profiled call of each; the loss falls at each of 7
-    steps and PredRNN++'s schedule is exactly the one 7 steps leave; at b=2
+    reaches a port kernel), their compiled latencies (median of 3 predicts
+    after the capture, of 4 replays after the eager call and the capture)
+    and one profiled replay of each, the peak memory of one eager step; the
+    loss falls at each of 7 steps (an eager one, then the compiled step's)
+    and PredRNN++'s schedule is exactly the one 7 steps leave; at b=2
     in f32 (TF32 off), ``predict`` and one SGD step on the card against the
     CPU, with UNet-3D's running statistics and PredRNN++'s schedule (PhyDNet's
     step with f64 activations on both sides; PhyDNet's and ST-Phy's f32
@@ -172,12 +174,22 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     own time limit: (i) a world of one process over NCCL through the facade
     (``initialize_multihost()`` -> ``VPSuite()`` -> ``load_dataset("MMF")``
     -> ``train(multihost=True)``, b=32, 5 -> 10, bf16, two epochs of 3
-    steps): the fused path with ``fsdp=True`` and the sharded (``"orbax"``)
-    checkpoint, the per-step path replicated, each with its launch counts
-    held exactly, its second epoch's frames/s beside the same run's without a
-    group; and
-    f32 runs at b=8 under cuDNN's deterministic algorithms, whose parameters
-    must equal the same runs' without a group within 1e-6 relative; (ii) two
+    steps, compiled as without a group): the fused path with ``fsdp=True``
+    and the sharded (``"orbax"``) checkpoint, the per-step path replicated,
+    each with its launch counts held exactly (those of the first two calls of
+    each step), its second epoch's frames/s beside the same run's without a
+    group; f32 runs at b=8 under cuDNN's deterministic algorithms, whose
+    parameters must equal the same runs' without a group within 1e-6
+    relative; and (iii) in the same world, the three step builders with
+    ``mesh=make_mesh(0, "data", "cuda")`` and ``use_jit=True`` on (a), on (b)
+    under FSDP2 with ``accum_steps`` 1 and 2, and on (c), each against
+    ``use_jit=False`` on the same mesh in f32 at b=2: bit-identical on (a) and
+    (b), within the SGD gate on (c), the launches of the eager call and of the
+    capture and none from the host in a replay, replays under
+    ``set_sync_debug_mode("error")``, the collectives called while capturing,
+    the profiler's kernels of a replay, the order of NCCL's nodes in the
+    graph's debug dump, and the bf16 b=32 step graphed on the mesh beside the
+    graphed step without one; (ii) two
     processes on the one card over gloo: one f32 SGD step of each path on
     each process's half of a b=8 batch (the fused path under FSDP), against
     the one-process step on the whole batch in this process ((p0 - p1) / lr
@@ -189,9 +201,10 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
 18. drives tensor parallelism (``drive_tensor_parallel``) in child processes
     the same way: (t1) a world of one over NCCL
     on ``make_mesh_nd({"data": 1, "sp": 1, "tp": 1})``: each EF-ConvLSTM
-    path's f32 SGD step at b=8 (full width, 64x64, 5 -> 10) and ``predict``
-    with exact launch counts, the step's parameters bit-identical to the
-    step's without a group; (t2) two processes on the one card over gloo on
+    path's f32 SGD step at b=8 (full width, 64x64, 5 -> 10) and ``predict``,
+    compiled on the mesh (3 calls: eager, capture, replay), with exact launch
+    counts, the steps' parameters bit-identical to the steps' without a
+    group; (t2) two processes on the one card over gloo on
     ``{"data": 1, "tp": 2}`` under ``shard_params_tp``: each process holds
     exactly its slice of every sharded leaf, ``predict`` (K1 45 or K3 6 a
     process) within 1e-4 of one process's, the SGD step (K1 90 + K2 45 or
@@ -253,9 +266,10 @@ binary, the ``avcodec`` library, ``torchvision``, ``torchcodec``).
 
 Since the compiled step is the builders' default, the facade's runs in steps
 11-13 and 16 count the launches of the first two calls of each step (the
-eager call and the capture); step 10's timed train steps and the parallel
-phases build with ``use_jit=False``, and step 14 times the facade's compiled
-``predict`` beside step 10's eager train step.
+eager call and the capture), in a group over NCCL too; step 10's timed train
+steps and the phases over gloo build with ``use_jit=False`` (gloo's
+collectives run on the host, which a graph cannot hold), and step 14 times
+the facade's compiled ``predict`` beside step 10's eager train step.
 
 Any failed check exits non-zero before the result lines. The last two lines
 of standard output are the kernels' JSON line and the result JSON line.
@@ -2168,17 +2182,18 @@ def _adam_losses(name, batch, run_config, steps=7):
 
 def _time_new_model(name, frames, batch, run_config):
     r"""One new model at bench width in bf16: ``predict`` and the Adam train
-    step, each launch count held at 0, their latencies and profiles eager
-    (``use_jit=False``) and compiled (``VPSuite.predict`` and the default
-    step: CUDA-graph replays), the loss falling at each of 7 steps (UNet-3D's
-    at 5 -> 1, ``NEW_STEP_PRED``) and the schedule after them; returns
-    ``{"predict_ms", "step_ms"}`` (eager) and ``{"graph_predict_ms",
-    "graph_step_ms", "profiles"}`` (``profiles[(what, how)]`` the ``(device
-    ms, host ms)`` of one profiled call)."""
+    step, each launch count held at 0 (the compiled predictor's and an eager
+    step's), their compiled latencies and profiles (``VPSuite.predict`` and
+    the default step: CUDA-graph replays), the peak memory of the eager
+    step, the loss falling at each of 7 steps (the eager one and six of the
+    compiled step; UNet-3D's at 5 -> 1, ``NEW_STEP_PRED``) and the schedule
+    after them; returns ``{"graph_predict_ms", "graph_step_ms",
+    "profiles"}`` (``profiles[what]`` the ``(device ms, host ms)`` of one
+    profiled replay)."""
     import numpy as np
     import torch
     from vp_suite_tpu_torch import VPSuite
-    from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.loop import make_train_step
     from vp_suite_tpu_torch.training.train_state import create_train_state
     suite = VPSuite()
     model = _new_model(suite, name, compute_dtype=torch.bfloat16).model
@@ -2189,30 +2204,25 @@ def _time_new_model(name, frames, batch, run_config):
           and preds.dtype == torch.float32 and bool(torch.isfinite(preds).all()),
           f"{name}: predict gave {tuple(preds.shape)} {preds.dtype}, or non-finite values")
     profiles = {}
-    context = frames[:, :CTX].cuda()   # as VPSuite.predict hands it to its predictor
-    if model.NEEDS_COMPLETE_INPUT:
-        context = torch.cat([context, context.new_zeros((B, PRED, *context.shape[2:]))], 1)
-    context = {"frames": context, "actions": context.new_zeros((B, CTX + PRED, 1))}
-    eager_predict = make_predict_fn(model, run_config, use_jit=False)
-    for how, fn in (("eager", lambda: eager_predict(context)),
-                    ("graphed", lambda: suite.predict(frames[:, :CTX], pred_frames=PRED))):
-        fn()    # the graphed predict: its capture
-        ms, times = _median_ms(lambda: (fn(), torch.cuda.synchronize()), 3)
-        print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64, {how}: median "
-              f"{ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
-              f"{B * PRED / ms * 1e3:.0f} frames/s")
-        profiles[("predict", how)] = profile(f"predict {name} {how}", fn)
-        if how == "eager":
-            pred_ms = ms
-        else:
-            graph_pred_ms = ms
+
+    def predict():
+        suite.predict(frames[:, :CTX], pred_frames=PRED)
+    predict()    # the capture
+    graph_pred_ms, times = _median_ms(lambda: (predict(), torch.cuda.synchronize()), 3)
+    print(f"[time] predict {name} bf16 b={B} {CTX}->{PRED} at 64x64, graphed: median "
+          f"{graph_pred_ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+          f"{B * PRED / graph_pred_ms * 1e3:.0f} frames/s")
+    profiles["predict"] = profile(f"predict {name} graphed", predict)
 
     state = create_train_state(model, lr=LR, seed=SEED)
     step = make_train_step(model, run_config, use_jit=False)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
     counters = reset_counts()
     _, metrics = step(state, batch)
     _zero_launches(name, "one train step", counters)
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
     losses = [float(metrics["total"])]
     unread = no_gradient(name, model)
     for pname, p in model.named_parameters():
@@ -2222,11 +2232,9 @@ def _time_new_model(name, frames, batch, run_config):
         check(p.grad is not None and p.grad.dtype == torch.float32
               and bool(torch.isfinite(p.grad).all()),
               f"{name}: parameter {pname} has no finite f32 gradient after a step")
-    torch.cuda.reset_peak_memory_stats()
-    live = torch.cuda.memory_allocated()
-    step_ms, more, times = _time_step(step, state, batch, n=5, warmup=1)
+    graphed = make_train_step(model, run_config)
+    graph_step_ms, more, times = _time_step(graphed, state, batch, n=4, warmup=2)
     losses += more
-    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
     check(all(map(math.isfinite, losses)), f"{name}: non-finite training loss {losses}")
     falling, fall_of = losses, f"{CTX}->{PRED}"
     if name in NEW_STEP_PRED:
@@ -2246,26 +2254,16 @@ def _time_new_model(name, frames, batch, run_config):
     check(state.step == 7 and state.model_state == want_state,
           f"{name}: after 7 steps the state counts {state.step} steps and holds "
           f"{state.model_state}, not {want_state}")
-    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, Adam lr {LR}, eager: losses "
+    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, Adam lr {LR}: losses "
           + ", ".join(f"{x:.2f}" for x in losses)
-          + f"; median step {step_ms:.2f} ms (steps "
+          + f" (an eager step, then the compiled step's eager call, capture and 4 replays); "
+          f"graphed median step {graph_step_ms:.2f} ms (replays "
           + ", ".join(f"{t * 1e3:.2f}" for t in times) + ")"
-          f", {B * (CTX + PRED) / step_ms * 1e3:.0f} frames/s, peak memory {peak:.2f} GiB "
-          f"above what was live before; model_state {state.model_state}")
-    profiles[("train step", "eager")] = profile(f"train step {name} eager",
-                                                lambda: float(step(state, batch)[1]["total"]))
-    graphed = make_train_step(model, run_config)
-    graph_step_ms, graph_losses, times = _time_step(graphed, state, batch, n=5, warmup=2)
-    check(all(map(math.isfinite, graph_losses)), f"{name}: non-finite graphed losses")
-    print(f"[train] {name} bf16 b={B} {CTX}->{PRED} at 64x64, graphed (after an eager step "
-          f"and the capture): median step {graph_step_ms:.2f} ms (steps "
-          + ", ".join(f"{t * 1e3:.2f}" for t in times) + "), "
-          f"{B * (CTX + PRED) / graph_step_ms * 1e3:.0f} frames/s; losses "
-          + ", ".join(f"{x:.2f}" for x in graph_losses))
-    profiles[("train step", "graphed")] = profile(
-        f"train step {name} graphed", lambda: float(graphed(state, batch)[1]["total"]))
-    return dict(predict_ms=pred_ms, step_ms=step_ms, graph_predict_ms=graph_pred_ms,
-                graph_step_ms=graph_step_ms, profiles=profiles)
+          f", {B * (CTX + PRED) / graph_step_ms * 1e3:.0f} frames/s; peak memory of the eager "
+          f"step {peak:.2f} GiB above what was live before; model_state {state.model_state}")
+    profiles["train step"] = profile(f"train step {name} graphed",
+                                     lambda: float(graphed(state, batch)[1]["total"]))
+    return dict(graph_predict_ms=graph_pred_ms, graph_step_ms=graph_step_ms, profiles=profiles)
 
 
 #: the kernels' names in a profiler trace, by launch-count id (K3 and K3s are one kernel)
@@ -2333,7 +2331,8 @@ def drive_graphs(card, new_times):
     ``predict`` (within the f32 gate); at 16x16, PhyDNet's teacher-forcing
     coins and PredRNN++'s sampling masks in each graphed step equal the eager
     step's across the epoch and the iteration where they change; then the
-    eager-against-graphed table with (h)-(o) from ``new_times``."""
+    eager-against-graphed table, with the graphed rows of (h)-(o) from
+    ``new_times``."""
     import torch
     from vp_suite_tpu_torch import VPSuite
     from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
@@ -2461,13 +2460,11 @@ def drive_graphs(card, new_times):
             "not measured"
         print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
     for name, t in new_times.items():
-        for what, key in (("predict", "predict_ms"), ("train step", "step_ms")):
-            for how in ("eager", "graphed"):
-                ms = t[key] if how == "eager" else t["graph_" + key]
-                dev_ms, wall = t["profiles"][(what, how)]
-                busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
-                    "not measured"
-                print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
+        for what, key in (("predict", "graph_predict_ms"), ("train step", "graph_step_ms")):
+            dev_ms, wall = t["profiles"][what]
+            busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
+                "not measured"
+            print(f"[graphs]   ({name}) {what} graphed: {t[key]:.2f} ms; device {busy}")
     print(f"[graphs] phase {time.time() - t_phase:.1f} s")
 
 
@@ -2989,7 +2986,7 @@ def drive_new_models(dev, tf32_defaults):
     random weights from the seed): ``predict`` and the Adam train step
     (PhyDNet's and ST-Phy's at epoch 0, teacher-forced) with every kernel's
     launch count set to 0 just before and held at 0 just after, their
-    latencies and one profiled call each, under
+    compiled latencies and one profiled replay each, under
     PyTorch's default TF32 flags ``tf32_defaults``; the card against the CPU
     in f32 at b=2 with TF32 off (``predict``, one SGD step, UNet-3D's running
     statistics, PredRNN++'s schedule; the bf16 ``predict`` of
@@ -3406,9 +3403,9 @@ def _tooling_flops(dev, card, serve, train, predict_ms, new_times):
         model = _new_model(suite, name, compute_dtype=torch.bfloat16).model
         pred = count_flops(suite.predict, batch["frames"][:, :CTX], pred_frames=PRED)
         step = make_train_step(model, run_config)
-        rows.append((name, pred, new_times[name]["predict_ms"],
+        rows.append((name, pred, new_times[name]["graph_predict_ms"],
                      count_flops(step, create_train_state(model, lr=LR, seed=SEED), batch),
-                     new_times[name]["step_ms"]))
+                     new_times[name]["graph_step_ms"]))
         del suite, model, step
     for name, pred, pred_ms, step, step_ms in rows:
         print(f"[flops] {name} bf16 b={B} {CTX}->{PRED} at {IMG[1]}x{IMG[2]} on {card}: predict "
@@ -3754,7 +3751,7 @@ def _parallel_facade(out_dir):
                         ckpt_backend=backend, epochs=2, **kw, **run_kw)
             torch.cuda.synchronize()
             launches = read_counts(counters)
-            want = want_suite_launches(path, 2, PAR_STEPS, compiled=not grouped)
+            want = want_suite_launches(path, 2, PAR_STEPS)
             check(launches == want, f"(i) {tag} {path}: train launched {launches}, not {want}")
             fps[(tag, path)] = entry.train_epoch_fps[-1]
             written = out_dir / f"i_{tag}_{path}" / "final_model"
@@ -3781,18 +3778,303 @@ def _parallel_facade(out_dir):
                                    for k, v in entry.model.named_parameters()}
         torch.backends.cudnn.deterministic = False
         if grouped:
+            _mesh_graphs()
             torch.distributed.destroy_process_group()
     for path, _, _ in PAR_RUNS:
         a, b = params[("grouped", path)], params[("ungrouped", path)]
         rel = max(((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)).item()
                   for k in b)
-        print(f"[parallel] (i) {path}: the second epoch's train_epoch_fps in a group of one "
-              f"(NCCL) {fps[('grouped', path)]:.1f} against {fps[('ungrouped', path)]:.1f} "
-              f"without a group; f32 b={PAR_B} parameters after {PAR_STEPS} Adam steps, largest "
+        print(f"[parallel] (i) {path}: the second epoch's train_epoch_fps (compiled steps, "
+              f"replays) in a group of one (NCCL) {fps[('grouped', path)]:.1f} against "
+              f"{fps[('ungrouped', path)]:.1f} without a group, on {nvidia_smi()}; f32 "
+              f"b={PAR_B} parameters after {PAR_STEPS} Adam steps, largest "
               f"relative difference from the run without a group {rel:.3g} (limit {PAR_REL})",
               flush=True)
         check(rel <= PAR_REL, f"(i) {path}: the f32 run in a group of one parts from the run "
                               f"without a group by {rel:.3g}")
+
+
+#: the compiled steps on a data mesh in the world of one over NCCL
+#: (``_mesh_graphs``): the cases as (tag, path, FSDP, accum_steps), the f32 b=2
+#: steps of each (an eager call, the capture, replays), and the bf16 b=B
+#: replays timed with a mesh and without one
+MESH_CASES = (("a", "per_step", False, 1), ("b FSDP", "fused_scan", True, 1),
+              ("b FSDP accum 2", "fused_scan", True, 2), ("c", "trajgru", False, 1))
+MESH_STEPS = 4
+MESH_TIMED = 5
+#: the collectives whose calls ``_mesh_graphs`` counts (the data all-reduce;
+#: FSDP2's all-gather and reduce-scatter, which it skips in a world of one)
+MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def _counting_collectives(seen):
+    r"""Counts each call of :data:`MESH_COLLECTIVES` into ``seen`` by
+    ``(name, whether the calling stream was capturing)``; returns the undo."""
+    import torch
+    import torch.distributed as dist
+    real = {n: getattr(dist, n) for n in MESH_COLLECTIVES}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            key = (name, torch.cuda.is_current_stream_capturing())
+            seen[key] = seen.get(key, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+    for n in real:
+        setattr(dist, n, counted(n))
+    return lambda: [setattr(dist, n, f) for n, f in real.items()]
+
+
+def _graph_order(fn, early, late=("nccl", "onerank")):
+    r"""Captures ``fn`` once more into a graph kept for its debug dump and
+    reads the dump's nodes: ``(nodes, NCCL nodes, after, before)``, the count
+    of its nodes, of those whose label holds one of ``late``, and whether each
+    of those is reached from every node whose label holds ``early`` (the
+    backward's kernel) and reaches every optimizer kernel; None where the
+    dump fails."""
+    import os
+    import re
+    import tempfile
+    import torch
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    fd, path = tempfile.mkstemp(suffix=".dot", dir=ROOT / "vp-suite-data" / "chip_smoke")
+    os.close(fd)
+    try:
+        graph.debug_dump(path)
+        text = Path(path).read_text()
+    finally:
+        os.unlink(path)
+    del graph
+    node = r'"?((?:\w+_)?node_\d+)"?'
+    labels = {m.group(1): m.group(2) for m in
+              re.finditer(node + r'\s*\[[^\]]*?label="((?:[^"\\]|\\.)*)"', text)}
+    if not labels:
+        print(f"[parallel] (iii) the debug dump, {len(text)} characters, begins {text[:400]!r}")
+        return None
+    succ = {}
+    for a, b in re.findall(node + r'\s*->\s*' + node, text):
+        succ.setdefault(a, set()).add(b)
+
+    def reached(a):
+        seen, todo = set(), [a]
+        while todo:
+            for y in succ.get(todo.pop(), ()):
+                if y not in seen:
+                    seen.add(y)
+                    todo.append(y)
+        return seen
+    lates = [n for n, lab in labels.items() if any(k in lab.lower() for k in late)]
+    earlies = [n for n, lab in labels.items() if early in lab]
+    optim = [n for n, lab in labels.items() if re.search(r"adam|sgd", lab, re.I)]
+    after = all(n in reached(e) for e in earlies for n in lates)
+    before = all(o in reached(n) for n in lates for o in optim)
+    return len(labels), len(lates), after, before
+
+
+def _mesh_model(path, fsdp, dtype=None):
+    import torch
+    model = _tp_model(path)
+    if dtype is not None:
+        model.compute_dtype = dtype
+    if fsdp:   # FSDP2 over the mesh of one, which shard_params_fsdp leaves whole
+        from torch.distributed.fsdp import fully_shard
+        from vp_suite_tpu_torch.parallel import make_mesh
+        small = {p for p in model.parameters() if p.numel() < 4096}
+        fully_shard(model, mesh=make_mesh(0, "data", "cuda"), ignored_params=small)
+    return model
+
+
+def _local(p):
+    from torch.distributed.tensor import DTensor
+    return (p.to_local() if isinstance(p, DTensor) else p).detach()
+
+
+def _mesh_graphs():
+    r"""In the world of one over NCCL: ``make_train_step``, ``make_eval_step``
+    and ``make_predict_fn`` with ``mesh=make_mesh(0, "data", "cuda")`` and
+    ``use_jit=True`` on (a), on (b) under FSDP2 (``fully_shard`` over the
+    mesh; ``accum_steps`` 1 and 2) and on (c), each against the same builder
+    with ``use_jit=False`` on the same mesh, f32 at b=2 under cuDNN's
+    deterministic algorithms: SGD (Adam under FSDP2: SGD over its DTensors
+    has no form with a tensor rate, so its step refuses ``use_jit``), the
+    parameters bit-identical after MESH_STEPS steps on (a) and (b), within
+    the SGD gate as ``(p0 - p1) / lr`` on (c) (float atomics); the launches of
+    the eager call and of the capture, none from the host in a replay; the
+    replays under ``set_sync_debug_mode("error")``; the collectives called in
+    the eager call and again, while capturing, in the capture, none in a
+    replay; the profiler's kernels of one replay (the port's, and NCCL's by
+    name); the order of NCCL's nodes in a graph of the step (its debug
+    dump); then eval and predict graphed against eager, and two more train
+    steps. Last, the bf16 b=B Adam step of (a) and (b) graphed on the mesh
+    beside the graphed step without one (median host time of MESH_TIMED
+    replays, ending in a read of the loss)."""
+    import torch
+    from vp_suite_tpu_torch.parallel import make_mesh
+    from vp_suite_tpu_torch.training.loop import (make_eval_step, make_predict_fn,
+                                                 make_train_step)
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    t0 = time.time()
+    mesh = make_mesh(0, "data", "cuda")
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    small = {"frames": _par_frames()[:2].cuda()}
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    print(f"[parallel] (iii) compiled steps on make_mesh(0, 'data', 'cuda') over "
+          f"{torch.distributed.get_backend()} in a world of one, f32 b=2 against use_jit=False "
+          f"on the same mesh, on {nvidia_smi()}", flush=True)
+    backward = {"per_step": "_convlstm_gate_bwd", "fused_scan": "scan_bwd_",
+                "trajgru": "warp_bwd_kernel"}
+    for tag, path, fsdp, k in MESH_CASES:
+        models = [_mesh_model(path, fsdp) for _ in range(2)]
+        optimizer = "adam" if fsdp else "sgd"
+        states = [create_train_state(m, lr=GRAPH_LR, optimizer=optimizer) for m in models]
+        steps = [make_train_step(m, run, accum_steps=k, mesh=mesh, use_jit=j == 1)
+                 for j, m in enumerate(models)]
+        p0 = [_local(p).clone() for p in models[0].parameters()]
+        want = {key: k * v for key, v in WANT_TRAIN_LAUNCHES[path].items()}
+        counts, calls, losses = [], [], []
+        for n in range(MESH_STEPS):
+            _, eager = steps[0](states[0], small)
+            torch.cuda.synchronize()
+            seen = {}
+            undo = _counting_collectives(seen)
+            counters = reset_counts()
+            torch.cuda.set_sync_debug_mode("error" if n >= 2 else 0)
+            try:
+                _, got = steps[1](states[1], small)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                undo()
+            torch.cuda.synchronize()
+            counts.append(read_counts(counters))
+            calls.append(seen)
+            losses.append((float(got["total"]), float(eager["total"])))
+            # pinned host memory taken and given back between replays: a graph
+            # node that read a freed pinned buffer would see it reused
+            for _ in range(4):
+                torch.empty(1 << 22, dtype=torch.uint8, pin_memory=True).cuda(non_blocking=True)
+        check(counts[0] == want and counts[1] == want
+              and all(c == _launches() for c in counts[2:]),
+              f"(iii) {tag}: the eager call, the capture and the replays launched {counts}, not "
+              f"{want}, {want} and none")
+        # the eager call's one more all-reduce: the check that the processes
+        # agree on the parameters without a gradient, which reads back
+        eager_calls = {n: c for (n, capturing), c in calls[0].items() if not capturing}
+        captured = {n: c for (n, capturing), c in calls[1].items() if capturing}
+        check(captured.get("all_reduce", 0) >= 1 and len(calls[1]) == len(captured)
+              and captured == {**eager_calls, "all_reduce": eager_calls.get("all_reduce") - 1}
+              and not any(calls[2:]),
+              f"(iii) {tag}: collectives called {calls} (eager, capture, replays)")
+        same = sum(torch.equal(_local(a), _local(b))
+                   for a, b in zip(models[0].parameters(), models[1].parameters()))
+        deltas = [{i: (a - _local(p)) / GRAPH_LR
+                   for i, (a, p) in enumerate(zip(p0, m.parameters()))} for m in models]
+        worst = _delta_excess(deltas[1], deltas[0])
+        exact = path != "trajgru"
+        print(f"[parallel] (iii) {tag} f32 b=2 {optimizer}{', FSDP2' if fsdp else ''}, accum_steps "
+              f"{k}: launches in the eager call "
+              + ", ".join(f"{key} {v}" for key, v in counts[0].items() if v) + ", in the capture "
+              + ", ".join(f"{key} {v}" for key, v in counts[1].items() if v)
+              + f", from the host in each replay {[sum(c.values()) for c in counts[2:]]}; "
+              f"collectives called in the eager call {eager_calls}, while capturing {captured}, "
+              f"in the replays {calls[2:]}; losses (graphed, eager) "
+              + ", ".join(f"{g:.9g}/{e:.9g}" for g, e in losses)
+              + f"; after {MESH_STEPS} steps {same} of {len(p0)} parameters bit-identical, "
+              f"(p0-p1)/lr max(|diff| - rtol*|eager|) {worst[0]:.3g}", flush=True)
+        if exact:
+            check(same == len(p0) and all(g == e for g, e in losses),
+                  f"(iii) {tag}: the graphed mesh step is not bit-identical to the eager one")
+        check(worst[0] <= STEP_TOL, f"(iii) {tag}: the graphed mesh step parts from the eager one")
+        kernels = {}
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        steps[0](states[0], small)   # the eager model keeps step with the profiled replay
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps[1](states[1], small)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[e.key] = e.count
+        nccl = {key[:80]: c for key, c in kernels.items()
+                if "nccl" in key.lower() or "onerank" in key.lower()}
+        seen = {name: sum(c for key, c in kernels.items() if name in key)
+                for name in by_name(want)}
+        print(f"[parallel] (iii) {tag}: the profiler's kernels of one replay: "
+              + ", ".join(f"{key} {v}" for key, v in seen.items() if v)
+              + "; NCCL's " + str(nccl or "none (NCCL records no node for an in-place "
+                                          "all-reduce of one rank)")
+              + f"; {sum(kernels.values())} launches of {len(kernels)} kernels", flush=True)
+        check(all(seen[key] <= v for key, v in by_name(want).items())
+              and sum(seen.values()) > 0,
+              f"(iii) {tag}: the profiler saw {seen} in one replay")
+        order = _graph_order(lambda: steps[1].compiled.fn(states[1], states[1].generator, small,
+                                                          {}), backward[path])
+        print(f"[parallel] (iii) {tag}: a graph of the step (debug dump): "
+              + ("not measured (no nodes in the dump)" if order is None else
+                 f"{order[0]} nodes, none of them NCCL's (nothing to order against the "
+                 f"backward's kernels in a world of one)" if not order[1] else
+                 f"{order[0]} nodes, {order[1]} of NCCL, each after every "
+                 f"{backward[path]} node: {order[2]}, before every optimizer node: {order[3]}"),
+              flush=True)
+        if order is not None:
+            check(order[2] and order[3], f"(iii) {tag}: an NCCL node is not ordered after the "
+                                         f"backward and before the optimizer")
+        for make in (make_eval_step, make_predict_fn):
+            fns = [make(m, run, mesh=mesh, use_jit=j == 1) for j, m in enumerate(models)]
+            diffs, launched = [], []
+            for n in range(3):
+                args = (small,) if make is make_predict_fn else (None, small)
+                want_out = fns[0](*args)
+                torch.cuda.synchronize()
+                counters = reset_counts()
+                torch.cuda.set_sync_debug_mode("error" if n == 2 else 0)
+                try:
+                    got = fns[1](*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                launched.append(sum(read_counts(counters).values()))
+                a, b = (got["total"], want_out["total"]) if make is make_eval_step else \
+                    (got[0], want_out[0])
+                diffs.append((a - b).abs().max().item())
+            limit = 0.0 if exact else PREDICT_ATOL_F32 * max(1.0, b.abs().max().item())
+            print(f"[parallel] (iii) {tag} {make.__name__} on the mesh, graphed (eager call, "
+                  f"capture, replay) against eager: max |diff| {diffs} (limit {limit:.3g}); "
+                  f"launches {launched}", flush=True)
+            check(max(diffs) <= limit and launched[2] == 0 and launched[0] == launched[1] > 0,
+                  f"(iii) {tag}: the graphed {make.__name__} on the mesh parts from the eager one")
+        for _ in range(2):
+            for step, st in zip(steps, states):
+                step(st, small)
+        same = sum(torch.equal(_local(a), _local(b))
+                   for a, b in zip(models[0].parameters(), models[1].parameters()))
+        print(f"[parallel] (iii) {tag}: after eval, predict and 2 more steps {same} of {len(p0)} "
+              f"parameters bit-identical", flush=True)
+        if exact:
+            check(same == len(p0), f"(iii) {tag}: the steps after eval and predict part")
+        del models, states, steps
+        torch.cuda.empty_cache()
+    cudnn.deterministic = False
+
+    frames = torch.rand((B, CTX + PRED, IMG[1], IMG[2], IMG[0]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    for path in ("per_step", "fused_scan"):
+        ms = {}
+        for where in ("mesh", "no mesh", "no mesh", "mesh"):
+            model = _mesh_model(path, False, torch.bfloat16)
+            state = create_train_state(model, lr=LR, seed=SEED)
+            step = make_train_step(model, run, mesh=mesh if where == "mesh" else None)
+            ms.setdefault(where, []).append(
+                _time_step(step, state, {"frames": frames}, n=MESH_TIMED, warmup=3)[0])
+            del model, state, step
+            torch.cuda.empty_cache()
+        print(f"[parallel] (iii) {path} bf16 b={B} Adam train step graphed, median of "
+              f"{MESH_TIMED} replays: on the mesh " + " / ".join(f"{t:.2f}" for t in ms["mesh"])
+              + " ms, without a mesh " + " / ".join(f"{t:.2f}" for t in ms["no mesh"])
+              + f" ms (mesh, none, none, mesh), on {nvidia_smi()}", flush=True)
+    print(f"[parallel] (iii) took {time.time() - t0:.1f} s", flush=True)
 
 
 def _parallel_pair(out_dir):
@@ -3843,6 +4125,8 @@ def _parallel_pair(out_dir):
 TP_WORLDS = (("tp1", 1, {"data": 1, "sp": 1, "tp": 1}), ("tp2", 2, {"data": 1, "tp": 2}),
              ("tp4", 4, {"data": 2, "sp": 1, "tp": 2}))
 TP_TIMED = 1
+#: (t1)'s compiled calls of each step: the eager call, the capture, a replay
+TP1_CALLS = 3
 #: (t2)'s f32 predict against one process's
 TP_PREDICT_ATOL = 1e-4
 
@@ -3980,8 +4264,9 @@ def _tp4_params(ranks4):
 
 def _tp_world_of_one(out_dir):
     r"""(t1): one process over NCCL on a 1x1x1 mesh: each path's f32 SGD step
-    and predict, with exact launch counts, bit-identical to the same without a
-    group (cuDNN's deterministic algorithms)."""
+    and predict, compiled (an eager call, the capture, a replay), with exact
+    launch counts, bit-identical to the same without a group (cuDNN's
+    deterministic algorithms)."""
     import torch
     from vp_suite_tpu_torch.parallel import (initialize_multihost, make_mesh_nd, shard_params,
                                              shard_params_tp)
@@ -4001,24 +4286,30 @@ def _tp_world_of_one(out_dir):
             if grouped:
                 shard_params_tp(shard_params(model, mesh), mesh)
             state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
-            step = make_train_step(model, run, mesh=mesh if grouped else None, use_jit=False)
+            step = make_train_step(model, run, mesh=mesh if grouped else None)
+            predict_fn = make_predict_fn(model, run, mesh=mesh if grouped else None)
             torch.cuda.synchronize()
             counters = reset_counts()
-            step(state, {"frames": frames})
+            for _ in range(TP1_CALLS):
+                step(state, {"frames": frames})
             torch.cuda.synchronize()
             train = read_counts(counters)
             counters = reset_counts()
-            make_predict_fn(model, run, use_jit=False)({"frames": frames})
+            for _ in range(TP1_CALLS):
+                predict_fn({"frames": frames})
             torch.cuda.synchronize()
             predict = read_counts(counters)
-            check(train == WANT_TRAIN_LAUNCHES[path] and predict == WANT_PREDICT_LAUNCHES[path],
-                  f"(t1) {path}: the step launched {train}, predict {predict}")
+            n = compiled_calls(TP1_CALLS)
+            check(train == {k: n * v for k, v in WANT_TRAIN_LAUNCHES[path].items()}
+                  and predict == {k: n * v for k, v in WANT_PREDICT_LAUNCHES[path].items()},
+                  f"(t1) {path}: {TP1_CALLS} compiled steps launched {train}, predicts {predict}")
             params[grouped] = {k: v.detach().clone() for k, v in model.named_parameters()}
         same = all(torch.equal(v, params[False][k]) for k, v in params[True].items())
-        print(f"[tp] (t1) {path} in a world of one over NCCL on a 1x1x1 data x sp x tp mesh: "
-              f"step launches " + ", ".join(f"{k} {v}" for k, v in train.items() if v)
+        print(f"[tp] (t1) {path} in a world of one over NCCL on a 1x1x1 data x sp x tp mesh, "
+              f"{TP1_CALLS} compiled calls: step launches "
+              + ", ".join(f"{k} {v}" for k, v in train.items() if v)
               + ", predict " + ", ".join(f"{k} {v}" for k, v in predict.items() if v)
-              + f" (as wanted); f32 SGD step bit-identical to the run without a group: {same}",
+              + f" (as wanted); f32 SGD steps bit-identical to the run without a group: {same}",
               flush=True)
         check(same, f"(t1) {path}: the step in a world of one parts from the step without one")
     torch.distributed.destroy_process_group()

@@ -5,7 +5,8 @@ r"""One process of a two-process gloo world on the CPU, for
         python torch_parallel_worker.py {steps|fvd|facade} <out_dir>
 
 ``steps``: one train step of each case of ``CASES`` through
-``make_train_step(..., mesh=make_mesh())`` on this process's half of a
+``make_train_step(..., mesh=make_mesh())`` (the default ``use_jit``, as the
+facade builds it in a group) on this process's half of a
 global batch (numpy, from a seed), from the weights a model of the registry
 draws from seed 0; writes ``steps_{rank}.pt``: per case the loss, the
 parameters and buffers after the step (whole, gathered under FSDP), the
@@ -208,7 +209,7 @@ def run_steps(out_dir, rank):
                 return mask, ms
             model.scheduled_sampling_mask = recording
         step = make_train_step(model, {"context_frames": ctx, "pred_frames": pred}, accum_steps=k,
-                               mesh=mesh, use_jit=False)
+                               mesh=mesh)
         batch = shard_batch({"frames": torch.from_numpy(case_frames(name))}, mesh)
         _, metrics = step(state, batch)
         results[name] = {
@@ -245,7 +246,7 @@ def run_fvd(out_dir, rank):
     with fvd_in_step(mesh):
         local = make_eval_step(model, FVD_RUN, losses, use_jit=False)(state, batch)
     facade = mean_over({k: float(v) for k, v in local.items()}, mesh)
-    step = make_train_step(model, FVD_RUN, losses, mesh=mesh, use_jit=False)
+    step = make_train_step(model, FVD_RUN, losses, mesh=mesh)
     from vp_suite_tpu_torch.measure.fvd import fvd
     real, fvd.i3d_features = fvd.i3d_features, standin_features
     try:

@@ -18,8 +18,9 @@ predictions within its f32 ``predict`` gate (1e-4); PhyDNet across the epoch
 where its teacher-forcing ratio falls to 0, PredRNN++ across the iteration
 where its sampling rate does; one graph per batch shape; the outputs of
 every call new tensors; a learning rate cut after the capture reaching the
-next replay; the refusal on a mesh; an FVD loss captured; a capturable state
-through a checkpoint.
+next replay; the refusal on a gloo mesh; the mesh steps of a world of one over
+NCCL captured, bit-identical to the eager mesh steps; an FVD loss captured; a
+capturable state through a checkpoint.
 """
 import math
 import socket
@@ -170,20 +171,70 @@ def test_a_learning_rate_cut_reaches_the_next_replay(card, optimizer):
     assert _excess(*deltas) <= STEP_TOL
 
 
-def test_a_mesh_refuses_the_compiled_step(card):
-    from vp_suite_tpu_torch.parallel import initialize_multihost, make_mesh
+def _world_of_one(backend):
+    from vp_suite_tpu_torch.parallel import initialize_multihost
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    initialize_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda", backend="gloo")
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda", backend=backend)
+
+
+def test_a_mesh_refuses_the_compiled_step(card):
+    r"""A gloo group on the card: its collectives run on the host, so the
+    builders refuse ``use_jit=True`` and name gloo."""
+    from vp_suite_tpu_torch.parallel import make_mesh
+    _world_of_one("gloo")
     try:
         mesh = make_mesh(0, "data", "cuda")
         model = _model("per_step")
         for make in (make_train_step, make_eval_step, make_predict_fn):
-            with pytest.raises(NotImplementedError, match="use_jit=False"):
+            with pytest.raises(NotImplementedError, match="runs gloo on the card.*use_jit=False"):
                 make(model, RUN, mesh=mesh)
         state = create_train_state(model, lr=LR, optimizer="sgd")
         make_train_step(model, RUN, mesh=mesh, use_jit=False)(state, _batch(model))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["per_step", "fused_scan"])
+def test_an_nccl_world_of_one_captures_its_mesh_steps(card, name):
+    r"""A world of one over NCCL: the train, eval and predict steps built
+    with ``mesh=`` and ``use_jit=True`` capture (the all-reduce inside the
+    train and eval graphs) and their replays, under the sync debug mode's
+    "error", equal the eager mesh steps bit for bit, the train step's
+    parameters after 4 steps included."""
+    from vp_suite_tpu_torch.parallel import make_mesh
+    _world_of_one("nccl")
+    try:
+        mesh = make_mesh(0, "data", "cuda")
+        models = [_model(name), _model(name)]
+        batch = _batch(models[0])
+        states = [create_train_state(m, lr=LR, optimizer="sgd") for m in models]
+        steps = [make_train_step(m, RUN, mesh=mesh, use_jit=j == 1) for j, m in enumerate(models)]
+        for n in range(4):
+            _, want = steps[0](states[0], batch)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if n >= 2 else 0)
+            try:
+                _, got = steps[1](states[1], batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert all(torch.equal(got[k], want[k]) for k in want)
+        assert len(steps[1].compiled.graphs) == 1
+        for a, b in zip(*(m.parameters() for m in models)):
+            assert torch.equal(a, b)
+        for make in (make_eval_step, make_predict_fn):
+            eager, graph = (make(models[1], RUN, mesh=mesh, use_jit=j) for j in (False, True))
+            args = (batch,) if make is make_predict_fn else (None, batch)
+            want = pytree.tree_flatten(eager(*args))[0]
+            for n in range(3):
+                torch.cuda.set_sync_debug_mode("error" if n == 2 else 0)
+                try:
+                    got = pytree.tree_flatten(graph(*args))[0]
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert len(graph.graphs) == 1
     finally:
         torch.distributed.destroy_process_group()
 

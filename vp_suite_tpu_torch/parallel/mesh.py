@@ -184,6 +184,22 @@ def replica_group(mesh):
     return mesh[axis, "sp"]._flatten().get_group()
 
 
+def step_groups(mesh, model=None) -> list:
+    r"""The process groups whose collectives a step of ``model`` on ``mesh``
+    can run: each axis's (the data all-reduce, BatchNorm's statistics, the tp
+    gathers, the halo exchanges, the ``seq`` and ``pp`` hops), the ``data`` x
+    ``sp`` one (:func:`replica_group`), and those of the meshes over which
+    ``model``'s DTensor parameters lie (FSDP2's all-gathers and
+    reduce-scatters, also in a step built without a mesh)."""
+    meshes = [] if mesh is None else [mesh]
+    for p in [] if model is None else model.parameters():
+        if isinstance(p, DTensor) and all(p.device_mesh is not m for m in meshes):
+            meshes.append(p.device_mesh)
+    groups = [g for m in meshes for g in m.get_all_groups()]
+    replica = None if mesh is None else replica_group(mesh)
+    return groups + ([replica] if replica is not None else [])
+
+
 def shard_params(model, mesh):
     r"""Broadcasts ``model``'s parameters and buffers from rank 0, so that
     every process of the mesh holds the same replica (the JAX package's

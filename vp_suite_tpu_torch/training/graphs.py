@@ -25,7 +25,14 @@ wraps a step function ``fn(*args)``, and on CUDA tensors
   graph, so that each replay draws fresh numbers, those the eager step
   would draw;
 - all of one wrapper's graphs share one memory pool;
-- a capture that fails raises: a step never carries on eagerly on the card.
+- a capture that fails raises: a step never carries on eagerly on the card;
+- a step's collectives are recorded into its graph where they run over NCCL
+  (:func:`capture_refusal`): the data all-reduce, FSDP2's all-gathers and
+  reduce-scatters, the tp, halo and row gathers. A capture executes
+  nothing, so no collective runs at the capture call: its replay, which
+  follows at once, runs them, and every process must make its eager call,
+  its capture and its replays of each signature at the same points, as it
+  makes its eager collectives.
 
 On CPU tensors every call runs ``fn`` eagerly (the floats as 0-d f32
 tensors all the same): the plain path, as the kernel wrappers compute their
@@ -37,7 +44,35 @@ count Python calls, so the eager call and the capture move them and a
 replay does not.
 """
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
+
+
+def _cuda_backend(backend):
+    r"""The backend that runs a group's CUDA tensors, from
+    ``dist.get_backend``'s name (``"nccl"``, ``"gloo"`` or a per-device
+    list such as ``"cpu:gloo,cuda:nccl"``)."""
+    parts = dict(p.split(":", 1) for p in str(backend).split(",") if ":" in p)
+    return parts.get("cuda", str(backend))
+
+
+def capture_refusal(groups, on_card):
+    r"""The rule of which steps capture: None where a step whose collectives
+    run over the process ``groups`` (``parallel.mesh.step_groups``) is
+    captured, else why it is not. On the card a graph records the
+    collectives of NCCL, which launches them on the card, and no other
+    backend's: gloo runs its collectives on the host. Off the card (``on_card``
+    false) every step runs eagerly, so any backend does."""
+    if not on_card:
+        return None
+    refused = sorted({b for b in (_cuda_backend(dist.get_backend(g)) for g in groups)
+                      if b != "nccl"})
+    if not refused:
+        return None
+    why = ("gloo runs its collectives on the host, where a CUDA graph cannot record them"
+           if "gloo" in refused else "a CUDA graph records the collectives of NCCL alone")
+    return (f"use_jit=True on a mesh whose process group runs {' and '.join(refused)} on the "
+            f"card: {why}; build the step with use_jit=False")
 
 
 def _signature(leaves):

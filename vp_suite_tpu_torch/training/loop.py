@@ -30,10 +30,10 @@ from vp_suite_tpu_torch.parallel.distributed import batch_statistics_over
 from vp_suite_tpu_torch.parallel.mesh import (all_reduce_gradients, average_over_tp, axis_size,
                                               check_same_gradients, check_train_mesh,
                                               data_coordinate, data_group, gather_batch, is_fsdp,
-                                              replica_group)
+                                              replica_group, step_groups)
 from vp_suite_tpu_torch.parallel.spatial import active_spatial, gather_rows, spatial_halo_convs
 from vp_suite_tpu_torch.parallel.tensor import sharded_params
-from vp_suite_tpu_torch.training.graphs import CompiledStep
+from vp_suite_tpu_torch.training.graphs import CompiledStep, capture_refusal
 
 #: the registry models whose every op is row-local, so that they run on a mesh
 #: with ``sp`` > 1 (each process on its slab of image rows)
@@ -84,14 +84,36 @@ def fvd_in_step(mesh=None):
     return step_distance(gather)
 
 
-def _check_compiled(model, mesh, use_jit):
-    r"""Raises for ``use_jit`` on a mesh on the card: the collectives of a
-    step on a mesh (gloo's, NCCL's) are not captured into CUDA graphs."""
+def compile_refusal(model, mesh=None):
+    r"""Why the steps of ``model`` on ``mesh`` do not capture on the card
+    (:func:`~vp_suite_tpu_torch.training.graphs.capture_refusal` over the
+    groups its collectives reach, ``parallel.mesh.step_groups``), or None
+    where they do: off the card, without a mesh or FSDP, and where every
+    group runs NCCL."""
     on_card = any(t.is_cuda for t in (*model.parameters(), *model.buffers()))
-    if mesh is not None and use_jit and on_card:
-        raise NotImplementedError("use_jit=True on a mesh: the port does not capture a step's "
-                                  "collectives into a CUDA graph; build the step with "
-                                  "use_jit=False")
+    return capture_refusal(step_groups(mesh, model), on_card)
+
+
+def _check_compiled(model, mesh, use_jit):
+    r"""Raises ``NotImplementedError`` for ``use_jit`` where
+    :func:`compile_refusal` refuses the step."""
+    refusal = compile_refusal(model, mesh) if use_jit else None
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+
+
+def _check_graphable(optimizer):
+    r"""Raises ``NotImplementedError`` for an optimizer on the card with a
+    float learning rate, which a CUDA graph would freeze at its capture:
+    ``create_train_state`` holds it as a 0-d tensor there, except for SGD
+    over FSDP2's sharded parameters (``training.train_state``)."""
+    groups = [g for g in optimizer.param_groups if any(p.is_cuda for p in g["params"])]
+    if any(not torch.is_tensor(g["lr"]) for g in groups):
+        raise NotImplementedError(
+            "use_jit=True with an optimizer whose learning rate on the card is a float, which "
+            "a CUDA graph would keep at its value at the capture (SGD over FSDP2's sharded "
+            "parameters has no form that reads a tensor rate); train with Adam, or build the "
+            "step with use_jit=False")
 
 
 def _apply_model(model, x, *args, **kwargs):
@@ -215,8 +237,13 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
     the gradients of the replicated parameters and the losses are summed over
     ``sp`` and averaged over ``data`` (``all_reduce_gradients``).
 
-    On a mesh on the card ``use_jit`` must be False (``NotImplementedError``
-    otherwise): the port does not capture collectives.
+    On a mesh the step is captured as without one, its collectives inside
+    the graph, where every group it reaches runs NCCL (the all-reduce of the
+    gradients and losses, FSDP2's all-gathers and reduce-scatters, BatchNorm's
+    statistics, the tp, halo and row gathers); the first, eager call also
+    checks that the processes agree on the parameters without a gradient,
+    which reads back. On the card a group over gloo raises
+    ``NotImplementedError`` unless ``use_jit=False`` (:func:`compile_refusal`).
     """
     if not donate:
         raise ValueError("donate=False is not ported: the port's train step always updates the "
@@ -345,6 +372,8 @@ def make_train_step(model: VPModel, run_config: dict, loss_provider=None, accum_
         b = batch["frames"].shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by accum_steps {k}")
+        if use_jit and state.optimizer is not None:
+            _check_graphable(state.optimizer)
         scalars, model_state = host_scalars(state, epoch)
         metrics = run(state, state.generator, batch, scalars)
         state.step += 1
@@ -365,12 +394,12 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
     metrics are the global batch's, in one all-reduce over the mesh's ``data``
     x ``sp`` processes: averaged over ``data``, summed over ``sp`` (each
     process's image rows' part of the row-additive losses). ``use_jit`` as
-    for :func:`make_train_step`: captured per batch shape on the card (False
-    on a mesh there), new metric tensors at every call.
+    for :func:`make_train_step`: captured per batch shape on the card, on an
+    NCCL mesh with the all-reduce inside the graph, new metric tensors at
+    every call.
 
     An FVD loss takes the distance JAX's eval step takes: with ``use_jit``,
-    or on a mesh (whose step JAX jits; the port runs it eagerly only because
-    it does not capture collectives), the device distance over the global
+    or on a mesh (whose step JAX jits), the device distance over the global
     batch (:func:`fvd_in_step`); with ``use_jit=False`` and no mesh, the
     host's f64 distance, as JAX's unjitted step computes it."""
     _check_compiled(model, mesh, use_jit)
@@ -379,6 +408,7 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
     shares = data_coordinate(mesh)[1]
     spatial = _spatial(model, mesh, loss_provider)
     traced = use_jit or mesh is not None
+    fsdp = is_fsdp(model)
 
     def eval_step(state, batch):
         with torch.inference_mode(), _opened(spatial), \
@@ -393,6 +423,8 @@ def make_eval_step(model: VPModel, run_config: dict, loss_provider=None, mesh=No
                 torch.distributed.all_reduce(means, group=group)
                 means /= shares
                 total, loss_values = means[0], dict(zip(names, means[1:]))
+            if fsdp:
+                model.reshard()   # as after a train step: see make_predict_fn
         return {"total": total, **loss_values}
 
     return CompiledStep(eval_step, "the eval step", use_jit)
@@ -412,12 +444,14 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=
     halo rows, and the predictions and targets come back as whole frames,
     gathered over ``sp``, as the JAX package returns a global array (the
     adapters, which resize whole frames, are refused there). ``use_jit`` as
-    for :func:`make_train_step`: captured per input shape on the card (False
-    on a mesh there), new prediction tensors at every call."""
+    for :func:`make_train_step`: captured per input shape on the card, on an
+    NCCL mesh with the row gathers inside the graph, new prediction tensors
+    at every call."""
     _check_compiled(model, mesh, use_jit)
     cfg = {"context_frames": run_config["context_frames"],
            "pred_frames": run_config["pred_frames"]}
     spatial = _spatial(model, mesh)
+    fsdp = is_fsdp(model)
     if spatial is not None and (pre is not None or post is not None):
         raise ValueError("the value-range and size adapters take whole frames: they do not run "
                          f"on a mesh with sp={axis_size(mesh, 'sp')}")
@@ -435,6 +469,12 @@ def make_predict_fn(model: VPModel, run_config: dict, pre=None, post=None, mesh=
                 preds = post(preds)
             if spatial is not None:
                 preds, targets = gather_rows(preds, 2, *spatial), gather_rows(targets, 2, *spatial)
+            if fsdp:
+                # FSDP2 keeps its root's gathered parameters after a forward and
+                # frees them only after a backward: free them here too, so that
+                # every call (eager, captured or replayed) gathers the present
+                # parameters and no graph reads a copy that a later step left stale
+                model.reshard()
         return preds, targets
 
     return CompiledStep(predict, "the predict function", use_jit)

@@ -18,9 +18,11 @@ On the card the optimizer can be captured into a CUDA graph
 device tensor) and both optimizers hold the learning rate as a 0-d f32 tensor
 on the card, which :func:`~vp_suite_tpu_torch.training.schedule.set_learning_rate`
 fills in place, so that a replayed step reads the rate the host set last (SGD
-runs its fused update, the one that reads a tensor rate on the card). CPU
-states, and FSDP's sharded parameters (whose DTensors the capturable update
-does not take), keep a float rate.
+runs its fused update, the one that reads a tensor rate on the card). Under
+FSDP2 capturable Adam takes the sharded (DTensor) parameters too; SGD over
+them keeps a float rate, since the fused SGD has no DTensor rule in torch 2.11
+(``aten._fused_sgd_.tensor_lr`` has no sharding strategy), so a step over
+them runs eagerly (``use_jit=False``). CPU states keep a float rate.
 """
 import dataclasses
 
@@ -63,15 +65,16 @@ def _param_groups(params):
     return [{"params": sharded}, {"params": [p for p in params if not isinstance(p, DTensor)]}]
 
 
-def _graphable(params):
-    r"""Whether an optimizer over ``params`` is built to be captured: every
-    parameter a plain tensor on the card."""
+def _graphable(name, params):
+    r"""Whether an optimizer ``name`` over ``params`` is built to be
+    captured: every parameter on the card, and for SGD none a DTensor."""
     from torch.distributed.tensor import DTensor
-    return bool(params) and all(p.is_cuda and not isinstance(p, DTensor) for p in params)
+    return bool(params) and all(p.is_cuda for p in params) and \
+        (name == "adam" or not any(isinstance(p, DTensor) for p in params))
 
 
 def _make_optimizer(name, params, lr):
-    graphable = _graphable(params)
+    graphable = _graphable(name, params)
     if graphable:
         lr = torch.tensor(float(lr), dtype=torch.float32, device=params[0].device)
     return OPTIMIZERS[name](_param_groups(params), lr, graphable)

@@ -43,10 +43,11 @@ The steps are compiled where the JAX facade jits them (``use_jit=True`` of
 the step builders, ``training/graphs.py``): on the card ``train``'s train,
 eval and predict steps, ``test``'s predictors and ``predict``'s cached
 functions each run their first call of a batch shape eagerly, capture the
-second into a CUDA graph and replay it from then on. ``train`` builds them
-with ``use_jit=False`` in a process group (the port does not capture
-collectives). An FVD loss trains and validates on the card's distance (E1)
-inside the captured steps, as the JAX facade's jitted steps take
+second into a CUDA graph and replay it from then on. In a process group
+over NCCL the steps' collectives are captured with them; a group over
+gloo on the card (whose collectives run on the host) trains with
+``use_jit=False``, and says so. An FVD loss trains and validates on the
+card's distance (E1) inside the captured steps, as the JAX facade's jitted steps take
 ``wasserstein2_jax``; in a group over the global batch's I3D features.
 """
 import itertools
@@ -75,8 +76,8 @@ from vp_suite_tpu_torch.parallel.mesh import (is_fsdp, make_mesh, mean_over, sha
                                               shard_params_fsdp)
 from vp_suite_tpu_torch.training.data import (BatchLoader, HBMCachedLoader, device_prefetch,
                                              estimate_cache_bytes)
-from vp_suite_tpu_torch.training.loop import (fvd_in_step, make_eval_step, make_predict_fn,
-                                             make_train_step)
+from vp_suite_tpu_torch.training.loop import (compile_refusal, fvd_in_step, make_eval_step,
+                                             make_predict_fn, make_train_step)
 from vp_suite_tpu_torch.training.schedule import ReduceLROnPlateau, set_learning_rate
 from vp_suite_tpu_torch.training.train_state import create_train_state, rebuild_optimizer
 from vp_suite_tpu_torch.utils.compatibility import (AdapterChain, check_model_and_data_compat,
@@ -349,11 +350,13 @@ class VPSuite:
         process. Build the suite after ``initialize_multihost``: the model
         must lie on the process's own card.
 
-        On one card without a group the steps are captured into CUDA graphs
-        (``use_jit=True``): each batch shape's first step runs eagerly, its
-        second is captured and replayed. In a group they run eagerly
-        (``use_jit=False``). An FVD loss takes the device distance in training
-        and validation alike (``training.loop.fvd_in_step``), over the global
+        The steps are captured into CUDA graphs (``use_jit=True``, as the JAX
+        facade jits them on any mesh): each batch shape's first step runs
+        eagerly, its second is captured and replayed, in a group over NCCL
+        with the collectives inside the graph. A group over gloo on the card
+        runs them eagerly (``use_jit=False``; ``training.loop.compile_refusal``
+        says why, and ``train`` prints it). An FVD loss takes the device
+        distance in training and validation alike (``training.loop.fvd_in_step``), over the global
         batch in a group."""
         entry, dataset, run_config = self._prepare_training(dataset_idx, model_idx,
                                                             **run_kwargs)
@@ -435,9 +438,12 @@ class VPSuite:
             raise ValueError(f"Validation criterion '{config['val_rec_criterion']}' has "
                              f"to be one of the chosen losses: "
                              f"{list(config['losses_and_scales'].keys())}")
-        # the compiled steps, as the JAX facade always asks for them; not on a
-        # mesh (collectives are not captured)
-        use_jit = mesh is None
+        # the compiled steps, as the JAX facade always asks for them, unless
+        # the capture rule refuses the group's backend (gloo on the card)
+        refusal = compile_refusal(model, mesh)
+        use_jit = refusal is None
+        if refusal is not None:
+            say(f"the train, eval and predict steps run eagerly: {refusal}")
         train_step = make_train_step(model, run_config, loss_provider,
                                      accum_steps=run_config["accum_steps"], mesh=mesh,
                                      use_jit=use_jit)
@@ -521,7 +527,7 @@ class VPSuite:
                 val_batches = val_cache.epoch_iterator(seed=0, shuffle=False) \
                     if val_cache is not None else device_prefetch(val_loader, self.device, depth=1)
                 # FVD as in JAX's jitted eval step: the device distance, over the
-                # global batch on a mesh (the eval step runs eagerly there)
+                # global batch on a mesh
                 with fvd_in_step(mesh):
                     agg = [eval_step(state, batch) for batch in val_batches]
                 if not agg:
@@ -552,7 +558,11 @@ class VPSuite:
                                   predict_fn, out_path / f"vis_ep_{epoch + 1:03d}",
                                   n_vis=config["n_vis"], vis_mode=config["vis_mode"],
                                   device=self.device)
-                elif is_fsdp(model):   # the sharded forward gathers on every process
+                elif is_fsdp(model):
+                    # the sharded forward gathers on every process: each makes
+                    # the calls visualize_vid makes on rank 0 (as many, one item
+                    # of the same shape each), so that every process replays
+                    # the compiled predict_fn's collectives alike
                     for i in range(min(config["n_vis"], len(val_data))):
                         get_vis_from_model(val_data, val_data[i], predict_fn,
                                            config["context_frames"], self.device)
