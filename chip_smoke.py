@@ -29,7 +29,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
    C++) against ``warp_sample_reference`` and
    ``warp_sample_backward_reference`` at EF-TrajGRU's three layer shapes
    (b=32, L=13), in f32 and bf16, on flows of a few pixels, some of which
-   leave the image, and the warp's three gradients through its autograd
+   leave the image, on the whole image and with ``row0`` on the slab of its
+   bottom half's rows, and the warp's three gradients through its autograd
    Function against autograd of the plain forward; prints both kernels'
    tilings and the share of the in-image taps that leave their block's band
    at each shape (read from global memory in the forward, sent to global
@@ -215,12 +216,20 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     ``shard_params_tp_fsdp``: the fused path's SGD step within the same gate;
 19. drives spatial, context and pipeline parallelism
     (``drive_model_parallel``) in one world of two gloo processes on the one
-    card: (s) each EF-ConvLSTM path at full width on ``{"data": 1, "sp": 2}``
-    (each process 32 of the 64 image rows, its convolutions exchanging halo
-    rows): ``predict`` (whole frames) within 1e-4 of one process's, the f32
-    SGD step at b=8 within the SGD gate of the one-process step, K1 45 (90
-    and K2 45 in the step) or K3 6 (K3s 6 + K4 6) a process, the step's spatial collectives
-    counted, sized and timed alone; (q) MinConvRNN at its defaults, 6 -> 10,
+    card: (s) each EF-ConvLSTM path and (c) EF-TrajGRU at full width on
+    ``{"data": 1, "sp": 2}`` (each process 32 of the 64 image rows, its
+    convolutions exchanging halo rows, EF-TrajGRU's warps sampling the hidden
+    state gathered whole at every cell step): ``predict`` (whole frames)
+    within 1e-4 of one process's, the f32 SGD step at b=8 within the SGD gate
+    of the one-process step, K1 45 (90 and K2 45 in the step), K3 6 (K3s 6 +
+    K4 6) or the warp forward 45 (and its backward 45 in the step) a process,
+    the step's spatial collectives counted, sized and timed alone; (c)'s warp
+    backward's taps outside their block's band with the slab's ``row0`` and at
+    0, and its bf16 ``predict`` at b=32 on slabs beside one process's (printed
+    only); (c)'s bf16 SGD step at b=32 on slabs against one process's, beside
+    one process's bf16 step against its f32 step (the distances printed;
+    finite, the two processes equal and the image gradients' all-reduce in
+    f32 checked); (q) MinConvRNN at its defaults, 6 -> 10,
     with its context scan over ``{"seq": 2}``, ``predict`` and an SGD step
     against one process; (p) ``gpipe_apply`` of a 3x3 conv + tanh stage over
     ``{"pp": 2}``, output and gradients against the serial stages;
@@ -230,8 +239,8 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     launch counts of the eager first call and of the capture (as one call
     launches) and none from the host in a replay, the profiler's kernel
     counts over one replay, the host time of the eager call, the capture and
-    a replay, and eager against graphed latency, device time and busy share
-    (step 15 prints the same for the other eight models); at b=2 f32 under
+    a replay, and the graphed latency, device time and busy share (step 15
+    prints the same for the other eight models); at b=2 f32 under
     cuDNN's deterministic algorithms the graphed SGD and Adam steps and
     ``predict`` against the eager ones (a ReduceLROnPlateau cut after the
     capture), and PhyDNet's teacher-forcing coins and PredRNN++'s sampling
@@ -244,7 +253,7 @@ builds the port's kernels from ``vp_suite_tpu_torch/csrc`` and then:
     peak card memory of one eager step above what was live, the launches of
     the eager call and of the capture (K1 45 + 45 on the per-step path with
     remat on, 45 off; K2, K3s / K4 and the warp as before; none on the other
-    models), the graphed step's latency; ``predict``'s launches on the three
+    models), the capture's loss; ``predict``'s launches on the three
     kernel paths, equal with remat on and off; and in f32 at b=2 the SGD step
     with remat on against off (bit-identical; EF-TrajGRU within the SGD gate)
     and the graphed step under ``"full"`` against the eager one;
@@ -909,23 +918,26 @@ def warp_args(rnd, side, ch):
     return [*idx, rnd(B, side, side, ch), rnd(B, P, TRAJ_L, ch, scale=1e-2)]
 
 
-def band_share(iy, ix, h, w, c, bf16=True, forward=False):
+def band_share(iy, ix, h, w, c, bf16=True, forward=False, row0=0):
     r"""``((taps outside their block's band, taps in the image), tiling)`` of
-    the warp backward (or, with ``forward``, the forward) on these indices,
-    with the tiling its kernel takes for these sizes on this card
-    (``vp_warp_bwd_geometry``, ``vp_warp_fwd_geometry``)."""
+    the warp backward (or, with ``forward``, the forward) on these indices of
+    output pixels from image row ``row0`` on, with the tiling its kernel takes
+    for these sizes on this card (``vp_warp_bwd_geometry``,
+    ``vp_warp_fwd_geometry``)."""
     from vp_suite_tpu_torch.kernels import build, warp_bwd_variants, warp_fwd_variants
     b, P, L = iy.shape
     tool = warp_fwd_variants if forward else warp_bwd_variants
     geom = tool.geometry(build.warp_library(), b, P, L, h, w, c, bf16)
-    return warp_bwd_variants.out_of_band_share(iy, ix, h, w, geom), geom
+    return warp_bwd_variants.out_of_band_share(iy, ix, h, w, geom, row0), geom
 
 
 @contextlib.contextmanager
 def recording_band_shares(shares):
     r"""While active, every backward of ``WarpFunction`` first adds its
-    indices' ``(outside, in-image)`` tap counts (:func:`band_share`) to
-    ``shares[(h, w, c)]``."""
+    indices' tap counts (:func:`band_share`) to ``shares[(h, w, c)]``:
+    ``[outside the bands at the launch's row0, in the image, outside the bands
+    at row0 = 0]`` (the last differs only on an image slab, whose bands
+    ``row0`` moves to its rows)."""
     import torch
     from vp_suite_tpu_torch.ops.warp import WarpFunction
     plain = WarpFunction.backward
@@ -943,10 +955,12 @@ def recording_band_shares(shares):
     def backward(ctx, g):
         iy, ix, img = saved = ctx.saved_tensors
         _, h, w, c = img.shape
-        (outside, taps), _ = band_share(iy, ix, h, w, c, img.dtype == torch.bfloat16)
-        acc = shares.setdefault((h, w, c), [0, 0])
+        bf16 = img.dtype == torch.bfloat16
+        (outside, taps), _ = band_share(iy, ix, h, w, c, bf16, row0=ctx.row0)
+        acc = shares.setdefault((h, w, c), [0, 0, 0])
         acc[0] += outside
         acc[1] += taps
+        acc[2] += outside if ctx.row0 == 0 else band_share(iy, ix, h, w, c, bf16)[0][0]
         return plain(Saved(ctx, saved), g)
 
     WarpFunction.backward = staticmethod(backward)
@@ -958,13 +972,12 @@ def recording_band_shares(shares):
 
 def check_warp_kernels(rnd, errs):
     r"""The warp's forward and backward kernels against their plain versions,
-    and its three gradients through ``WarpFunction`` against autograd of the
-    plain forward, at EF-TrajGRU's three layer shapes; returns the bf16
-    operands by shape, for the timings."""
+    on the whole image and at ``row0`` = side/2 on the slab of its bottom
+    half's rows (as on ``sp`` process 1 of 2), and its three gradients through
+    ``WarpFunction`` against autograd of the plain forward, at EF-TrajGRU's
+    three layer shapes; returns the bf16 operands by shape, for the timings."""
     import torch
-    from vp_suite_tpu_torch.ops.warp import (warp_sample, warp_sample_backward,
-                                             warp_sample_backward_reference,
-                                             warp_sample_forward, warp_sample_reference)
+    from vp_suite_tpu_torch.ops.warp import warp_sample, warp_sample_reference
     errs["warp_fwd"] = errs["warp_bwd"] = 0.0
     inputs = {}
     names = ("d_iy", "d_ix", "d_img")
@@ -982,27 +995,29 @@ def check_warp_kernels(rnd, errs):
             print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L}: the forward's tiling in "
                   f"{str(dt)[6:]} {geom}; {outside} of {taps} in-image taps ({outside / taps:.2%}) "
                   f"fall outside their block's band and are read from global memory")
+        half = slice(side // 2 * side, None)       # the bottom half's pixels: a slab
         for dt in (torch.float32, torch.bfloat16):
             iy, ix, img, g = base[0], base[1], base[2].to(dt), base[3].to(dt)
-            got = warp_sample_forward(iy, ix, img)
-            torch.cuda.synchronize()
-            want = warp_sample_reference(iy, ix, img)
-            e_fwd = max_err(got, want)
-            if dt == torch.float32:
-                ok_fwd = e_fwd <= WARP_ATOL_F32
-                tol_fwd = f"atol {WARP_ATOL_F32}"
-            else:
-                ok_fwd = bool(((got.float() - want.float()).abs()
-                               <= WARP_BF16_ULPS * bf16_ulp(want) + WARP_ATOL_F32).all())
-                tol_fwd = f"{WARP_BF16_ULPS} bf16 ulp + {WARP_ATOL_F32}"
-            ok_fwd = ok_fwd and got.dtype == dt and got.shape == want.shape
-
-            got_b = warp_sample_backward(iy, ix, img, g)
-            torch.cuda.synchronize()
-            want_b = warp_sample_backward_reference(iy, ix, img, g)
             rel = WARP_GRAD_REL_F32 if dt == torch.float32 else WARP_GRAD_REL_BF16
-            e_bwd = [rel_err(q, w) for q, w in zip(got_b, want_b)]
-            ok_bwd = max(e_bwd) <= rel and all(q.dtype == w.dtype for q, w in zip(got_b, want_b))
+            e_fwd, ok_fwd, tol_fwd, e_bwd, ok_bwd, got_b, want_b = _held_warp(iy, ix, img, g, 0)
+
+            # rows side/2 .. side-1 as a slab of the whole image, the bands at row0
+            slab = [t[:, half].contiguous() for t in (iy, ix, g)]
+            s_fwd, ok_s_fwd, _, s_bwd, ok_s_bwd, _, _ = _held_warp(*slab[:2], img, slab[2],
+                                                                 side // 2)
+            (o_r0, n_s), _ = band_share(*slab[:2], side, side, ch, dt == torch.bfloat16,
+                                        row0=side // 2)
+            o_0 = band_share(*slab[:2], side, side, ch, dt == torch.bfloat16)[0][0]
+            print(f"[warp] {side}x{side}x{ch} b={B} L={TRAJ_L} {str(dt)[6:]} on the slab of "
+                  f"rows {side // 2}-{side - 1} (row0 {side // 2}): forward max err {s_fwd:.3g} "
+                  f"({tol_fwd}); backward " + ", ".join(f"{n} {x:.3g}" for n, x in zip(names, s_bwd))
+                  + f" (relative to the largest, tol {rel:.3g}); the backward's taps outside "
+                  f"their block's band {o_r0} / {o_0} of {n_s} at row0 {side // 2} / 0: "
+                  f"{'ok' if ok_s_fwd and ok_s_bwd else 'FAIL'}")
+            check(ok_s_fwd, f"the warp forward at row0 {side // 2} disagrees with "
+                            f"warp_sample_reference at {side}x{side}x{ch} {dt}")
+            check(ok_s_bwd, f"the warp backward at row0 {side // 2} disagrees with "
+                            f"warp_sample_backward_reference at {side}x{side}x{ch} {dt}")
 
             grads = []
             for fn in (warp_sample, warp_sample_reference):
@@ -1031,6 +1046,36 @@ def check_warp_kernels(rnd, errs):
             check(ok_fn, f"the warp's gradients disagree with autograd of the plain forward at "
                          f"{side}x{side}x{ch} {dt}")
     return inputs
+
+
+def _held_warp(iy, ix, img, g, row0):
+    r"""The warp's forward and backward kernels at ``row0`` against their plain
+    versions: ``(forward max err, ok, its tolerance, backward errors relative
+    to the largest, ok, the kernel's gradients, the plain ones)``."""
+    import torch
+    from vp_suite_tpu_torch.ops.warp import (warp_sample_backward, warp_sample_backward_reference,
+                                             warp_sample_forward, warp_sample_reference)
+    dt = img.dtype
+    got = warp_sample_forward(iy, ix, img, row0)
+    torch.cuda.synchronize()
+    want = warp_sample_reference(iy, ix, img)
+    e_fwd = max_err(got, want)
+    if dt == torch.float32:
+        ok_fwd = e_fwd <= WARP_ATOL_F32
+        tol_fwd = f"atol {WARP_ATOL_F32}"
+    else:
+        ok_fwd = bool(((got.float() - want.float()).abs()
+                       <= WARP_BF16_ULPS * bf16_ulp(want) + WARP_ATOL_F32).all())
+        tol_fwd = f"{WARP_BF16_ULPS} bf16 ulp + {WARP_ATOL_F32}"
+    ok_fwd = ok_fwd and got.dtype == dt and got.shape == want.shape
+    got_b = warp_sample_backward(iy, ix, img, g, row0)
+    torch.cuda.synchronize()
+    want_b = warp_sample_backward_reference(iy, ix, img, g)
+    rel = WARP_GRAD_REL_F32 if dt == torch.float32 else WARP_GRAD_REL_BF16
+    e_bwd = [rel_err(q, w) for q, w in zip(got_b, want_b)]
+    ok_bwd = max(e_bwd) <= rel and all(q.dtype == w.dtype and q.shape == w.shape
+                                       for q, w in zip(got_b, want_b))
+    return e_fwd, ok_fwd, tol_fwd, e_bwd, ok_bwd, got_b, want_b
 
 
 def ret_args(rnd, side, ch):
@@ -1395,7 +1440,7 @@ def drive_training():
             print(f"[train] {name}: taps of the warp backward outside their block's band, from "
                   f"the indices of one train step (not timed): "
                   + ", ".join(f"{h}x{w}x{c} {o} of {n} ({o / n:.2%})"
-                              for (h, w, c), (o, n) in shares.items()))
+                              for (h, w, c), (o, n, _) in shares.items()))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
@@ -2319,8 +2364,8 @@ def drive_graphs(card, new_times):
     (a)-(c) at full width: for ``predict`` and the Adam train step in bf16 at
     b=32, the launch counts of the eager first call and of the capture
     (each as one call launches), none from the host in a replay, the
-    profiler's kernel counts over one replay (the same), and eager against
-    graphed latency, device time and busy share; in f32 at b=2 under cuDNN's
+    profiler's kernel counts over one replay (the same), and the graphed
+    latency, device time and busy share; in f32 at b=2 under cuDNN's
     deterministic algorithms, the graphed SGD and Adam steps against the
     eager ones: each step's loss within 1e-5 relative, the parameters after 3
     steps and after a 4th that follows a ReduceLROnPlateau cut as ``(p0 -
@@ -2331,8 +2376,7 @@ def drive_graphs(card, new_times):
     ``predict`` (within the f32 gate); at 16x16, PhyDNet's teacher-forcing
     coins and PredRNN++'s sampling masks in each graphed step equal the eager
     step's across the epoch and the iteration where they change; then the
-    eager-against-graphed table, with the graphed rows of (h)-(o) from
-    ``new_times``."""
+    graphed table, with the rows of (h)-(o) from ``new_times``."""
     import torch
     from vp_suite_tpu_torch import VPSuite
     from vp_suite_tpu_torch.training.loop import make_predict_fn, make_train_step
@@ -2349,11 +2393,9 @@ def drive_graphs(card, new_times):
     for i, name in enumerate(PATHS):
         model = suite.models[i].model
         state = create_train_state(model, lr=LR, seed=SEED)
-        fns = {"predict": (make_predict_fn(model, run, use_jit=False), make_predict_fn(model, run),
-                           WANT_PREDICT_LAUNCHES[name]),
-               "train step": (make_train_step(model, run, use_jit=False), make_train_step(model, run),
-                              WANT_TRAIN_LAUNCHES[name])}
-        for what, (eager, graphed, want) in fns.items():
+        fns = {"predict": (make_predict_fn(model, run), WANT_PREDICT_LAUNCHES[name]),
+               "train step": (make_train_step(model, run), WANT_TRAIN_LAUNCHES[name])}
+        for what, (graphed, want) in fns.items():
             def call(fn):
                 if what == "predict":
                     fn(batch)
@@ -2380,15 +2422,13 @@ def drive_graphs(card, new_times):
                   f"not {want}, {want} and none")
             check(seen == by_name(want),
                   f"{name} {what}: the profiler saw {seen} in one replay, not {by_name(want)}")
-            for how, fn in (("eager", eager), ("graphed", graphed)):
-                call(fn)
-                ms, times = _median_ms(lambda: call(fn), 3)
-                dev_ms, wall = profile(f"{what} {name} {how}", lambda: call(fn),
-                                       pick=("warp_fwd_kernel", "warp_bwd_kernel")
-                                       if name == "trajgru" else ())
-                rows[(name, what, how)] = (ms, dev_ms, wall)
-                print(f"[graphs] {what} {name} bf16 b={B} {CTX}->{PRED} at 64x64, {how}: median "
-                      f"{ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)})")
+            ms, times = _median_ms(lambda: call(graphed), 3)
+            dev_ms, wall = profile(f"{what} {name} graphed", lambda: call(graphed),
+                                   pick=("warp_fwd_kernel", "warp_bwd_kernel")
+                                   if name == "trajgru" else ())
+            rows[(name, what)] = (ms, dev_ms, wall)
+            print(f"[graphs] {what} {name} bf16 b={B} {CTX}->{PRED} at 64x64, graphed: median "
+                  f"{ms:.2f} ms (runs {', '.join(f'{t * 1e3:.2f}' for t in times)})")
         del model, state, fns
     del suite
     torch.cuda.empty_cache()
@@ -2453,12 +2493,12 @@ def drive_graphs(card, new_times):
     graph_coins_and_masks()
     torch.backends.cudnn.deterministic = False
 
-    print(f"[graphs] eager against graphed on {card}: host latency (median, ending in a read) "
-          f"and one profiled call's device time in its host time (busy share)")
-    for (name, what, how), (ms, dev_ms, wall) in rows.items():
+    print(f"[graphs] graphed on {card}: host latency (median, ending in a read) and one "
+          f"profiled call's device time in its host time (busy share)")
+    for (name, what), (ms, dev_ms, wall) in rows.items():
         busy = f"{dev_ms:.2f} ms in {wall:.2f} ms ({dev_ms / wall:.0%})" if dev_ms else \
             "not measured"
-        print(f"[graphs]   ({name}) {what} {how}: {ms:.2f} ms; device {busy}")
+        print(f"[graphs]   ({name}) {what} graphed: {ms:.2f} ms; device {busy}")
     for name, t in new_times.items():
         for what, key in (("predict", "graph_predict_ms"), ("train step", "graph_step_ms")):
             dev_ms, wall = t["profiles"][what]
@@ -2490,8 +2530,6 @@ def decoder_probe():
 REMAT_PATHS = {"per_step": PATHS["per_step"],
                "per_step_full": ("convlstm-shi", dict(remat_policy="full")),
                "fused_scan": PATHS["fused_scan"], "trajgru": PATHS["trajgru"], **NEW_MODELS}
-#: replays timed per path and setting
-REMAT_REPLAYS = 3
 
 
 def _remat_model(name, remat_on, dtype, seed=SEED):
@@ -2530,8 +2568,7 @@ def drive_remat(card):
     eager call warmed the model up; ending in a read of the loss), the launches
     of the eager call and of the capture of the compiled step (each held:
     K1 45 + 45 again on (a) with remat on, 45 off; K2, K3s / K4 and the warp
-    as before; none on (h)-(o)), the graphed step's latency (median of
-    replays, each ending in a read of the loss); ``predict``'s launches on
+    as before; none on (h)-(o)) and the capture's loss finite; ``predict``'s launches on
     (a)-(c) equal with remat on and off; and in f32 at b=2 under cuDNN's
     deterministic algorithms the SGD step with remat on against off on (a)
     under each policy, (b) and (c) (bit-identical parameters; on (c), whose
@@ -2554,11 +2591,11 @@ def drive_remat(card):
             state = create_train_state(model, lr=LR, seed=SEED)
             eager = make_train_step(model, run, use_jit=False)
             graphed = make_train_step(model, run)
-            launches = []
+            launches, losses = [], []
 
             def counted(step):
                 counters = reset_counts()
-                float(step(state, batch)[1]["total"])     # waits for the card
+                losses.append(float(step(state, batch)[1]["total"]))     # waits for the card
                 launches.append(read_counts(counters))
             counted(graphed)         # the compiled step's eager first call (and the warm-up)
             torch.cuda.synchronize()
@@ -2568,26 +2605,25 @@ def drive_remat(card):
             counted(eager)
             eager_ms = (time.perf_counter() - t0) * 1e3
             peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
-            counted(graphed)         # the capture
-            ms, losses, _ = _time_step(graphed, state, batch, n=REMAT_REPLAYS, warmup=0)
+            counted(graphed)         # the capture (and its replay)
             want = _want_remat_launches(name, remat_on)
             check(launches == [want] * 3,
                   f"{name} remat {remat_on}: the compiled step's eager call, the eager step and "
                   f"the capture launched {launches}, not {want}")
             check(all(map(math.isfinite, losses)), f"{name} remat {remat_on}: losses {losses}")
-            rows[(name, remat_on)] = (peak, ms, eager_ms)
+            rows[(name, remat_on)] = (peak, eager_ms)
             print(f"[remat] {name} remat {'on ' if remat_on else 'off'} bf16 b={B} {CTX}->{PRED} "
                   f"at 64x64: peak memory of an eager train step {peak:.3f} GiB above what was "
-                  f"live, its host time {eager_ms:.2f} ms; graphed step {ms:.2f} ms; launches "
-                  f"per eager call and per capture "
+                  f"live, its host time {eager_ms:.2f} ms; launches per eager call and per "
+                  f"capture "
                   + (", ".join(f"{k} {v}" for k, v in want.items() if v) or "none"))
             del state, eager, graphed
             torch.cuda.empty_cache()
         del model
-        (p0, t0, e0), (p1, t1, e1) = rows[(name, False)], rows[(name, True)]
+        (p0, e0), (p1, e1) = rows[(name, False)], rows[(name, True)]
         print(f"[remat] {name}: remat on against off, peak {p1:.3f} / {p0:.3f} GiB "
-              f"({p1 / p0 - 1:+.1%}), graphed step {t1:.2f} / {t0:.2f} ms ({t1 / t0 - 1:+.1%}), "
-              f"eager step {e1:.2f} / {e0:.2f} ms (one call each) on {card}")
+              f"({p1 / p0 - 1:+.1%}), eager step {e1:.2f} / {e0:.2f} ms (one call each) on "
+              f"{card}")
 
     # predict launches what it launched: remat acts only where a gradient is built
     for name in PATHS:
@@ -4202,10 +4238,11 @@ def drive_tensor_parallel(card):
     print(f"[tp] the phase took {time.time() - t_phase:.1f} s", flush=True)
 
 
-def _tp_model(path):
+def _tp_model(path, dtype=None):
     from vp_suite_tpu_torch.models import build_model
     model_id, cfg = PATHS[path]
-    return build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg)
+    return build_model(model_id, SEED, "cuda", **_par_kwargs(), **cfg,
+                       **({} if dtype is None else {"compute_dtype": dtype}))
 
 
 def _tp_one_process_step(path, frames):
@@ -4427,12 +4464,16 @@ def _tp_2d(out_dir):
 
 
 #: the model-parallel phase (``drive_model_parallel``): one world of two
-#: processes over gloo on the one card runs (s) EF-ConvLSTM on MP_SP_MESH,
-#: (q) MinConvRNN (its defaults: hidden 64, two layers) on ``{"seq": 2}`` at
+#: processes over gloo on the one card runs (s) EF-ConvLSTM and (c) EF-TrajGRU
+#: on MP_SP_MESH (MP_SP_PATHS), (q) MinConvRNN (its defaults: hidden 64, two layers) on ``{"seq": 2}`` at
 #: MP_MCR_FRAMES, (p) ``gpipe_apply`` on ``{"pp": 2}`` with the JAX package's
 #: dry-run stage (a 3x3 conv of MP_PP_C channels + tanh; MP_PP_M microbatches of
 #: MP_PP_MB) at 64x64
 MP_SP_MESH = {"data": 1, "sp": 2}
+MP_SP_PATHS = ("per_step", "fused_scan", "trajgru")
+#: (c)'s bf16 predict on slabs, timed (printed only): its batch, and the calls
+#: timed after a first one
+MP_SP_BF16_B, MP_SP_BF16_CALLS = B, 3
 MP_MCR_FRAMES = (6, 10)
 MP_PP_C, MP_PP_M, MP_PP_MB = 4, 4, 2
 #: (p) against the serial composition: the output (tanh, |y| <= 1) in f32, and
@@ -4450,6 +4491,7 @@ def drive_model_parallel(card):
     ``vp-suite-data/chip_smoke/mp``."""
     import shutil
     import torch
+    from vp_suite_tpu_torch.training.loop import make_predict_fn
     t_phase = time.time()
     out_root = ROOT / "vp-suite-data" / "chip_smoke" / "mp"
     shutil.rmtree(out_root, ignore_errors=True)
@@ -4459,32 +4501,46 @@ def drive_model_parallel(card):
         _run_world("mp2", 2, out_root)
         ranks = [torch.load(out_root / f"mp2_{r}.pt", weights_only=False) for r in range(2)]
         frames = _par_frames().cuda()
-        for path in ("per_step", "fused_scan"):
+        for path in MP_SP_PATHS:
+            tag = "(c)" if path == "trajgru" else "(s)"
             model, p0, loss, one_ms = _tp_one_process_step(path, frames)
             got = ranks[0][path]
             check(all(torch.equal(v, ranks[1][path]["params"][k])
                       for k, v in got["params"].items()),
-                  f"(s) {path}: the two sp processes' parameters differ")
+                  f"{tag} {path}: the two sp processes' parameters differ")
             worst, where = _step_excess(p0, model, got["params"])
             ok = worst <= STEP_TOL and abs(got["loss"] - loss) <= 1e-4 * abs(loss)
-            print(f"[mp] (s) {path} f32 SGD step of two sp processes (gloo, {MP_SP_MESH}, b="
+            print(f"[mp] {tag} {path} f32 SGD step of two sp processes (gloo, {MP_SP_MESH}, b="
                   f"{PAR_B} and {IMG[1] // 2} of the {IMG[1]} image rows each) against one "
                   f"process: loss {got['loss']:.6f} vs {loss:.6f}; (p0-p1)/lr: max(|diff| - rtol*|one|) "
                   f"{worst:.3g} at {where} (rtol {STEP_TOL}, must stay <= atol {STEP_TOL}): "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"(s) {path}: the sp step disagrees with the one-process step")
+            check(ok, f"{tag} {path}: the sp step disagrees with the one-process step")
             want = _tp_one_process_predict(path, frames)
             diff = max((r[path]["preds"].cuda() - want).abs().max().item() for r in ranks)
-            print(f"[mp] (s) {path} f32 predict of two sp processes (whole frames on each) "
+            print(f"[mp] {tag} {path} f32 predict of two sp processes (whole frames on each) "
                   f"against one process: max |diff| {diff:.3g} (limit {TP_PREDICT_ATOL})",
                   flush=True)
-            check(diff <= TP_PREDICT_ATOL, f"(s) {path}: predict parts from one process's")
-            print(f"[mp] (s) {path} f32 b={PAR_B} train step: {got['step_ms']:.1f} / "
+            check(diff <= TP_PREDICT_ATOL, f"{tag} {path}: predict parts from one process's")
+            print(f"[mp] {tag} {path} f32 b={PAR_B} train step: {got['step_ms']:.1f} / "
                   f"{ranks[1][path]['step_ms']:.1f} ms in the two sp processes on the one card "
                   f"(gloo) against {_ms(one_ms)} ms in one process; the step's "
                   f"{got['collectives']} spatial collectives ({got['collective_mib']:.1f} MiB: "
                   f"{got['kinds']}) {got['collective_ms']:.1f} ms (CUDA events around each "
                   f"alone, summed); two processes on one card measure no scaling", flush=True)
+        model = _tp_model("trajgru", torch.bfloat16)
+        bf16_batch = {"frames": _mp_bf16_frames().cuda()}
+        predict = make_predict_fn(model, {"context_frames": CTX, "pred_frames": PRED},
+                                  use_jit=False)
+        predict(bf16_batch)
+        one = _median_ms(lambda: (predict(bf16_batch), torch.cuda.synchronize()),
+                         MP_SP_BF16_CALLS)[0]
+        print(f"[mp] (c) trajgru bf16 b={MP_SP_BF16_B} predict (eager, gloo, whole frames back): "
+              + " / ".join(f"{r['trajgru']['bf16_predict_ms']:.1f}" for r in ranks)
+              + f" ms in the two sp processes on the one card against {one:.1f} ms in one "
+              f"process (median of {MP_SP_BF16_CALLS} calls after a first, each ending in a "
+              f"synchronize) on {card}", flush=True)
+        _mp_bf16_step(model, bf16_batch, ranks)
 
         # (q) MinConvRNN's context scan over seq against one process
         q_frames = _mp_mcr_frames().cuda()
@@ -4522,6 +4578,60 @@ def drive_model_parallel(card):
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
     print(f"[mp] the phase took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _mp_bf16_frames():
+    import torch
+    return torch.rand((MP_SP_BF16_B, CTX + PRED, IMG[1], IMG[2], IMG[0]),
+                      generator=torch.Generator().manual_seed(SEED + 10))
+
+
+def _mp_bf16_step(model, batch, ranks):
+    r"""(c)'s bf16 SGD step at b=MP_SP_BF16_B on slabs (``ranks``' results)
+    against one process's from ``model``'s parameters, beside bf16's own
+    distance: the one-process bf16 step against the one-process f32 step on
+    the same batch. Prints, for ``(p0-p1)/lr``, each distance's largest over
+    the tensors relative to the largest of each; fails the run if either
+    process's parameters are not finite, differ from the other's or its image
+    gradients were not summed in f32."""
+    import torch
+    from vp_suite_tpu_torch.training.loop import make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    run = {"context_frames": CTX, "pred_frames": PRED}
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    updates, losses = [], []
+    for m in (model, _tp_model("trajgru")):
+        state = create_train_state(m, lr=PAR_LR, optimizer="sgd")
+        _, metrics = make_train_step(m, run, use_jit=False)(state, batch)
+        losses.append(float(metrics["total"]))
+        updates.append({k: (p0[k] - v.detach()) / PAR_LR for k, v in m.named_parameters()})
+        del m, state
+    got = [r["trajgru"]["bf16_step"] for r in ranks]
+    slab = {k: (p0[k] - v.cuda()) / PAR_LR for k, v in got[0]["params"].items()}
+
+    def worst(a, b):
+        rel = {k: ((a[k] - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+               for k, v in b.items()}
+        k = max(rel, key=rel.get)
+        return rel[k], k, rel
+
+    bf16_vs_one, where, _ = worst(slab, updates[0])
+    noise, noise_at, noise_all = worst(updates[0], updates[1])
+    slab_vs_f32 = worst(slab, updates[1])[0]
+    ok = all(torch.equal(v, got[1]["params"][k]) and bool(v.isfinite().all())
+             for k, v in got[0]["params"].items()) \
+        and all(g["reduce_dtypes"] == ["float32"] for g in got)
+    print(f"[mp] (c) trajgru bf16 b={MP_SP_BF16_B} SGD step of two sp processes against one "
+          f"process: loss " + " / ".join(f"{g['loss']:.6f}" for g in got)
+          + f" vs {losses[0]:.6f} (f32 {losses[1]:.6f}); (p0-p1)/lr, the largest |diff| relative "
+          f"to the largest of each tensor: slabs against one process {bf16_vs_one:.3g} at {where} "
+          f"(one process's bf16 against its f32 there {noise_all[where]:.3g}); bf16's own, one "
+          f"process's bf16 against its f32, {noise:.3g} at {noise_at}; slabs against one "
+          f"process's f32 {slab_vs_f32:.3g} (printed, not gated); the image gradients' "
+          f"all-reduce in " + ", ".join(got[0]["reduce_dtypes"]) + f": {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "(c) the bf16 sp step's parameters are not finite, differ between the two "
+              "processes or its image gradients were not summed in f32")
 
 
 def _mp_mcr_frames():
@@ -4588,11 +4698,14 @@ def _mp_pp_serial():
 
 def _model_parallel_pair(out_dir):
     r"""One of the two processes of ``drive_model_parallel``: (s) each EF-ConvLSTM
-    path's f32 predict and SGD step on MP_SP_MESH at b=PAR_B on this process's
-    image rows, with their launches, the step's spatial collectives (each timed
-    alone) and its time; (q) MinConvRNN's predict and SGD step with its context
-    scan over ``{"seq": 2}``; (p) ``gpipe_apply`` over ``{"pp": 2}`` with the
-    gradients; writes ``mp2_{rank}.pt``."""
+    path's and (c) EF-TrajGRU's f32 predict and SGD step on MP_SP_MESH at
+    b=PAR_B on this process's image rows, with their launches, the step's
+    spatial collectives (each timed alone) and its time, (c)'s warp backward's
+    taps outside their block's band (from a second step: with the slab's
+    ``row0`` and as if at the image's top) and its bf16 predict at b=B; (q)
+    MinConvRNN's predict and SGD step with its context scan over ``{"seq":
+    2}``; (p) ``gpipe_apply`` over ``{"pp": 2}`` with the gradients; writes
+    ``mp2_{rank}.pt``."""
     import torch
     import torch.distributed as dist
     from vp_suite_tpu_torch.parallel import (gpipe_apply, make_mesh_nd, microbatch,
@@ -4605,18 +4718,19 @@ def _model_parallel_pair(out_dir):
     run = {"context_frames": CTX, "pred_frames": PRED}
     out = {}
 
-    # (s) EF-ConvLSTM on image slabs
+    # (s) EF-ConvLSTM and (c) EF-TrajGRU on image slabs
     mesh = make_mesh_nd(MP_SP_MESH, "cuda")
     group = mesh.get_group("sp")
     batch = shard_video_batch({"frames": _par_frames().cuda()}, mesh)
-    for path in ("per_step", "fused_scan"):
+    for path in MP_SP_PATHS:
+        tag = "(c)" if path == "trajgru" else "(s)"
         model = _tp_model(path)
         counters = reset_counts()
         preds, _ = make_predict_fn(model, run, mesh=mesh, use_jit=False)(batch)
         torch.cuda.synchronize()
         predict = read_counts(counters)
         check(predict == WANT_PREDICT_LAUNCHES[path],
-              f"(s) {path}: process {rank}'s predict launched {predict}")
+              f"{tag} {path}: process {rank}'s predict launched {predict}")
         state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
         with spatial_halo_convs(mesh):
             step = make_train_step(model, run, mesh=mesh, use_jit=False)
@@ -4629,14 +4743,15 @@ def _model_parallel_pair(out_dir):
         step_ms = (time.perf_counter() - t0) * 1e3
         launches = read_counts(counters)
         check(launches == WANT_TRAIN_LAUNCHES[path],
-              f"(s) {path}: process {rank}'s step launched {launches}")
+              f"{tag} {path}: process {rank}'s step launched {launches}")
+        params = {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()}
         calls = {}
         for key in log:
             calls[key] = calls.get(key, 0) + 1
         ms = mib = 0.0
         for (kind, shape, dtype), n in sorted(calls.items(), key=str):
             x = torch.ones(shape, dtype=dtype, device="cuda")
-            if kind == "gather":
+            if kind in ("halo", "gather"):
                 part = x[:shape[0] // 2]
                 one = cuda_ms(lambda: dist.all_gather_into_tensor(x, part, group=group),
                               warmup=0, iters=1)
@@ -4645,17 +4760,38 @@ def _model_parallel_pair(out_dir):
             ms += n * one
             mib += n * x.numel() * x.element_size() / 2 ** 20
         kinds = ", ".join(f"{sum(n for (k, _, _), n in calls.items() if k == kind)} {kind}"
-                          for kind in ("gather", "all_reduce"))
-        print(f"[mp] (s) process {rank} {path}: launches "
+                          for kind in ("halo", "gather", "all_reduce"))
+        print(f"[mp] {tag} process {rank} {path}: launches "
               + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + ", predict "
               + ", ".join(f"{k} {v}" for k, v in predict.items() if v)
               + f"; {len(log)} spatial collectives a step ({kinds}), {mib:.1f} MiB, {ms:.1f} ms; "
               f"step {step_ms:.1f} ms", flush=True)
-        out[path] = {"loss": loss, "preds": preds.cpu(), "step_ms": step_ms,
-                     "params": {k: v.detach().to("cpu", copy=True)
-                                for k, v in model.named_parameters()},
+        out[path] = {"loss": loss, "preds": preds.cpu(), "step_ms": step_ms, "params": params,
                      "collectives": len(log), "collective_ms": ms, "collective_mib": mib,
                      "kinds": kinds}
+        if path == "trajgru":
+            with recording_band_shares({}) as shares:
+                step(state, batch)     # a second step, for the taps' bands only
+            print(f"[mp] (c) process {rank} trajgru f32 b={PAR_B}: warp backward taps outside "
+                  f"their block's band in one step, with row0 at the slab's first row / at 0 "
+                  f"(the bands at the image's top): "
+                  + ", ".join(f"{h}x{w}x{c} {o} / {o0} of {n} ({o / n:.2%} / {o0 / n:.2%})"
+                              for (h, w, c), (o, n, o0) in shares.items()), flush=True)
+    model = _tp_model("trajgru", torch.bfloat16)
+    bf16_batch = shard_video_batch({"frames": _mp_bf16_frames().cuda()}, mesh)
+    predict = make_predict_fn(model, run, mesh=mesh, use_jit=False)
+    predict(bf16_batch)
+    out["trajgru"]["bf16_predict_ms"] = _median_ms(
+        lambda: (predict(bf16_batch), torch.cuda.synchronize()), MP_SP_BF16_CALLS)[0]
+    state = create_train_state(model, lr=PAR_LR, optimizer="sgd")
+    with spatial_halo_convs(mesh):
+        step = make_train_step(model, run, mesh=mesh, use_jit=False)
+    with spatial.record() as log:
+        _, metrics = step(state, bf16_batch)
+    out["trajgru"]["bf16_step"] = {
+        "loss": float(metrics["total"]),
+        "params": {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()},
+        "reduce_dtypes": sorted({str(dt)[6:] for kind, _, dt in log if kind == "all_reduce"})}
 
     # (q) MinConvRNN's context scan sharded over seq
     mesh = make_mesh_nd({"seq": 2}, "cuda")

@@ -1,15 +1,27 @@
 r"""One process of a gloo world on the CPU for ``tests/test_torch_spatial.py``,
-``test_torch_scan_parallel.py`` and ``test_torch_pipeline.py``: it imports
-torch and the port only.
+``test_torch_spatial_trajgru.py``, ``test_torch_scan_parallel.py`` and
+``test_torch_pipeline.py``: it imports torch and the port only.
 
     RANK=r WORLD_SIZE=n LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
-        python torch_model_parallel_worker.py {sp|data_sp|seq|seq_data|pp} <out_dir>
+        python torch_model_parallel_worker.py TASK <out_dir>
+
+with TASK one of ``sp``, ``sp_trajgru``, ``data_sp``, ``data_sp_trajgru``,
+``seq``, ``seq_data``, ``pp``.
 
 ``sp`` (2 processes, ``{"sp": 2}``): ``halo_conv2d`` / ``halo_conv_transpose2d``
 on each process's slab of rows at every geometry of ``CONV_GEOMS`` /
 ``CONVT_GEOMS`` (outputs and the gradients of ``sum(y * c)``), their
 refusals, and EF-ConvLSTM's ``make_predict_fn`` and ``make_eval_step`` on the
 mesh, per step and fused.
+
+``sp_trajgru`` (2 processes, ``{"sp": 2}``): ``warp_flow_ret`` of each
+process's slab (the hidden state gathered whole, the slab's flows, ``row0``)
+with the gradients of ``sum(y * c)``, in f32 and bf16; EF-TrajGRU's ``make_predict_fn``,
+``make_eval_step`` and one SGD step built inside ``spatial_halo_convs``, with
+``remat`` on and off, each with the spatial collectives it ran; the refusals
+of a TrajGRU state height that does not divide by ``sp`` and of SimVP.
+``data_sp_trajgru`` (4 processes, ``{"data": 2, "sp": 2}``): the same
+EF-TrajGRU calls with ``remat`` on.
 
 ``data_sp`` (4 processes, ``{"data": 2, "sp": 2}``): each process's share of
 a batch (``shard_video_batch``); one SGD step of EF-ConvLSTM per path, built
@@ -51,7 +63,8 @@ EF = P.EF                                   # 16x16 RGB
 RUN = {"context_frames": 2, "pred_frames": 2}
 B, LR = 4, 1e-2
 PATHS = {"per_step": {}, "fused": P.FUSED}
-WORLDS = {"sp": {"sp": 2}, "data_sp": {"data": 2, "sp": 2}, "seq": {"seq": 2},
+WORLDS = {"sp": {"sp": 2}, "sp_trajgru": {"sp": 2}, "data_sp": {"data": 2, "sp": 2},
+          "data_sp_trajgru": {"data": 2, "sp": 2}, "seq": {"seq": 2},
           "seq_data": {"seq": 2, "data": 2}, "pp": {"pp": 2}}
 #: (kh, stride, padding) and (kh, stride, padding, output_padding): the JAX
 #: package's tests/test_spatial.py geometries
@@ -63,6 +76,26 @@ SCAN_DATA = (8, 4, 4, 4, 3)
 MCR = dict(EF, hidden_dim=16, num_layers=2)
 MCR_CONTEXTS = (4, 3)                       # divides by seq = 2, and does not
 PP = dict(S=2, M=4, MB=2, IMG=8, C=4)
+#: EF-TrajGRU cut to two narrow layers at 16x16 (hidden states 16x16x8 and 8x8x8, L = 3;
+#: tests/test_torch_traj_gru.py's)
+_TWO = ((3, 3), (3, 3))
+TRAJGRU = dict(
+    EF, num_layers=2, enc_c=(4, 8, 8, 8), dec_c=(8, 8, 8, 4),
+    enc_conv_names=("conv1_leaky_1", "conv2_leaky_1"), enc_conv_k=(3, 3), enc_conv_s=(1, 2),
+    enc_conv_p=(1, 1),
+    dec_conv_names=("deconv1_leaky_1", "deconv2_leaky_1"), dec_conv_k=(4, 3), dec_conv_s=(2, 1),
+    dec_conv_p=(1, 1), final_conv_1_c=4,
+    **{f"{kind}_rnn_{name}": v for kind in ("enc", "dec")
+       for name, v in (("z", (0.0, 0.0)), ("L", (3, 3)), ("i2h_k", _TWO),
+                       ("i2h_s", ((1, 1), (1, 1))), ("i2h_p", ((1, 1), (1, 1))),
+                       ("h2h_k", ((5, 5), (5, 5))), ("h2h_d", ((1, 1), (1, 1))))})
+#: EF-TrajGRU's runs with ``remat`` on and off
+REMATS = (True, False)
+SIMVP = dict(EF, hid_s=8, hid_t=16, n_trans=2, in_frames=2, out_frames=2)
+#: the block-level warp case: batch, image rows and columns, channels, flows, ret's outputs
+WARP = dict(b=2, h=16, w=8, c=4, L=3, O=6)
+#: the dtypes the block-level warp case runs in
+WARP_DTYPES = ("float32", "bfloat16")
 
 
 def rand(seed, shape, scale=1.0):
@@ -83,6 +116,28 @@ def halo_case(transposed, geom):
 def scan_inputs(shape, seed=0):
     f = 1.0 / (1.0 + np.exp(-rand(seed, shape)))
     return f.astype(np.float32), rand(seed + 1, shape, 0.3), rand(seed + 2, shape[1:])
+
+
+def warp_case():
+    r"""``(image [b, h, w, c], flows [b, h, w, 2L], ret weights [L*c, O], bias,
+    cotangent [b, h, w, O])``, numpy: each row's flows point into the other
+    half of the image (down 8.6-8.9 rows from the top half, up from the
+    bottom), so that on ``{"sp": 2}`` every tap in the image reads the other
+    slab's rows."""
+    b, h, w, c, L, O = (WARP[k] for k in ("b", "h", "w", "c", "L", "O"))
+    rng = np.random.default_rng(5)
+    hl = h // 2
+    toward = np.where(np.arange(h) < hl, 1.0, -1.0)[None, :, None, None]
+    fy = toward * (hl + 0.6 + 0.3 * rng.random((b, h, w, L)))
+    fx = rng.normal(0.0, 1.5, (b, h, w, L))
+    flows = np.stack([fx, fy], -1).reshape(b, h, w, 2 * L).astype(np.float32)
+    return (rand(50, (b, h, w, c)), flows, rand(51, (L * c, O), 0.3), rand(52, (O,), 0.1),
+            rand(53, (b, h, w, O)))
+
+
+def trajgru_model(remat):
+    from vp_suite_tpu_torch.models import build_model
+    return build_model("trajgru", 0, "cpu", **TRAJGRU, remat=remat)
 
 
 def ef_model(path):
@@ -134,6 +189,86 @@ def run_sp(mesh, rank):
         preds, targets = make_predict_fn(model, RUN, mesh=mesh, use_jit=False)(batch)
         metrics = make_eval_step(model, RUN, mesh=mesh, use_jit=False)(None, batch)
         out[path] = {"preds": preds, "targets": targets, "eval": float(metrics["total"])}
+    return out
+
+
+def _kinds(log):
+    r"""``{kind: count}`` of a ``spatial.record`` log."""
+    out = {}
+    for kind, _, _ in log:
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def run_sp_trajgru(mesh, rank):
+    from vp_suite_tpu_torch.model_blocks.traj_gru import TrajGRU
+    from vp_suite_tpu_torch.models import build_model
+    from vp_suite_tpu_torch.parallel import spatial_halo_convs
+    from vp_suite_tpu_torch.training.loop import make_predict_fn
+    out = {"warp": {dtype: _warp_on_slab(mesh, rank, dtype) for dtype in WARP_DTYPES},
+           **_trajgru_runs(mesh, REMATS)}
+
+    def odd_height():
+        with spatial_halo_convs(mesh):
+            TrajGRU(3, 4, 5, 6)(torch.zeros(1, 1, 3, 6, 3), None, 1)
+    simvp = build_model("simvp", 0, "cpu", **SIMVP)
+    out["refused"] = {"height": refusal(odd_height),
+                      "simvp": refusal(lambda: make_predict_fn(simvp, RUN, mesh=mesh))}
+    return out
+
+
+def _warp_on_slab(mesh, rank, dtype):
+    r"""``warp_flow_ret`` in ``dtype`` of this process's slab of ``warp_case()``
+    (the image gathered whole, the slab's flows, ``row0``), with the gradients
+    of ``sum(y * c)`` and the spatial collectives it ran."""
+    from vp_suite_tpu_torch.ops.grid_sample import warp_flow_ret
+    from vp_suite_tpu_torch.parallel import spatial
+    img, flows, w, bias, cot = (torch.from_numpy(a).to(getattr(torch, dtype))
+                                for a in warp_case())
+    hl = WARP["h"] // 2
+    rows = slice(rank * hl, (rank + 1) * hl)
+    slab, fl, w, bias = (t.clone().requires_grad_(True)
+                         for t in (img[:, rows], flows[:, rows], w, bias))
+    with spatial.record() as log:
+        y = warp_flow_ret(spatial.gather_rows(slab, 1, mesh), fl, w, bias, rank * hl)
+        (y * cot[:, rows]).sum().backward()
+    return {"y": y.detach(), "d_img": slab.grad, "d_flows": fl.grad, "d_w": w.grad,
+            "d_bias": bias.grad, "kinds": _kinds(log),
+            "reduce_dtypes": [dt for kind, _, dt in log if kind == "all_reduce"]}
+
+
+def run_data_sp_trajgru(mesh, rank):
+    return _trajgru_runs(mesh, REMATS[:1])
+
+
+def _trajgru_runs(mesh, remats):
+    r"""``{remat: results}``: EF-TrajGRU's ``make_predict_fn``,
+    ``make_eval_step`` and one SGD step built inside ``spatial_halo_convs`` on
+    ``mesh`` (the batch of ``frames(1)``), each with the spatial collectives
+    it ran, and the parameters after the step."""
+    from vp_suite_tpu_torch.parallel import shard_video_batch, spatial_halo_convs
+    from vp_suite_tpu_torch.parallel import spatial
+    from vp_suite_tpu_torch.training.loop import make_eval_step, make_predict_fn, make_train_step
+    from vp_suite_tpu_torch.training.train_state import create_train_state
+    batch = shard_video_batch({"frames": torch.from_numpy(frames(1))}, mesh)
+    out = {}
+    for remat in remats:
+        model = trajgru_model(remat)
+        with spatial.record() as log:
+            preds, targets = make_predict_fn(model, RUN, mesh=mesh, use_jit=False)(batch)
+        got = {"preds": preds, "targets": targets, "predict_kinds": _kinds(log)}
+        with spatial.record() as log:
+            got["eval"] = float(make_eval_step(model, RUN, mesh=mesh, use_jit=False)(
+                None, batch)["total"])
+        got["eval_kinds"] = _kinds(log)
+        state = create_train_state(model, lr=LR, optimizer="sgd")
+        with spatial_halo_convs(mesh):
+            step = make_train_step(model, RUN, mesh=mesh, use_jit=False)
+        with spatial.record() as log:
+            _, metrics = step(state, batch)
+        got.update(loss=float(metrics["total"]), step_kinds=_kinds(log),
+                   state_dict={k: v.detach().clone() for k, v in model.state_dict().items()})
+        out[remat] = got
     return out
 
 
@@ -287,7 +422,8 @@ def main():
     assert world == int(np.prod(list(axes.values()))), world
     try:
         mesh = make_mesh_nd(axes, "cpu")
-        run = {"sp": run_sp, "data_sp": run_data_sp, "seq": run_seq, "seq_data": run_seq_data,
+        run = {"sp": run_sp, "sp_trajgru": run_sp_trajgru, "data_sp": run_data_sp,
+               "data_sp_trajgru": run_data_sp_trajgru, "seq": run_seq, "seq_data": run_seq_data,
                "pp": run_pp}[task]
         torch.save(run(mesh, rank), os.path.join(out_dir, f"{task}_{rank}.pt"))
     finally:

@@ -13,6 +13,8 @@ decomposition: EF-ConvLSTM per-step ``convlstm_gate_forward`` (K1), fused
 ``convlstm_scan_forward`` (K3), EF-TrajGRU ``warp_sample_forward``. Each of
 the ten kernel operators has a CPU and a CUDA kernel at the dispatcher and a
 fake implementation that gives the CPU kernel's output shapes and dtypes.
+The warp operators take ``row0`` with a default of 0, so that calls and
+exported programs without it run as before.
 """
 import functools
 import types
@@ -248,3 +250,53 @@ def test_operator_kernels_and_fake(name):
         fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
     want, fake = (list(want), list(fake)) if isinstance(want, (tuple, list)) else ([want], [fake])
     assert [(tuple(t.shape), t.dtype) for t in fake] == [(tuple(t.shape), t.dtype) for t in want]
+
+
+@pytest.mark.parametrize("name", ["warp_sample_forward", "warp_sample_backward"])
+def test_warp_operators_take_row0_with_a_default_of_0(name):
+    r"""The warp operators' last argument is ``row0`` (the image row of the
+    first output pixel), with a default of 0: a call without it is the call
+    with 0, and on the CPU any ``row0`` gives the same result, since it only
+    places the kernels' bands."""
+    op = getattr(torch.ops.vp_suite_tpu_torch, name).default
+    last = op._schema.arguments[-1]
+    assert (last.name, last.default_value) == ("row0", 0)
+    args = _operator_cases()[name]
+    want = op(*args)
+    want = list(want) if isinstance(want, (tuple, list)) else [want]
+    for row0 in (0, 2):
+        got = op(*args, row0)
+        got = list(got) if isinstance(got, (tuple, list)) else [got]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+class _Warp(torch.nn.Module):
+    def __init__(self, row0=None):
+        super().__init__()
+        self.row0 = row0
+
+    def forward(self, iy, ix, img):
+        op = torch.ops.vp_suite_tpu_torch.warp_sample_forward.default
+        return (op(iy, ix, img) if self.row0 is None else op(iy, ix, img, self.row0)) * 2.0
+
+
+@pytest.mark.parametrize("row0,inputs", [(None, ["iy", "ix", "img"]),
+                                         (2, ["iy", "ix", "img", "row0"])],
+                         ids=["without_row0", "row0_2"])
+def test_exported_warp_calls_load_with_and_without_row0(tmp_path, row0, inputs):
+    r"""A program whose warp call leaves ``row0`` out serializes the call with
+    the three arguments a program exported before the operator took ``row0``
+    holds, and loads and runs; one that passes it keeps it."""
+    import json
+    import zipfile
+    args = _operator_cases()["warp_sample_forward"]
+    program = torch.export.export(_Warp(row0), args)
+    path = tmp_path / "warp.pt2"
+    torch.export.save(program, path)
+    with zipfile.ZipFile(path) as z:
+        name = next(n for n in z.namelist() if n.endswith("models/model.json"))
+        nodes = json.loads(z.read(name))["graph_module"]["graph"]["nodes"]
+    calls = [n for n in nodes if "warp_sample_forward" in n["target"]]
+    assert [[a["name"] for a in n["inputs"]] for n in calls] == [inputs]
+    loaded = torch.export.load(path)
+    assert torch.equal(loaded.module()(*args), _Warp(row0)(*args))

@@ -549,6 +549,43 @@ def test_warp_forward_without_a_band(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_kernels_on_a_slab_with_row0(cuda, dtype):
+    r"""A spatial slab: the output pixels are rows 32-63 of a [2, 64, 64, 64]
+    image (``row0`` = 32), their indices those rows' own plus a few pixels, a
+    tenth sent 20 rows up or down. The forward and backward kernels at
+    ``row0`` = 32 against their plain versions (the warp's tolerances); and on
+    zero flows, every in-image tap lies in its block's band with ``row0`` =
+    32, where with ``row0`` = 0 (the bands at the image's top) most do not."""
+    rng = np.random.default_rng(21)
+    b, h, w, c, L, row0 = 2, 64, 64, 64, 3, 32
+    P = (h - row0) * w
+    oy = np.repeat(np.arange(row0, h, dtype=np.float32), w)[None, :, None]
+    ox = np.tile(np.arange(w, dtype=np.float32), h - row0)[None, :, None]
+    far = (rng.random((b, P, L)) < 0.1) * rng.choice([-20.0, 20.0], (b, P, L))
+    iy, ix = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+              for a in (oy + rng.normal(0.0, 2.0, (b, P, L)) + far,
+                        ox + rng.normal(0.0, 2.0, (b, P, L))))
+    img = _randn(rng, b, h, w, c).to(cuda, dtype)
+    g = _randn(rng, b, P, L, c).to(cuda, dtype)
+    before = (warp_sample.launches, warp_sample_backward.launches)
+    _assert_warp_close(warp_sample_forward(iy, ix, img, row0), warp_sample_reference(iy, ix, img))
+    got = warp_sample_backward(iy, ix, img, g, row0)
+    torch.cuda.synchronize()
+    assert (warp_sample.launches, warp_sample_backward.launches) == (before[0] + 1, before[1] + 1)
+    for q, want in zip(got, warp_sample_backward_reference(iy, ix, img, g)):
+        assert q.dtype == want.dtype and q.shape == want.shape
+        _close_to_largest(q, want, 1e-5 if want.dtype == torch.float32 else 2 ** -7 + 1e-5)
+    still = _flow_to_indices(img, torch.zeros(b, h - row0, w, 2 * L, device=cuda), row0)
+    bf16 = dtype == torch.bfloat16
+    for geom in (warp_fwd_variants.geometry(build.warp_library(), b, P, L, h, w, c, bf16),
+                 geometry(build.warp_library(), b, P, L, h, w, c, bf16)):
+        assert 0 < geom["rows"] < h
+        assert out_of_band_share(*still, h, w, geom, row0)[0] == 0
+        outside, taps = out_of_band_share(*still, h, w, geom)
+        assert outside > taps // 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_grid_sample_forward_with_p_not_hw(cuda, dtype):
     r"""``grid_sample`` sends the warp P = 10*13 != h*w = 24*40 samples of one
     flow; the card's result against the same call on the CPU (the plain

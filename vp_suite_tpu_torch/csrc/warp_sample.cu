@@ -25,7 +25,9 @@
 //
 // Layout: pixel-major. iy, ix [b, P, L] (P = h*w output pixels), img [b, h, w, c], out and g
 // [b, P, L, c]: each tap's c channels are contiguous in the NHWC image, and out reshaped to
-// [b*P, L*c] is the input of TrajGRU's 1x1 ret conv as one GEMM, with no transpose.
+// [b*P, L*c] is the input of TrajGRU's 1x1 ret conv as one GEMM, with no transpose. On an image
+// slab (spatial parallelism: this process's output pixels are image rows row0 .. row0 + P/w - 1 of
+// the whole gathered image) P = (h/n)*w and row0 places the tiles' bands; it changes no result.
 //
 // Bound: bytes. The forward writes b*P*L*c outputs once (218 MB in bf16 at b=32, 64x64, L=13, c=64)
 // and reads the indices and the image once (16.8 MB there). The backward reads g once and the image
@@ -51,9 +53,10 @@
 // What bounds it on an H100 (PERF.md, Findings): with the output write cut out it still takes some
 // 90% of its time, so the tap arithmetic and its latency (one block of 1024 threads per SM at
 // 64x64x64) set the pace, not the write; a few taps outside the band (4-5% on flows that send a
-// tenth of the samples far away) cost a quarter more, as each stalls its warp on L2. Any tiling is exact: where
-// P != h*w (grid_sample) the band is placed as if the pixel index were row-major in the image, and
-// where not even one row of one vector fits in shared memory every tap reads global memory.
+// tenth of the samples far away) cost a quarter more, as each stalls its warp on L2. Any tiling is
+// exact: output pixel p is taken to lie in image row row0 + p / w (a slab's rows; where P != h*w
+// in grid_sample, as if the pixel index were row-major in the image), and where not even one row
+// of one vector fits in shared memory every tap reads global memory.
 //
 // Backward: the scatter of g * weight into d_img is what costs (4*c f32 adds per sample, 436 M at
 // 64x64x64, b=32, L=13). The TPU's band kernels (_make_band_dimg_kernel) add each output tile's
@@ -77,10 +80,11 @@
 // What bounds it on an H100 (PERF.md, Findings): global f32 atomics move under 2 TB/s of payload,
 // which is why the window takes the adds it can; the window's compare-and-swaps then take about half
 // the time, the tap reads and index gradients the other half.
-// Any tiling is exact: where P != h*w (grid_sample) the window is placed as if the pixel index were
-// row-major in the image, and where not even one row fits in shared memory every tap goes to global
-// memory. d_img is f32 (the caller zeroes it and rounds it to img's type afterwards); its summation
-// order follows the atomics and varies from run to run.
+// Any tiling is exact: output pixel p is taken to lie in image row row0 + p / w (a slab's rows; where
+// P != h*w in grid_sample, as if the pixel index were row-major in the image), and where not even
+// one row fits in shared memory every tap goes to global memory. d_img is f32 (the caller zeroes
+// it and rounds it to img's type afterwards); its summation order follows the atomics and varies
+// from run to run.
 #include "warp_common.cuh"
 
 #include <algorithm>
@@ -93,6 +97,7 @@ template <typename T, int V> struct alignas(sizeof(T) * V) Vec { T v[V]; };
 
 struct Dims {
   int b, P, L, h, w, c;
+  int r0;  // the image row of output pixel 0 (a slab's first row; 0 for the whole image)
 };
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -191,8 +196,8 @@ __global__ void __launch_bounds__(NT)
   const int nv = min(q.cw, d.c - c0) / V;  // c % V == 0, so every vector is whole
   const int G = nv / VPL;                  // the geometry makes nv a multiple of VPL
   const int n_samp = min(q.tile_px, d.P - p0) * d.L;
-  // the band: rows [row0, row0 + rows), the tile's rows p0 / w .. and R above, clamped
-  const int row0 = max(0, min(p0 / d.w - q.R, d.h - q.rows));
+  // the band: rows [row0, row0 + rows), the tile's image rows r0 + p0 / w .. and R above, clamped
+  const int row0 = max(0, min(d.r0 + p0 / d.w - q.R, d.h - q.rows));
   const int band_off = row0 * d.w, band_px = q.rows * d.w;
   const T* src = img + int64_t(bi) * d.h * d.w * d.c + c0;
 
@@ -462,8 +467,8 @@ __global__ void __launch_bounds__(NT)
   const int bi = blockIdx.x / q.tiles;
   const int p0 = (blockIdx.x - bi * q.tiles) * q.tile_px;
   const int n_samp = min(q.tile_px, d.P - p0) * d.L;
-  // the window: rows [row0, row0 + rows), the tile's rows p0 / w .. and R above, clamped
-  const int row0 = max(0, min(p0 / d.w - q.R, d.h - q.rows));
+  // the window: rows [row0, row0 + rows), the tile's image rows r0 + p0 / w .. and R above, clamped
+  const int row0 = max(0, min(d.r0 + p0 / d.w - q.R, d.h - q.rows));
   const int win_off = row0 * d.w, win_px = q.rows * d.w;
   const int64_t item = int64_t(bi) * d.h * d.w * d.c;
   const T* src = img + item;
@@ -558,7 +563,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 bool valid_dims(const Dims& d) {
-  return d.b > 0 && d.P > 0 && d.L > 0 && d.h > 0 && d.w > 0 && d.c > 0 &&
+  return d.b > 0 && d.P > 0 && d.L > 0 && d.h > 0 && d.w > 0 && d.c > 0 && d.r0 >= 0 &&
+         d.r0 <= d.h &&
          int64_t(d.h) * d.w * d.c < (int64_t(1) << 31);  // tap offsets within an item are int
 }
 
@@ -651,11 +657,11 @@ cudaError_t launch_bwd(const float* iy, const float* ix, const void* img, const 
 extern "C" {
 
 // The forward on `stream`: out [b, P, L, c] from iy, ix [b, P, L] (f32) and img [b, h, w, c]; img
-// and out are bf16 when is_bf16 is set, else f32. All contiguous. Returns a cudaError_t (0 on
-// success).
+// and out are bf16 when is_bf16 is set, else f32. All contiguous. row0 (0 <= row0 <= h): the image
+// row of output pixel 0, which places the tiles' bands. Returns a cudaError_t (0 on success).
 int vp_warp_sample_fwd(int is_bf16, const float* iy, const float* ix, const void* img, void* out,
-                       int b, int P, int L, int h, int w, int c, void* stream) {
-  const Dims d{b, P, L, h, w, c};
+                       int b, int P, int L, int h, int w, int c, int row0, void* stream) {
+  const Dims d{b, P, L, h, w, c, row0};
   if (!valid_dims(d)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return finish(is_bf16 ? launch_fwd<__nv_bfloat16>(iy, ix, img, out, d, st)
@@ -664,11 +670,11 @@ int vp_warp_sample_fwd(int is_bf16, const float* iy, const float* ix, const void
 
 // The backward on `stream`: adds into d_img [b, h, w, c] (f32, zeroed by the caller) and writes
 // d_iy, d_ix [b, P, L] (f32) from g [b, P, L, c] in img's type (bf16 when is_bf16 is set, else f32).
-// All contiguous. Returns a cudaError_t (0 on success).
+// All contiguous. row0 as for the forward. Returns a cudaError_t (0 on success).
 int vp_warp_sample_bwd(int is_bf16, const float* iy, const float* ix, const void* img,
                        const void* g, float* d_img, float* d_iy, float* d_ix, int b, int P, int L,
-                       int h, int w, int c, void* stream) {
-  const Dims d{b, P, L, h, w, c};
+                       int h, int w, int c, int row0, void* stream) {
+  const Dims d{b, P, L, h, w, c, row0};
   if (!valid_dims(d)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return finish(is_bf16 ? launch_bwd<__nv_bfloat16>(iy, ix, img, g, d_img, d_iy, d_ix, d, st)
@@ -679,7 +685,7 @@ int vp_warp_sample_bwd(int is_bf16, const float* iy, const float* ix, const void
 // tensors: out[0..8] = {tile_px, tiles, R, rows, G, cw, V, shared bytes, threads per block}. For reports of where the
 // taps land (which share leaves the band); the kernel computes the same. Returns a cudaError_t.
 int vp_warp_bwd_geometry(int is_bf16, int b, int P, int L, int h, int w, int c, int* out) {
-  const Dims d{b, P, L, h, w, c};
+  const Dims d{b, P, L, h, w, c, 0};
   if (!valid_dims(d)) return cudaErrorInvalidValue;
   int V = is_bf16 ? 8 : 4;
   while (V > 1 && c % V) V /= 2;
@@ -698,7 +704,7 @@ int vp_warp_bwd_geometry(int is_bf16, int b, int P, int L, int h, int w, int c, 
 // For reports of where the taps land (which share leaves the band); the kernel computes the same.
 // Returns a cudaError_t.
 int vp_warp_fwd_geometry(int is_bf16, int b, int P, int L, int h, int w, int c, int* out) {
-  const Dims d{b, P, L, h, w, c};
+  const Dims d{b, P, L, h, w, c, 0};
   if (!valid_dims(d)) return cudaErrorInvalidValue;
   const int esize = is_bf16 ? 2 : 4;
   int V = 16 / esize;

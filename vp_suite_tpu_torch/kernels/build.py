@@ -132,9 +132,11 @@ def scan_bwd_library() -> ctypes.CDLL:
 @functools.cache
 def warp_library() -> ctypes.CDLL:
     r"""The multi-flow bilinear warp library (``csrc/warp_sample.cu``: its
-    forward and backward), built on first call."""
-    return _load("warp_sample.cu", {"vp_warp_sample_fwd": _warp_signature(4),
-                                    "vp_warp_sample_bwd": _warp_signature(7)})
+    forward and backward), built on first call. ``int fn(int is_bf16,
+    <pointers>, int b, int P, int L, int h, int w, int c, int row0, void*
+    stream)``."""
+    return _load("warp_sample.cu", {"vp_warp_sample_fwd": [_INT] + [_VP] * 4 + [_INT] * 7 + [_VP],
+                                    "vp_warp_sample_bwd": [_INT] + [_VP] * 7 + [_INT] * 7 + [_VP]})
 
 
 @functools.cache

@@ -96,11 +96,26 @@ def variant_source(name: str) -> str:
     return apply_edits("warp_sample.cu", EDITS, name)
 
 
-def _declare_bwd(lib, text):
-    lib.vp_warp_sample_bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.vp_warp_sample_bwd.restype = ctypes.c_int
+def declare_warp_entry(lib, fn, pointers, text):
+    r"""Declare ``fn`` of ``lib`` (built from ``text``): a dtype flag,
+    ``pointers`` pointers, the sizes, ``row0`` where the source takes it, the
+    stream. A ``--parent`` source from before ``row0`` has no such argument;
+    this check and :func:`row0_args` can go once no compared tree is that old."""
+    lib.row0 = "int row0" in text
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * pointers \
+        + [ctypes.c_int] * (7 if lib.row0 else 6) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def row0_args(lib):
+    r"""The ``row0`` argument (0: output pixels from the image's top) where
+    ``lib`` takes one (:func:`declare_warp_entry`)."""
+    return [0] if lib.row0 else []
+
+
+def _declare_bwd(lib, text):
+    return declare_warp_entry(lib, lib.vp_warp_sample_bwd, 7, text)
 
 
 def geometry(lib, b, P, L, h, w, c, bf16):
@@ -117,22 +132,24 @@ def geometry(lib, b, P, L, h, w, c, bf16):
     return dict(zip(("tile_px", "tiles", "R", "rows", "G", "cw", "V", "smem", "threads"), out))
 
 
-def out_of_band_share(iy, ix, h, w, geom):
+def out_of_band_share(iy, ix, h, w, geom, row0=0):
     r"""``(taps outside their block's window, taps inside the image)`` of the
-    samples ``iy``, ``ix`` ``[b, P, L]`` under the tiling ``geom``: the block
-    of output pixel p holds image rows ``[row0, row0 + rows)`` with ``row0 =
-    max(0, min(p0 // w - R, h - rows))``, p0 the first pixel of p's tile. A
-    tap in the image and outside that window is added to global memory
-    directly; only taps in the image are counted."""
+    samples ``iy``, ``ix`` ``[b, P, L]`` under the tiling ``geom``, for output
+    pixels that start at image row ``row0`` (the launch's): the block of
+    output pixel p holds image rows ``[first, first + rows)`` with ``first =
+    max(0, min(row0 + p0 // w - R, h - rows))``, p0 the first pixel of p's
+    tile. A tap in the image and outside that window is added to global
+    memory directly (read from it, in the forward); only taps in the image
+    are counted."""
     P = iy.shape[1]
     tile_px, R, rows = geom["tile_px"], geom["R"], geom["rows"]
     p0 = torch.arange(P, device=iy.device) // tile_px * tile_px
-    row0 = (p0 // w - R).clamp(max=h - rows).clamp(min=0).view(1, P, 1)
+    first = (row0 + p0 // w - R).clamp(max=h - rows).clamp(min=0).view(1, P, 1)
     y0, x0 = torch.floor(iy.float()), torch.floor(ix.float())
     outside = total = 0
     for y in (y0, y0 + 1):
         in_y = (y >= 0) & (y <= h - 1)
-        in_band = (y >= row0) & (y < row0 + rows)
+        in_band = (y >= first) & (y < first + rows)
         for x in (x0, x0 + 1):
             valid = in_y & (x >= 0) & (x <= w - 1)
             total += int(valid.sum())
@@ -169,7 +186,7 @@ def run(lib, iy, ix, img, g, out):
     d_img.zero_()
     err = lib.vp_warp_sample_bwd(int(img.dtype == torch.bfloat16), iy.data_ptr(), ix.data_ptr(),
                                  img.data_ptr(), g.data_ptr(), d_img.data_ptr(), d_iy.data_ptr(),
-                                 d_ix.data_ptr(), b, P, Lf, h, w, c,
+                                 d_ix.data_ptr(), b, P, Lf, h, w, c, *row0_args(lib),
                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"warp backward variant launch failed ({err})")

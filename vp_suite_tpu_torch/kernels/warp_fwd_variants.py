@@ -36,7 +36,8 @@ import torch
 from vp_suite_tpu_torch.kernels import build
 from vp_suite_tpu_torch.kernels.k3_variants import _worse
 from vp_suite_tpu_torch.kernels.k4_variants import apply_edits, build_variants
-from vp_suite_tpu_torch.kernels.warp_bwd_variants import graph_ms, out_of_band_share, warp_args
+from vp_suite_tpu_torch.kernels.warp_bwd_variants import (declare_warp_entry, graph_ms,
+                                                          out_of_band_share, row0_args, warp_args)
 from vp_suite_tpu_torch.ops.grid_sample import _flow_to_indices
 from vp_suite_tpu_torch.ops.warp import warp_sample_reference
 
@@ -105,10 +106,7 @@ def variant_source(name: str) -> str:
 
 
 def _declare_fwd(lib, text):
-    lib.vp_warp_sample_fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.vp_warp_sample_fwd.restype = ctypes.c_int
-    return lib
+    return declare_warp_entry(lib, lib.vp_warp_sample_fwd, 4, text)
 
 
 def geometry(lib, b, P, L, h, w, c, bf16):
@@ -177,7 +175,7 @@ def run(lib, iy, ix, img, out):
     _, h, w, c = img.shape
     err = lib.vp_warp_sample_fwd(int(img.dtype == torch.bfloat16), iy.data_ptr(), ix.data_ptr(),
                                  img.data_ptr(), out.data_ptr(), b, P, Lf, h, w, c,
-                                 torch.cuda.current_stream().cuda_stream)
+                                 *row0_args(lib), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"warp forward variant launch failed ({err})")
 

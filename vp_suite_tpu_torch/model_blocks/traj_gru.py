@@ -35,6 +35,18 @@ gate math again. The keep masks are drawn before the loop, outside the
 steps. The JAX block's ``scan_unroll`` has no counterpart: eager PyTorch has
 no loop to unroll.
 
+Inside ``parallel.spatial.spatial_halo_convs`` (a mesh with ``sp`` > 1) every
+state and input is this process's slab of rows, as EF-ConvLSTM's cells take
+them: the convs exchange halo rows, the gate math and ``ret`` are row-local,
+and the warps, which read any row, sample the whole hidden state, gathered
+over ``sp`` once a step (``parallel.spatial.gather_rows``; its backward sums
+the image's gradient over ``sp``) and warped for this slab's pixels
+(``warp_flow_ret``'s ``row0``), as XLA gathers around the JAX block's warp on
+a spatial mesh. The gather runs before a step's checkpointed region, so that
+``remat`` keeps the gathered state as the region's input: the recompute in the
+backward gathers nothing again (it runs its halo exchanges again, in the same
+order on every process).
+
 Parameters keep the reference vp-suite's names: ``i2h``, ``i2f_conv1``,
 ``h2f_conv1``, ``flows_conv`` and ``ret``, torch-layout convs. f32
 parameters are cast at use to the activation dtype.
@@ -46,6 +58,7 @@ from vp_suite_tpu_torch.base.base_model_block import VPModelBlock
 from vp_suite_tpu_torch.nn import remat
 from vp_suite_tpu_torch.nn.layers import Conv2d
 from vp_suite_tpu_torch.ops.grid_sample import warp_flow_ret
+from vp_suite_tpu_torch.parallel import spatial
 
 FLOW_HIDDEN = 32    #: channels of the flow net's first conv (the reference's)
 FLOW_KERNEL = 5     #: the flow net's kernel (padding 2)
@@ -109,9 +122,18 @@ class TrajGRU(VPModelBlock):
                 the previous hidden state), or None: drawn from ``generator``
                 when ``zoneout > 0``, none otherwise.
 
-        Returns ``(outputs [t, b, sh, sw, enc], next_h)``.
+        Returns ``(outputs [t, b, sh, sw, enc], next_h)``; on a spatial mesh
+        every ``h``-sized tensor holds this process's ``sh / sp`` rows.
         """
         f, sh, sw = self.enc_channels, self.sh, self.sw
+        sp = spatial.active_spatial()
+        row0 = 0   # the image row of this process's first state row
+        if sp is not None:
+            r, n, _ = spatial.coordinate(*sp)
+            if sh % n:
+                raise ValueError(f"TrajGRU's state height {sh} is not divisible by sp={n}")
+            sh //= n
+            row0 = r * sh
         if inputs is None and states is None:
             raise ValueError("TrajGRU received 'None' both in input and state")
         if states is None:
@@ -129,13 +151,13 @@ class TrajGRU(VPModelBlock):
         # channel l*f + k is channel k of warp l, the warps' flattened order
         ret_w = self.ret.weight.view(3 * f, self.L * f).t()
 
-        def step(h, i2h_t, i2f_t, mask):
+        def step(h, whole, i2h_t, i2f_t, mask):
             f_conv1 = self.h2f_conv1(h)
             if i2f_t is not None:
                 f_conv1 = f_conv1 + i2f_t
             flows = remat.named("trajgru_flows", self.flows_conv,
                                 self._act(f_conv1))                  # [b, sh, sw, 2L]
-            h2h = warp_flow_ret(h, -flows, ret_w, self.ret.bias)  # [b, sh, sw, 3f]
+            h2h = warp_flow_ret(whole, -flows, ret_w, self.ret.bias, row0)   # [b, sh, sw, 3f]
             hr, hu, hm = h2h.chunk(3, dim=-1)
             if i2h_t is not None:
                 ir, iu, im = i2h_t.chunk(3, dim=-1)
@@ -153,10 +175,11 @@ class TrajGRU(VPModelBlock):
         for t in range(seq_len):
             xs = (None, None) if inputs is None else (i2h[t], i2f[t])
             mask = None if zoneout_masks is None else zoneout_masks[t]
+            whole = h if sp is None else spatial.gather_rows(h, 1, *sp)   # what the warps sample
             if self.remat:
-                h = remat.checkpoint(step, h, *xs, mask,
+                h = remat.checkpoint(step, h, whole, *xs, mask,
                                      saved=("trajgru_flows", "warp_ret_warped"))
             else:
-                h = step(h, *xs, mask)
+                h = step(h, whole, *xs, mask)
             outs.append(h)
         return torch.stack(outs), h

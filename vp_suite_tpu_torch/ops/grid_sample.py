@@ -53,22 +53,25 @@ def _onehot_factor(i_frac, n, dtype):
     return fac.to(dtype)
 
 
-def _flow_to_indices(img, flows):
-    r"""``[b, h, w, 2L]`` pixel-space flows ((dx, dy) pairs) -> fractional
-    source indices ``iy``, ``ix`` ``[b, h*w, L]`` f32: torch's round trip
-    through a normalized grid and ``align_corners=False``, ``v * dim/(dim-1) -
-    1/2``. The operations run in f32 in the JAX package's order, ``(xx + f) *
-    (w / (w-1)) - 0.5``: an index one ulp from an integer floors the other way
-    under another order, which leaves the warp continuous but moves its index
-    gradient by O(1)."""
+def _flow_to_indices(img, flows, row0=0):
+    r"""``[b, hl, w, 2L]`` pixel-space flows ((dx, dy) pairs) of the output
+    pixels in image rows ``row0 .. row0 + hl - 1`` of ``img`` ``[b, h, w, c]``
+    (all of them where ``hl = h``; an ``sp`` slab's on a spatial mesh) ->
+    fractional source indices ``iy``, ``ix`` ``[b, hl*w, L]`` f32 into
+    ``img``: torch's round trip through a normalized grid and
+    ``align_corners=False``, ``v * dim/(dim-1) - 1/2``. The operations run in
+    f32 in the JAX package's order on the whole image, ``(yy + f) * (h /
+    (h-1)) - 0.5`` with ``yy`` the image row: an index one ulp from an integer
+    floors the other way under another order, which leaves the warp continuous
+    but moves its index gradient by O(1)."""
     b, h, w, _ = img.shape
-    L = flows.shape[-1] // 2
-    f = flows.reshape(b, h, w, L, 2).float()
+    hl, L = flows.shape[1], flows.shape[-1] // 2
+    f = flows.reshape(b, hl, w, L, 2).float()
     xx = torch.arange(w, dtype=torch.float32, device=flows.device).view(1, 1, w, 1)
-    yy = torch.arange(h, dtype=torch.float32, device=flows.device).view(1, h, 1, 1)
+    yy = torch.arange(row0, row0 + hl, dtype=torch.float32, device=flows.device).view(1, hl, 1, 1)
     ix = (xx + f[..., 0]) * (w / max(w - 1, 1)) - 0.5
     iy = (yy + f[..., 1]) * (h / max(h - 1, 1)) - 0.5
-    return iy.reshape(b, h * w, L), ix.reshape(b, h * w, L)
+    return iy.reshape(b, hl * w, L), ix.reshape(b, hl * w, L)
 
 
 def warp_flow(img, flow):
@@ -93,26 +96,32 @@ def warp_flow_multi(img, flows):
     return warp_sample(iy, ix, img).view(b, h, w, -1)
 
 
-def warp_flow_ret(img, flows, w, bias):
+def warp_flow_ret(img, flows, w, bias, row0=0):
     r"""TrajGRU's L trajectory warps followed by its 1x1 ``ret`` conv:
-    ``conv1x1(warp_flow_multi(img, flows), w, bias)``.
+    ``conv1x1(warp_flow_multi(img, flows), w, bias)``, for the output rows
+    ``row0 .. row0 + hl - 1`` of ``img``.
 
     Args:
-        img: ``[b, h, w, c]``; its dtype is the compute dtype.
-        flows: ``[b, h, w, 2L]`` pixel-space offsets, (dx, dy) pairs.
+        img: ``[b, h, w, c]``, the image the warps sample; its dtype is the
+            compute dtype.
+        flows: ``[b, hl, w, 2L]`` pixel-space offsets, (dx, dy) pairs, of the
+            output pixels in image rows ``row0 ..`` (``hl = h`` and ``row0 =
+            0`` for the whole image; on a spatial mesh, an ``sp`` slab's rows
+            of the whole image that ``parallel.spatial.gather_rows`` gave).
         w: ``[L*c, O]`` ret weights (input channel ``l*c + k`` is channel k
             of warp l), cast to ``img``'s dtype.
         bias: ``[O]``.
+        row0: the image row of the first output pixel.
 
-    Returns ``[b, h, w, O]`` gate pre-activations in ``img``'s dtype: the
-    warps' ``[b*P, L*c]`` output times ``w`` as one GEMM, bias added in its
-    epilogue. Under autograd the warp tensor is saved for ``w``'s gradient,
-    as the JAX package saves it; it is named ``"warp_ret_warped"``
+    Returns ``[b, hl, w, O]`` gate pre-activations in ``img``'s dtype: the
+    warps' ``[b*P, L*c]`` output (``P = hl*w``) times ``w`` as one GEMM, bias
+    added in its epilogue. Under autograd the warp tensor is saved for ``w``'s
+    gradient, as the JAX package saves it; it is named ``"warp_ret_warped"``
     (``nn.remat.named``), so that a checkpointed step keeps it and does not
     launch the warp again.
     """
-    b, h, wd, c = img.shape
-    iy, ix = _flow_to_indices(img, flows)
-    warped = named("warp_ret_warped", warp_sample, iy, ix, img)   # [b, P, L, c]
-    out = torch.addmm(bias.to(img.dtype), warped.view(b * h * wd, -1), w.to(img.dtype))
-    return out.view(b, h, wd, -1)
+    b, hl, wd, _ = flows.shape
+    iy, ix = _flow_to_indices(img, flows, row0)
+    warped = named("warp_ret_warped", warp_sample, iy, ix, img, row0)   # [b, P, L, c]
+    out = torch.addmm(bias.to(img.dtype), warped.view(b * hl * wd, -1), w.to(img.dtype))
+    return out.view(b, hl, wd, -1)

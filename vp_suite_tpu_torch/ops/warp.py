@@ -23,7 +23,9 @@ P]``, which suits the TPU's lanes): ``iy``, ``ix`` ``[b, P, L]`` with ``P =
 h*w`` output pixels, ``img`` ``[b, h, w, c]`` and ``out`` ``[b, P, L, c]``. Each
 tap then reads ``c`` contiguous channels of the NHWC image, and ``out`` viewed
 as ``[b*P, L*c]`` feeds TrajGRU's 1x1 ``ret`` conv as one GEMM with no
-transpose.
+transpose. On an image slab (spatial parallelism) the output pixels are image
+rows ``row0 .. row0 + P/w - 1`` of the whole image ``img``; ``row0`` places the
+kernels' bands of image rows there and changes no result.
 
 The kernels (``csrc/warp_sample.cu``, whose header gives their bound and
 design) replace the JAX package's TPU kernels ``ops/pallas_warp.py``:
@@ -117,11 +119,12 @@ def _gather(img_flat, flat):
         .reshape(*flat.shape, img_flat.shape[-1])
 
 
-def warp_sample_reference(iy, ix, img):
+def warp_sample_reference(iy, ix, img, row0=0):
     r"""Plain PyTorch version of the warp: the explicit 4-tap formula,
     computed in f32 and rounded to ``img.dtype``. Differentiable by autograd
     (``floor`` and the validity masks are constants to it). Returns ``[b, P,
-    L, c]``."""
+    L, c]``. ``row0``, the image row of the first output pixel, only places
+    the kernel's bands, so it is taken and ignored."""
     _check(iy, ix, img)
     b, h, w, c = img.shape
     taps, _ = _taps(iy, ix, h, w)
@@ -132,10 +135,11 @@ def warp_sample_reference(iy, ix, img):
     return out.to(img.dtype)
 
 
-def warp_sample_backward_reference(iy, ix, img, g):
+def warp_sample_backward_reference(iy, ix, img, g, row0=0):
     r"""Plain PyTorch version of the warp's backward, with the JAX package's
     semantics: ``(d_iy, d_ix)`` ``[b, P, L]`` in f32, ``d_img`` ``[b, h, w, c]``
-    accumulated in f32 and rounded to ``img.dtype``."""
+    accumulated in f32 and rounded to ``img.dtype``. ``row0`` only places the
+    kernel's windows, so it is taken and ignored."""
     _check(iy, ix, img, g)
     b, h, w, c = img.shape
     taps, (wy0, wy1, wx0, wx1) = _taps(iy, ix, h, w)
@@ -164,12 +168,18 @@ def _launch(name, lib, entry, *args):
                            f"{lib.vp_cuda_error_string(err).decode()} ({err})")
 
 
-def _warp_sample_forward_cpu(iy: Tensor, ix: Tensor, img: Tensor) -> Tensor:
-    return warp_sample_reference(iy, ix, img)
+def _check_row0(row0, img):
+    if not 0 <= row0 <= img.shape[1]:
+        raise ValueError(f"row0 must be an image row in [0, {img.shape[1]}], got {row0}")
 
 
-def _warp_sample_forward_cuda(iy, ix, img):
+def _warp_sample_forward_cpu(iy: Tensor, ix: Tensor, img: Tensor, row0: int = 0) -> Tensor:
+    return warp_sample_reference(iy, ix, img, row0)
+
+
+def _warp_sample_forward_cuda(iy, ix, img, row0=0):
     _check(iy, ix, img)
+    _check_row0(row0, img)
     _check_kernel_operands("warp_sample", iy, ix, img)
     b, P, L = iy.shape
     _, h, w, c = img.shape
@@ -177,12 +187,12 @@ def _warp_sample_forward_cuda(iy, ix, img):
     if not out.numel():
         return out
     _launch("warp_sample", build.warp_library(), "vp_warp_sample_fwd",
-            int(img.dtype == torch.bfloat16), iy, ix, img, out, b, P, L, h, w, c)
+            int(img.dtype == torch.bfloat16), iy, ix, img, out, b, P, L, h, w, c, row0)
     warp_sample.launches += 1
     return out
 
 
-def _warp_sample_forward_fake(iy, ix, img):
+def _warp_sample_forward_fake(iy, ix, img, row0=0):
     _check(iy, ix, img)
     return img.new_empty((*iy.shape, img.shape[-1]))
 
@@ -191,24 +201,26 @@ _WARP_SAMPLE_FORWARD = define_op("warp_sample_forward", _warp_sample_forward_cpu
                                  _warp_sample_forward_cuda, _warp_sample_forward_fake)
 
 
-def warp_sample_forward(iy, ix, img):
+def warp_sample_forward(iy, ix, img, row0=0):
     r"""The warp's forward with no autograd: ``[b, P, L, c]`` in
-    ``img.dtype``. The operator ``vp_suite_tpu_torch::warp_sample_forward``:
-    on CPU tensors it computes :func:`warp_sample_reference`;
+    ``img.dtype``. The operator ``vp_suite_tpu_torch::warp_sample_forward``
+    (``row0``, default 0, the image row of the first output pixel: a slab's
+    first row): on CPU tensors it computes :func:`warp_sample_reference`;
     on CUDA tensors it launches the forward kernel, which takes contiguous
     f32 indices and a contiguous bf16 or f32 image, and raises on anything
     else."""
     check_device("warp_sample", img)
-    return _WARP_SAMPLE_FORWARD(iy, ix, img)
+    return _WARP_SAMPLE_FORWARD(iy, ix, img, row0)
 
 
-def _warp_sample_backward_cpu(iy: Tensor, ix: Tensor, img: Tensor,
-                              g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    return warp_sample_backward_reference(iy, ix, img, g)
+def _warp_sample_backward_cpu(iy: Tensor, ix: Tensor, img: Tensor, g: Tensor,
+                              row0: int = 0) -> tuple[Tensor, Tensor, Tensor]:
+    return warp_sample_backward_reference(iy, ix, img, g, row0)
 
 
-def _warp_sample_backward_cuda(iy, ix, img, g):
+def _warp_sample_backward_cuda(iy, ix, img, g, row0=0):
     _check(iy, ix, img, g)
+    _check_row0(row0, img)
     _check_kernel_operands("warp_sample_backward", iy, ix, img, g)
     b, P, L = iy.shape
     _, h, w, c = img.shape
@@ -218,12 +230,13 @@ def _warp_sample_backward_cuda(iy, ix, img, g):
     if not g.numel():
         return d_iy, d_ix, d_img.to(img.dtype)
     _launch("warp_sample_backward", build.warp_library(), "vp_warp_sample_bwd",
-            int(img.dtype == torch.bfloat16), iy, ix, img, g, d_img, d_iy, d_ix, b, P, L, h, w, c)
+            int(img.dtype == torch.bfloat16), iy, ix, img, g, d_img, d_iy, d_ix, b, P, L, h, w, c,
+            row0)
     warp_sample_backward.launches += 1
     return d_iy, d_ix, d_img.to(img.dtype)
 
 
-def _warp_sample_backward_fake(iy, ix, img, g):
+def _warp_sample_backward_fake(iy, ix, img, g, row0=0):
     _check(iy, ix, img, g)
     f32 = dict(dtype=torch.float32)
     return iy.new_empty(iy.shape, **f32), iy.new_empty(iy.shape, **f32), torch.empty_like(img)
@@ -233,16 +246,17 @@ _WARP_SAMPLE_BACKWARD = define_op("warp_sample_backward", _warp_sample_backward_
                                   _warp_sample_backward_cuda, _warp_sample_backward_fake)
 
 
-def warp_sample_backward(iy, ix, img, g):
+def warp_sample_backward(iy, ix, img, g, row0=0):
     r"""The warp's backward: ``(d_iy, d_ix)`` ``[b, P, L]`` f32 and ``d_img``
     ``[b, h, w, c]`` in ``img.dtype``. The operator
-    ``vp_suite_tpu_torch::warp_sample_backward``: on CPU tensors it computes
+    ``vp_suite_tpu_torch::warp_sample_backward`` (``row0`` as for
+    :func:`warp_sample_forward`): on CPU tensors it computes
     :func:`warp_sample_backward_reference`; on CUDA tensors it launches the
     backward kernel (``d_img`` accumulated in f32 with atomics, then rounded),
     which takes contiguous f32 indices and a contiguous bf16 or f32 image and
     ``g`` of one dtype, and raises on anything else."""
     check_device("warp_sample_backward", img)
-    return _WARP_SAMPLE_BACKWARD(iy, ix, img, g)
+    return _WARP_SAMPLE_BACKWARD(iy, ix, img, g, row0)
 
 
 class WarpFunction(torch.autograd.Function):
@@ -251,34 +265,39 @@ class WarpFunction(torch.autograd.Function):
     three gradients in one pass. Saves the indices and the image."""
 
     @staticmethod
-    def forward(ctx, iy, ix, img):
-        out = warp_sample_forward(iy, ix, img)
+    def forward(ctx, iy, ix, img, row0):
+        out = warp_sample_forward(iy, ix, img, row0)
         ctx.save_for_backward(iy, ix, img)
+        ctx.row0 = row0
         return out
 
     @staticmethod
     def backward(ctx, g):
         iy, ix, img = ctx.saved_tensors
-        d_iy, d_ix, d_img = warp_sample_backward(iy, ix, img, g.to(img.dtype).contiguous())
+        d_iy, d_ix, d_img = warp_sample_backward(iy, ix, img, g.to(img.dtype).contiguous(),
+                                                 ctx.row0)
         need = ctx.needs_input_grad
         return (d_iy if need[0] else None, d_ix if need[1] else None,
-                d_img if need[2] else None)
+                d_img if need[2] else None, None)
 
 
-def warp_sample(iy, ix, img):
+def warp_sample(iy, ix, img, row0=0):
     r"""Multi-flow bilinear warp, differentiable.
 
     Args:
         iy, ix: ``[b, P, L]`` f32 fractional source indices (row, column) of
             each output pixel and flow, ``P = h_out * w_out``.
         img: ``[b, h, w, c]``, bf16 or f32.
+        row0: the image row of the first output pixel where the output
+            pixels are rows of ``img`` (a slab's first row on a spatial mesh):
+            it places the kernels' bands and changes no result.
 
     Returns ``[b, P, L, c]`` in ``img.dtype``. Runs :class:`WarpFunction`:
     the CUDA kernels on CUDA tensors (it raises on what they do not take),
     their plain versions on CPU tensors.
     """
     _check(iy, ix, img)
-    return WarpFunction.apply(iy.contiguous(), ix.contiguous(), img.contiguous())
+    return WarpFunction.apply(iy.contiguous(), ix.contiguous(), img.contiguous(), row0)
 
 
 #: Launches of the forward kernel since the count was last set to 0.

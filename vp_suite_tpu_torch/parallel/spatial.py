@@ -95,13 +95,14 @@ def refuse(what):
             f"spatial_halo_convs or on a mesh with sp=1")
 
 
-def gather_stacked(x, n, group):
+def gather_stacked(x, n, group, kind="gather"):
     r"""``[n, *x.shape]``: the ``n`` processes' ``x`` of ``group`` in rank order,
-    in one ``all_gather_into_tensor`` (no autograd)."""
+    in one ``all_gather_into_tensor`` (no autograd), noted for :func:`record`
+    as ``kind``."""
     x = x.contiguous()
     buf = x.new_empty((n * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(buf, x, group=group)
-    _note("gather", buf)
+    _note(kind, buf)
     return buf.view(n, *x.shape)
 
 
@@ -114,7 +115,7 @@ class _Halo(torch.autograd.Function):
     def forward(ctx, x, top, bottom, rank, n, group):
         ctx.top, ctx.bottom, ctx.rank, ctx.n, ctx.group = top, bottom, rank, n, group
         parts = ([x[:, x.shape[1] - top:]] if top else []) + ([x[:, :bottom]] if bottom else [])
-        rows = gather_stacked(torch.cat(parts, 1), n, group)     # [n, b, top + bottom, w, c]
+        rows = gather_stacked(torch.cat(parts, 1), n, group, "halo")   # [n, b, top + bottom, w, c]
         out = [x]
         if top:
             out.insert(0, rows[rank - 1, :, :top] if rank > 0 else x.new_zeros(
@@ -130,7 +131,7 @@ class _Halo(torch.autograd.Function):
         hl = g.shape[1] - top - bottom
         dx = g[:, top:top + hl].clone(memory_format=torch.contiguous_format)
         # this process's halo cotangents, [for the previous slab, for the next]
-        sent = gather_stacked(torch.cat([g[:, :top], g[:, top + hl:]], 1), n, ctx.group)
+        sent = gather_stacked(torch.cat([g[:, :top], g[:, top + hl:]], 1), n, ctx.group, "halo")
         if top and rank < n - 1:      # the next slab read my last top rows
             dx[:, hl - top:] += sent[rank + 1, :, :top]
         if bottom and rank > 0:       # the previous slab read my first bottom rows
@@ -228,7 +229,11 @@ def halo_conv_transpose2d(x, weight, bias, stride, padding, output_padding, mesh
 class _GatherRows(torch.autograd.Function):
     r"""Every process's block joined along ``dim`` forward; the cotangent
     summed over the group and this process's block of it backward (each
-    process's cotangent of the whole comes from its own part of the loss)."""
+    process's cotangent of the whole comes from its own part of the loss).
+    The sum runs in f32 whatever the cotangent's dtype, and a bf16 result is
+    rounded once: each process's part keeps the rounding it came with (the
+    warp backward rounds its f32 sum once), so at ``sp`` = 2 a bf16 ``d_img``
+    is rounded three times where one process's whole-image sum rounds once."""
 
     @staticmethod
     def forward(ctx, x, dim, rank, n, group):
@@ -238,10 +243,11 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
-        dist.all_reduce(g, group=ctx.group)
-        _note("all_reduce", g)
-        return g.narrow(ctx.dim, ctx.start, ctx.rows).contiguous(), None, None, None, None
+        total = g.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(total, group=ctx.group)
+        _note("all_reduce", total)
+        return (total.narrow(ctx.dim, ctx.start, ctx.rows).to(g.dtype).contiguous(),
+                None, None, None, None)
 
 
 def gather_rows(x, dim, mesh, axis="sp"):
@@ -269,8 +275,10 @@ _RECORDS = []
 def record():
     r"""Within the context, every collective that the halo exchanges and row
     gathers ran is appended to the yielded list as ``(kind, shape, dtype)`` of
-    its buffer: kind ``"gather"`` (an ``all_gather_into_tensor``, the gathered
-    buffer) or ``"all_reduce"``."""
+    its buffer: kind ``"halo"`` (a halo exchange's ``all_gather_into_tensor``,
+    forward or backward, the gathered buffer), ``"gather"`` (a row gather's
+    or another ``gather_stacked``'s) or ``"all_reduce"`` (a row gather's
+    backward)."""
     log = []
     _RECORDS.append(log)
     try:

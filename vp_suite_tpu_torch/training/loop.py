@@ -37,7 +37,7 @@ from vp_suite_tpu_torch.training.graphs import CompiledStep, capture_refusal
 
 #: the registry models whose every op is row-local, so that they run on a mesh
 #: with ``sp`` > 1 (each process on its slab of image rows)
-SPATIAL_MODELS = ("copy", "convlstm-shi")
+SPATIAL_MODELS = ("copy", "convlstm-shi", "trajgru")
 #: the losses that sum over pixels, so that the image slabs' parts add up to the
 #: whole image's (summed over ``sp``)
 SPATIAL_LOSSES = ("mse", "l1", "smooth_l1")
